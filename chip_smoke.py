@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``hebo_tpu_torch/csrc`` (one nvcc per source,
-   all at once).
-2. Holds each kernel against its plain PyTorch version at the main path's
+   all at once: gram.cu, chol.cu, ssk.cu).
+2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times the kernel, the plain version and one PyTorch library
-   call (the yardstick; the port never calls it).  Tolerances: Gram 1e-5
-   absolute (values ≤ outputscale ≈ 1.5); L 1e-4 and W 1e-3 absolute on
-   SPD inputs AAᵀ/N + 0.5·I.  Checks NaN propagation of the factorization
-   on a batch with one non-PSD member.
+   call where one computes the same function (the yardstick; the port never
+   calls it).  Tolerances: Gram 1e-5 absolute (values ≤ outputscale ≈ 1.5);
+   L 1e-4 and W 1e-3 absolute on SPD inputs AAᵀ/N + 0.5·I; SSK raw totals
+   1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute.
+   Checks NaN propagation of the factorization on a batch with one non-PSD
+   member, and the K1-backed ``cholesky_batched`` / ``chol_inv_batched``
+   API at (2, 512).
 3. Drives HEBO's suggest/observe loop at full default settings (pop 100 ×
    100 generations, 2 restarts × 50 pSGLD epochs, MACE) through the public
    API, with every kernel launch counted:
@@ -19,7 +22,17 @@
    (b) Ackley-6D warm-started with 800 Sobol observations (bucket 1024),
        then 2 × suggest(8).
    Every suggestion must be finite and inside the box.
-4. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+4. Drives AntBO (CDRH3 length 11, 20 amino acids, SSK GP with max_subseq 3
+   and 50 pSGLD epochs, constrained local search 256 × 8 × 8, Casmopolitan
+   TR) on the AbsolutTool surrogate energy of antigen 1H0D_C, with the
+   counts reset before it:
+   (c) 10 Sobol init designs, then 10 × suggest(2) to 30 observations
+       (bucket 32); the best energy must beat the init phase's;
+   (d) 200 random designs (AntBO's budget) warm-started (bucket 256), then
+       2 × suggest(2).
+   Every suggestion must be 11 letters of the alphabet and every energy
+   finite; fit and acquisition seconds are reported apart.
+5. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -39,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet, 700 W)
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
 GRAM_TOL, L_TOL, W_TOL = 1e-5, 1e-4, 1e-3
+SSK_RAW_TOL, SSK_TAN_TOL, SSK_K_TOL = 1e-5, 1e-4, 1e-5
 
 
 def cuda_ms(torch, fn, reps):
@@ -129,6 +143,92 @@ def check_chol(torch, ck, dev, gen, fails):
     return fac, winv
 
 
+def ssk_flops(s1, s2, B, P, self_mode):
+    """FP32 operations the SSK recursion needs on these codes over the batch
+    (FMA = 2).  The match mask m is a select, so K_p is formed and summed
+    only where codes match, and only where it is not structurally zero (a
+    subsequence of length p ends at a, b ≥ p − 1): step 1 adds λ_m² and 1
+    to two totals (2 per match); a later step forms λ_m²·T, λ_m²·T′_λ + T
+    and λ_m²·T′_g and adds them (7 per match).  Transition p (p = 1..P−1)
+    runs the R and T prefix recursions of the three chains over the
+    non-zero part of K_p, (L−p)(L−p−1) carried steps each (the first step
+    of each scan is a copy): value and λ_m² tangent one FMA each, the λ_g
+    tangent an add and an FMA, 14 per step for both recursions."""
+    L = s1.shape[1]
+    eq = (s1[:, :, None] == s1[:, None, :]) if self_mode else (s1[:, None, :, None] == s2[None, :, None, :])
+    pairs = eq.numel() // (L * L)
+    ops = sum((2 if p == 1 else 7) * int(eq[..., p - 1:, p - 1:].sum().item()) for p in range(1, P + 1))
+    ops += sum(14 * (L - p) * max(L - p - 1, 0) * pairs for p in range(1, P))
+    return B * ops
+
+
+def check_ssk(torch, ssk, dev, fails):
+    cross_rows, self_rows = [], []
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
+    cases = [(1, 256, 256, 11, 3, [(0.6, 0.7)]), (2, 256, 256, 11, 3, [(0.6, 0.7), (0.35, 0.9)]),
+             (1, 256, 1, 11, 3, [(0.5, 0.5)]), (1, 13, 5, 6, 2, [(0.8, 0.3)])]
+    rng = np.random.default_rng(0)
+    for B, N, M, L, P, decays in cases:
+        s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=dev)
+        s2 = torch.as_tensor(rng.integers(0, 20, (M, L)), dtype=torch.int32, device=dev)
+        md = torch.tensor([d[0] for d in decays], device=dev)
+        gd = torch.tensor([d[1] for d in decays], device=dev)
+        lam2 = md * md
+        got = ssk.ssk_cross(s1, s2, lam2, gd, P) + ssk.ssk_self(s1, lam2, gd, P)
+        want = ssk.ssk_cross_plain(s1, s2, lam2, gd, P) + ssk.ssk_self_plain(s1, lam2, gd, P)
+        errs = [rel(a, b) for a, b in zip(got, want)]
+        abs_errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        k_err = (ssk.ssk_gram(s1, s2, md, gd, P) - ssk.ssk_gram_plain(s1, s2, md, gd, P)).abs().max().item()
+        for what, e, tol in zip(("cross", "cross d/dlam2", "cross d/dgap", "self", "self d/dlam2",
+                                 "self d/dgap"), errs, (SSK_RAW_TOL, SSK_TAN_TOL, SSK_TAN_TOL) * 2):
+            if not e <= tol:
+                fails.append(f"ssk {what} {(B, N, M, L, P)}: max rel err {e}")
+        if not k_err <= SSK_K_TOL:
+            fails.append(f"ssk_gram {(B, N, M, L, P)}: max abs err {k_err}")
+        reps = 200 if N * M > 1e4 else 1000
+        bc, byc = bound(ssk_flops(s1, s2, B, P, False), 4 * ((N + M) * L + 2 * B + 3 * B * N * M))
+        bs, bys = bound(ssk_flops(s1, s1, B, P, True), 4 * (N * L + 2 * B + 3 * B * N))
+        # no single PyTorch call computes the SSK DP: library_ms is null
+        cross_rows.append(dict(
+            shape=[B, N, M, L, P], max_abs_err=max(abs_errs[:3]), max_rel_err=max(errs[:3]),
+            gram_max_abs_err=k_err,
+            ms=cuda_ms(torch, lambda: ssk.ssk_cross(s1, s2, lam2, gd, P), reps),
+            plain_ms=cuda_ms(torch, lambda: ssk.ssk_cross_plain(s1, s2, lam2, gd, P), 20),
+            bound_ms=bc, bound_by=byc, library_ms=None,
+        ))
+        if [B, N, L, P] in [r["shape"] for r in self_rows]:
+            continue  # (1, 256, 1) repeats the self set of (1, 256, 256)
+        self_rows.append(dict(
+            shape=[B, N, L, P], max_abs_err=max(abs_errs[3:]), max_rel_err=max(errs[3:]),
+            ms=cuda_ms(torch, lambda: ssk.ssk_self(s1, lam2, gd, P), reps),
+            plain_ms=cuda_ms(torch, lambda: ssk.ssk_self_plain(s1, lam2, gd, P), 20),
+            bound_ms=bs, bound_by=bys, library_ms=None,
+        ))
+    return cross_rows, self_rows
+
+
+def check_chol_api(torch, ck, dev, gen, fails):
+    """The K1-backed API of the JAX package's resident kernel at (2, 512)."""
+    A = torch.randn((2, 512, 512), generator=gen, device=dev)
+    K = (A @ A.transpose(1, 2) / 512 + 0.5 * torch.eye(512, device=dev)).contiguous()
+    L = ck.cholesky_batched(K)
+    L2, W = ck.chol_inv_batched(K)
+    L0, Wd0 = ck.chol_factor_plain(K)
+    W0 = ck.chol_winv_plain(L0, Wd0)
+    err_l = max((L - L0).abs().max().item(), (L2 - L0).abs().max().item())
+    err_w = (W - W0).abs().max().item()
+    if not (err_l <= L_TOL and err_w <= W_TOL):
+        fails.append(f"cholesky_batched / chol_inv_batched (2, 512): errors L {err_l}, W {err_w}")
+    bms, by = bound(2 * 512 ** 3 / 3, 4 * 2 * (2 * 512 * 512))
+    row = dict(shape=[2, 512], max_abs_err_L=err_l, max_abs_err_W=err_w,
+               ms=cuda_ms(torch, lambda: ck.cholesky_batched(K), 20),
+               plain_ms=cuda_ms(torch, lambda: ck.chol_factor_plain(K), 20),
+               bound_ms=bms, bound_by=by,
+               library_ms=cuda_ms(torch, lambda: torch.linalg.cholesky_ex(K), 20))
+    print("K4 API over K1 (cholesky_batched, (2,512)):", json.dumps(row), flush=True)
+    return row
+
+
 def ackley(df):
     X = df[[f"x{i}" for i in range(6)]].values.astype(float)
     s1 = (X ** 2).mean(1) ** 0.5
@@ -185,6 +285,68 @@ def run_phases(torch, HEBO, DesignSpace, fails):
     return a, b
 
 
+def antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails):
+    from hebo_tpu_torch.optimizers.antbo import AA_ALPHABET, check_cdr_constraints
+
+    tool = AbsolutTool("1H0D_C", seq_len=11)
+    letters = set(AA_ALPHABET)
+
+    def score(opt, rec, what):
+        seqs = ["".join(r) for _, r in rec.iterrows()]
+        if not all(len(q) == 11 and set(q) <= letters for q in seqs):
+            fails.append(f"{what}: suggestion not 11 letters of the alphabet: {seqs}")
+        y = tool(seqs)
+        if not np.isfinite(y).all():
+            fails.append(f"{what}: energy not finite")
+        return seqs, y
+
+    def timed_suggests(opt, n, what):
+        walls, feasible = [], []
+        for _ in range(n):
+            t0 = time.time()
+            rec = opt.suggest(2)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            seqs, y = score(opt, rec, f"{what} @ {opt.num_obs}")
+            feasible += [check_cdr_constraints(q) for q in seqs]
+            opt.observe(rec, y)
+        return dict(s_per_suggest=walls, fit_s=opt.fit_time[-n:], acq_s=opt.acq_time[-n:],
+                    s_per_suggest_median=float(np.median(walls)),
+                    fit_s_median=float(np.median(opt.fit_time[-n:])),
+                    acq_s_median=float(np.median(opt.acq_time[-n:])),
+                    feasible_share=float(np.mean(feasible)))
+
+    # (c) 10 Sobol init designs, then 10 model suggests of 2 → 30 observations
+    opt = AntBOOptimizer(seq_len=11, kernel="ssk", n_init=10, device="cuda")
+    while opt.num_obs < opt.n_init:
+        rec = opt.suggest(2)
+        opt.observe(rec, score(opt, rec, "phase c init")[1])
+    init_best = float(opt.y[:10, 0].min())
+    c = timed_suggests(opt, 10, "phase c")
+    bucket = int(opt.model.data.X.shape[0])
+    if bucket != 32 or opt.num_obs != 30:
+        fails.append(f"phase c: {opt.num_obs} observations in bucket {bucket}, expected 30 in 32")
+    if not opt.best_y < init_best:
+        fails.append(f"phase c: best {opt.best_y} does not beat the init phase's {init_best}")
+    c.update(n_obs=opt.num_obs, bucket=bucket, init_best=init_best, best=opt.best_y,
+             suggests=10, tr_restarts=opt.tr_manager.restart_count)
+    print("phase c (AntBO SSK, 1H0D_C, init 10 -> 30 obs, bucket 32):", json.dumps(c), flush=True)
+
+    # (d) AntBO's budget of 200 designs warm-started, then 2 x suggest(2)
+    opt = AntBOOptimizer(seq_len=11, kernel="ssk", n_init=10, device="cuda")
+    warm = opt.space.sample(200, seed=1)
+    opt.observe(warm, score(opt, warm, "phase d warm")[1])
+    d = timed_suggests(opt, 2, "phase d")
+    bucket = int(opt.model.data.X.shape[0])
+    if bucket != pad_bucket(200):
+        fails.append(f"phase d: bucket {bucket}, expected {pad_bucket(200)}")
+    if not bool(opt.model.caches.ok.all()):
+        fails.append("phase d: posterior factorization failed")
+    d.update(n_obs=opt.num_obs, bucket=bucket, best=opt.best_y, suggests=2)
+    print("phase d (AntBO SSK, 1H0D_C, 200 warm obs, bucket 256):", json.dumps(d), flush=True)
+    return c, d
+
+
 def main() -> int:
     import torch
 
@@ -197,7 +359,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from hebo_tpu_torch import HEBO, DesignSpace
     from hebo_tpu_torch.ops import chol_kernel as ck
-    from hebo_tpu_torch.ops import gram, native
+    from hebo_tpu_torch.ops import gram, native, ssk
+    from hebo_tpu_torch.optimizers import AntBOOptimizer
+    from hebo_tpu_torch.tasks import AbsolutTool
+    from hebo_tpu_torch.utils.dtypes import pad_bucket
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -215,34 +380,54 @@ def main() -> int:
     fails = []
     g_rows = check_gram(torch, gram, dev, gen, fails)
     f_rows, w_rows = check_chol(torch, ck, dev, gen, fails)
-    for name, rows in (("matern32_gram", g_rows), ("chol_factor", f_rows), ("chol_winv", w_rows)):
+    c_rows, s_rows = check_ssk(torch, ssk, dev, fails)
+    check_chol_api(torch, ck, dev, gen, fails)
+    for name, rows in (("matern32_gram", g_rows), ("chol_factor", f_rows), ("chol_winv", w_rows),
+                       ("ssk_cross", c_rows), ("ssk_self", s_rows)):
         for r in rows:
             print(f"kernel {name}", json.dumps(r), flush=True)
+    print("kernel ssk_cross / ssk_self: library_ms null, no single PyTorch call computes "
+          "the string-subsequence DP", flush=True)
 
     wrappers = {"matern32_gram": gram.matern32_gram, "chol_factor": ck.chol_factor,
-                "chol_winv": ck.chol_winv}
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.time()
-    run_phases(torch, HEBO, DesignSpace, fails)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"main path: {time.time() - t0:.1f} s, launches {json.dumps(launches)}", flush=True)
-    for k, n in launches.items():
-        if n == 0:
-            fails.append(f"{k}: no launch on the main path")
+                "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross, "ssk_self": ssk.ssk_self}
+    # each path is driven with every count at 0 and read just after
+    paths = {
+        "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, fails),
+                 ("matern32_gram", "chol_factor", "chol_winv")),
+        "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
+                  ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
+    }
+    by_path = {}
+    for path, (drive, its_kernels) in paths.items():
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        drive()
+        by_path[path] = {k: w.launches for k, w in wrappers.items()}
+        print(f"main path {path}: {time.time() - t0:.1f} s, launches {json.dumps(by_path[path])}",
+              flush=True)
+        for k in its_kernels:
+            if by_path[path][k] == 0:
+                fails.append(f"{k}: no launch on the {path} path")
 
-    main_shape = {"matern32_gram": [2, 1024, 1024, 6], "chol_factor": [2, 1024], "chol_winv": [2, 1024]}
+    main_shape = {"matern32_gram": [2, 1024, 1024, 6], "chol_factor": [2, 1024], "chol_winv": [2, 1024],
+                  "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3]}
     meta = {
         "matern32_gram": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:87", g_rows),
         "chol_factor": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:613", f_rows),
         "chol_winv": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:665", w_rows),
+        "ssk_cross": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:148", c_rows),
+        "ssk_self": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:167", s_rows),
     }
     kernels = []
     for name, (src, rep, rows) in meta.items():
         r = next(r for r in rows if r["shape"] == main_shape[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[name], "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
         })

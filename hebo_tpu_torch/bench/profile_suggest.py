@@ -1,11 +1,15 @@
-"""Where one HEBO suggest spends its time on a CUDA card.
+"""Where one HEBO or AntBO suggest spends its time on a CUDA card.
 
     python3 -m hebo_tpu_torch.bench.profile_suggest [--obs 112 800]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --antbo [--obs 28 200]
 
-For each observation count: Ackley-6D with that many Sobol observations,
-one warm-up suggest(8), then
-* one suggest timed by phase (fit, posterior cache, NSGA-II), each phase
-  ending in ``torch.cuda.synchronize()``;
+For each observation count: HEBO on Ackley-6D with that many Sobol
+observations (or, with ``--antbo``, AntBO's SSK GP on length-11 CDRH3
+sequences drawn at random and scored by the AbsolutTool surrogate of
+antigen 1H0D_C), one warm-up suggest, then
+* one suggest timed by phase (HEBO: fit, posterior cache, NSGA-II, each
+  phase ending in ``torch.cuda.synchronize()``; AntBO: the optimizer's own
+  fit and acquisition timers);
 * one suggest under ``torch.profiler`` (CPU + CUDA): wall time, summed
   device kernel time (its share of the wall time is the busy share), kernel
   launches and the top kernels by device time.
@@ -24,6 +28,8 @@ import torch
 
 from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
+from ..optimizers.antbo import AntBOOptimizer
+from ..tasks import AbsolutTool
 
 
 def _ackley(df):
@@ -65,10 +71,34 @@ def profile(n_obs: int) -> dict:
     finally:
         hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched = saved
 
+    return {"n_obs": n_obs, "bucket": int(opt.model.data.X.shape[0]),
+            "device": torch.cuda.get_device_name(0), **phases,
+            **_device_profile(lambda: opt.suggest(8))}
+
+
+def profile_antbo(n_obs: int) -> dict:
+    opt = AntBOOptimizer(seq_len=11, kernel="ssk", device="cuda")
+    tool = AbsolutTool("1H0D_C", seq_len=11)
+    warm = opt.space.sample(n_obs, seed=1)
+    opt.observe(warm, tool(["".join(r) for _, r in warm.iterrows()]))
+    opt.suggest(2)  # warm-up
+    t0 = time.perf_counter()
+    opt.suggest(2)
+    torch.cuda.synchronize()
+    phases = {"suggest_s": time.perf_counter() - t0, "fit_s": opt.fit_time[-1],
+              "acq_s": opt.acq_time[-1]}
+    return {"n_obs": n_obs, "bucket": int(opt.model.data.X.shape[0]),
+            "device": torch.cuda.get_device_name(0), **phases,
+            **_device_profile(lambda: opt.suggest(2))}
+
+
+def _device_profile(suggest) -> dict:
+    """One suggest under torch.profiler: wall, device time, busy share,
+    launches and the top kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        opt.suggest(8)
+        suggest()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -79,8 +109,6 @@ def profile(n_obs: int) -> dict:
     dev_s = sum(ms for _, ms in by_name.values()) * 1e-3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {
-        "n_obs": n_obs, "bucket": int(opt.model.data.X.shape[0]),
-        "device": torch.cuda.get_device_name(0), **phases,
         "profiled_wall_s": wall, "device_kernel_s": dev_s,
         "device_busy_share": dev_s / wall, "kernel_launches": len(kern),
         "top_kernels_ms": {k[:80]: {"n": n, "ms": ms} for k, (n, ms) in top},
@@ -89,12 +117,15 @@ def profile(n_obs: int) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--obs", type=int, nargs="+", default=[112, 800])
+    ap.add_argument("--antbo", action="store_true", help="profile AntBO (SSK GP) instead of HEBO")
+    ap.add_argument("--obs", type=int, nargs="+", default=None,
+                    help="observation counts (default 112 800; with --antbo 28 200)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
-    for n in args.obs:
-        print(json.dumps(profile(n)), flush=True)
+    run = profile_antbo if args.antbo else profile
+    for n in args.obs or ([28, 200] if args.antbo else [112, 800]):
+        print(json.dumps(run(n)), flush=True)
 
 
 if __name__ == "__main__":

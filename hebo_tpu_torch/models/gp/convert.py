@@ -12,9 +12,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .gp import GPData, GPParams
+from .gp import GPCache, GPData, GPParams
 
-__all__ = ["params_from_jax", "data_from_jax"]
+__all__ = ["params_from_jax", "data_from_jax", "cache_from_jax"]
 
 
 def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
@@ -39,3 +39,12 @@ def data_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPData:
         mask=torch.as_tensor(np.array(d["mask"], dtype=bool), device=device),
         x_lb=f32("x_lb"), x_span=f32("x_span"), y_mean=f32("y_mean"), y_std=f32("y_std"),
     )
+
+
+def cache_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPCache:
+    """``GPCache`` fields (``L``, ``alpha``, ``ok``, ``Wf``; stacked per
+    ensemble sample) → the port's ``GPCache`` on ``device``."""
+    f32 = lambda k: torch.as_tensor(np.array(d[k], dtype=np.float32), device=device)
+    return GPCache(L=f32("L"), alpha=f32("alpha"),
+                   ok=torch.as_tensor(np.array(d["ok"], dtype=bool), device=device),
+                   Wf=None if d.get("Wf") is None else f32("Wf"))

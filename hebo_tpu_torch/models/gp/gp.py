@@ -13,8 +13,16 @@ Random numbers come from a ``torch.Generator`` on the device, or are passed
 in (``init_params(draws=...)``, ``fit_from_batched(noise=...)``) so that a
 test can feed the JAX package's own draws.
 
-On CUDA the Matérn-3/2 Gram goes through kernel K2 (``ops/gram.py``) and
-every factorization through kernel K1 (``ops/chol_kernel.py``).  Buckets
+Categorical columns take one of four ``cat_kernel`` modes (gp.py:136-178):
+``embedding`` (learned embeddings inside the Matérn, HEBO's default) or the
+purely pairwise ``overlap``, ``transformed_overlap`` and ``ssk`` (string
+subsequence kernel, AntBO/BOSS), whose Gram multiplies the Matérn part of
+the numerics.  Their parameters trail ``log_ls`` (θ for transformed overlap,
+logits of the match and gap decays for SSK).
+
+On CUDA the Matérn-3/2 Gram goes through kernel K2 (``ops/gram.py``), the
+SSK Gram through kernel K3 (``ops/ssk.py``) and every factorization through
+kernel K1 (``ops/chol_kernel.py``).  Buckets
 above ``max_cholesky_size`` (2048) take the JAX package's CG route, which is
 not ported yet (ROADMAP slice 7): they raise ``NotImplementedError``.
 """
@@ -29,10 +37,11 @@ import torch
 
 from ...ops.chol import LADDER, batched_ladder_factor, make_masked_nll_batched
 from ...ops.gram import matern32_gram
+from ...ops.ssk import ssk_gram
 from ...utils.device import resolve_device
 from ...utils.dtypes import pad_bucket
 from ..base import BaseModel, register_model
-from .kernels import embed_categorical, sq_dist
+from .kernels import embed_categorical, overlap, sq_dist, transformed_overlap
 
 __all__ = ["GPParams", "GPData", "GPCache", "GPCore", "GP", "make_data", "map_fit"]
 
@@ -41,7 +50,7 @@ class GPParams(NamedTuple):
     """Hyperparameters; every leaf has a leading batch axis (restarts or
     ensemble samples).  Field order is the JAX pytree's leaf order."""
 
-    log_ls: torch.Tensor  # (B, D_feat)
+    log_ls: torch.Tensor  # (B, D_feat): feature lengthscales ++ cat-kernel params
     log_sc: torch.Tensor  # (B,)
     log_noise: torch.Tensor  # (B,)
     mean: torch.Tensor  # (B,)
@@ -71,6 +80,9 @@ class GPCache(NamedTuple):
     Wf: Optional[torch.Tensor] = None  # (S, Nmax, Nmax)
 
 
+_CAT_KERNELS = ("embedding", "overlap", "transformed_overlap", "ssk")
+
+
 def _slice7(n: int) -> NotImplementedError:
     return NotImplementedError(
         f"bucket {n} is above max_cholesky_size: the large-N CG route is "
@@ -90,6 +102,7 @@ class GPCore:
         cat_kernel: str = "embedding",
         noise_lb: float = 8.9e-5,
         emb_dim: Optional[int] = None,
+        ssk_max_subseq: int = 3,
         optimizer: str = "psgld",
         n_steps: int = 100,
         lr: float = 0.05,
@@ -99,8 +112,11 @@ class GPCore:
     ):
         if kernel != "matern32":
             raise NotImplementedError(f"kernel {kernel!r}: only matern32 is ported")
-        if cat_dims and cat_kernel != "embedding":
-            raise NotImplementedError(f"cat_kernel {cat_kernel!r}: only embedding is ported")
+        if cat_dims and cat_kernel not in _CAT_KERNELS:
+            raise NotImplementedError(
+                f"cat_kernel {cat_kernel!r}: only {', '.join(_CAT_KERNELS)} are ported "
+                "(the others are ROADMAP slice 11)"
+            )
         if optimizer not in ("psgld", "adam"):
             raise NotImplementedError(f"optimizer {optimizer!r}: only psgld and adam are ported")
         self.numeric_dims = tuple(numeric_dims)
@@ -117,31 +133,60 @@ class GPCore:
         self.total_cats = sum(self.num_categories)
         self._cat_offsets = np.cumsum((0,) + self.num_categories[:-1]).astype(np.int64)
         self.d_num = len(self.numeric_dims)
-        self.n_feat_dims = self.d_num + len(self.cat_dims) * self.emb_dim
-        self.d_feat = self.n_feat_dims
+        self.cat_kernel = cat_kernel if self.cat_dims else "embedding"
+        C = len(self.cat_dims)
+        n_cat_feat = C * self.emb_dim if self.cat_kernel == "embedding" else 0
+        # trailing cat-kernel parameters of log_ls: θ per column, or SSK's two decays
+        self.n_cat_param = {"transformed_overlap": C, "ssk": 2}.get(self.cat_kernel, 0)
+        self.ssk_max_subseq = int(ssk_max_subseq)
+        self.n_feat_dims = self.d_num + n_cat_feat
+        self.d_feat = self.n_feat_dims + self.n_cat_param
         self.max_cholesky_size = int(max_cholesky_size)
 
     # ------------------------------------------------------------- features
     def features(self, params: GPParams, X: torch.Tensor, data: GPData) -> torch.Tensor:
-        """(B, N, D_feat): scaled numerics in [-1, 1] ++ embeddings."""
+        """(B, N, n_feat_dims): scaled numerics in [-1, 1] ++ embeddings;
+        zero-width for a purely pairwise categorical kernel."""
         B = params.log_sc.shape[0]
         parts = []
         if self.d_num:
             xn = X[:, list(self.numeric_dims)]
             u = torch.clamp((xn - data.x_lb) / data.x_span, 0.0, 1.0)
             parts.append((2.0 * u - 1.0).expand(B, -1, -1))
-        if self.cat_dims:
+        if self.cat_dims and self.cat_kernel == "embedding":
             offs = torch.as_tensor(self._cat_offsets, device=X.device)
             parts.append(embed_categorical(X[:, list(self.cat_dims)], params.emb, offs))
+        if not parts:
+            return X.new_zeros((B, X.shape[0], 0))
         return torch.cat(parts, -1)
+
+    def cat_gram(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
+        """(B or 1, N, M) pairwise categorical kernel (gp.py:298-327)."""
+        c1 = X1[:, list(self.cat_dims)]
+        c2 = X2[:, list(self.cat_dims)]
+        cat_p = params.log_ls[:, self.n_feat_dims:]
+        if self.cat_kernel == "overlap":
+            return overlap(c1, c2)[None]
+        if self.cat_kernel == "transformed_overlap":
+            return transformed_overlap(c1, c2, torch.exp(cat_p))
+        return ssk_gram(c1, c2, torch.sigmoid(cat_p[:, 0]), torch.sigmoid(cat_p[:, 1]),
+                        self.ssk_max_subseq)
 
     def gram_points(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor,
                     data: GPData) -> torch.Tensor:
-        """(B, N, M) outputscale × Matérn-3/2 over the features (kernel K2)."""
-        ls = torch.exp(params.log_ls[:, : self.n_feat_dims])[:, None, :]
-        a = (self.features(params, X1, data) / ls).contiguous()
-        b = (self.features(params, X2, data) / ls).contiguous()
-        return matern32_gram(a, b, torch.exp(params.log_sc).contiguous())
+        """(B, N, M) outputscale × Matérn-3/2 over the features (kernel K2)
+        × the pairwise categorical kernel, where there is one."""
+        sc = torch.exp(params.log_sc)
+        if self.n_feat_dims:
+            ls = torch.exp(params.log_ls[:, : self.n_feat_dims])[:, None, :]
+            a = (self.features(params, X1, data) / ls).contiguous()
+            b = (self.features(params, X2, data) / ls).contiguous()
+            K = matern32_gram(a, b, sc.contiguous())
+        else:
+            K = sc[:, None, None]
+        if self.cat_kernel != "embedding":
+            K = K * self.cat_gram(params, X1, X2)
+        return K
 
     def noise_diag(self, params: GPParams) -> torch.Tensor:
         return torch.exp(params.log_noise) + self.noise_lb
@@ -203,16 +248,22 @@ class GPCore:
             log_wa=torch.zeros((n, self.d_num), **f32),
             log_wb=torch.zeros((n, self.d_num), **f32),
         )
-        f = self.features(p0, data.X, data)
-        d2 = sq_dist(f, f)
-        m2 = data.mask[:, None] & data.mask[None, :]
-        d2 = torch.where(m2 & (d2 > 1e-12), d2, torch.full_like(d2, float("nan")))
-        # the mean of the two middle values, as jnp.nanmedian (torch.nanmedian
-        # returns the lower one)
-        med = torch.sqrt(torch.nanquantile(d2.reshape(n, -1), 0.5, dim=1))
-        med = torch.where(torch.isfinite(med) & (med > 1e-6), med, torch.ones_like(med))
-        log_ls = torch.log(med)[:, None].expand(n, self.d_feat) + 0.1 * z_ls
-        return p0._replace(log_ls=log_ls)
+        if self.n_feat_dims:
+            f = self.features(p0, data.X, data)
+            d2 = sq_dist(f, f)
+            m2 = data.mask[:, None] & data.mask[None, :]
+            d2 = torch.where(m2 & (d2 > 1e-12), d2, torch.full_like(d2, float("nan")))
+            # the mean of the two middle values, as jnp.nanmedian
+            # (torch.nanmedian returns the lower one)
+            med = torch.sqrt(torch.nanquantile(d2.reshape(n, -1), 0.5, dim=1))
+            med = torch.where(torch.isfinite(med) & (med > 1e-6), med, torch.ones_like(med))
+            log_med = torch.log(med)
+        else:
+            log_med = torch.zeros((n,), **f32)
+        # feature dims: median-distance init; trailing cat-kernel params: 0
+        log_ls = torch.cat([log_med[:, None].expand(n, self.n_feat_dims),
+                            torch.zeros((n, self.n_cat_param), **f32)], 1)
+        return p0._replace(log_ls=log_ls + 0.1 * z_ls)
 
     # ------------------------------------------------------------------ fit
     def fit_from_batched(
@@ -405,6 +456,7 @@ class GP(BaseModel):
             cat_kernel=conf.get("cat_kernel", "embedding"),
             noise_lb=conf.get("noise_lb", 8.9e-5),
             emb_dim=conf.get("emb_dim"),
+            ssk_max_subseq=conf.get("ssk_max_subseq", 3),
             optimizer=conf.get("optimizer", "psgld"),
             n_steps=conf.get("num_epochs", 100),
             lr=conf.get("lr", 0.05),

@@ -14,6 +14,11 @@ and ``chol_inv(K) → (L, W)`` slices both back to (B, n, n).  Any n works;
 the padding is exact, as ``_run_slab`` pads the batch with identities
 (pallas_chol.py:600-604).
 
+``cholesky_batched`` and ``chol_inv_batched`` are the API of the JAX
+package's r3 VMEM-resident kernel ``_chol_kernel`` (pallas_call :228,
+``cholesky_batched`` :243 and ``chol_inv_batched`` :249, N ≤ 1024): the
+same L, or (L, W), computed here by K1 at any N.
+
 Failure semantics: a non-PSD matrix yields NaNs in its own L and W and in
 no other matrix of the batch.  The plain version gets there by NaN-filling
 the matrices whose ``cholesky_ex`` ``info`` is non-zero, because
@@ -28,7 +33,7 @@ from . import native
 
 __all__ = [
     "TILE", "padded_size", "chol_factor", "chol_factor_plain", "chol_winv",
-    "chol_winv_plain", "chol_inv",
+    "chol_winv_plain", "chol_inv", "cholesky_batched", "chol_inv_batched",
 ]
 
 TILE = 64
@@ -72,7 +77,7 @@ def chol_factor(K: torch.Tensor):
     """K1a: (L, Wd) for K (B, n, n) float32; kernel on CUDA, plain on CPU."""
     if K.device.type == "cpu":
         return chol_factor_plain(K)
-    native.require_cuda_f32("chol_factor", K)
+    native.require_cuda("chol_factor", K)
     B, n, n2 = K.shape
     if n != n2:
         raise ValueError(f"chol_factor: expected square matrices, got {tuple(K.shape)}")
@@ -94,7 +99,7 @@ def chol_winv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
     """K1b: W = L⁻¹ from ``chol_factor``'s outputs; kernel on CUDA."""
     if L.device.type == "cpu":
         return chol_winv_plain(L, Wd)
-    native.require_cuda_f32("chol_winv", L, Wd)
+    native.require_cuda("chol_winv", L, Wd)
     B, Np, _ = L.shape
     if Np % TILE or Wd.shape != (B, Np // TILE, TILE, TILE):
         raise ValueError(f"chol_winv: bad shapes L {tuple(L.shape)}, Wd {tuple(Wd.shape)}")
@@ -120,3 +125,14 @@ def chol_inv(K: torch.Tensor):
     L, Wd = chol_factor(K)
     W = chol_winv(L, Wd)
     return L[:, :n, :n], W[:, :n, :n]
+
+
+def cholesky_batched(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor (zeros above the diagonal) of a (B, N, N)
+    float32 batch; NaNs in a non-PSD member's factor.  K1a on CUDA."""
+    n = K.shape[-1]
+    return chol_factor(K)[0][:, :n, :n]
+
+
+# (L, W) with K = L Lᵀ and W = L⁻¹, each (B, N, N): K1 on CUDA
+chol_inv_batched = chol_inv

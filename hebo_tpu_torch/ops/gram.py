@@ -45,7 +45,7 @@ def matern32_gram_plain(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
 
 
 def _launch(a, b, sc, jitter):
-    native.require_cuda_f32("matern32_gram", a, b, sc)
+    native.require_cuda("matern32_gram", a, b, sc)
     B, N, D = a.shape
     if b.shape[0] != B or b.shape[2] != D or sc.shape != (B,):
         raise ValueError(

@@ -36,6 +36,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hebo_chol_factor": [_P, _P, _P, _I, _I, _I, _P],
         "hebo_chol_winv": [_P, _P, _P, _I, _I, _P],
     },
+    "ssk": {
+        "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hebo_ssk_self": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 NVCC_FLAGS = [
@@ -122,14 +126,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def require_cuda_f32(what: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 CUDA tensor on the
-    same device."""
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless every tensor is a contiguous ``dtype`` (float32 by
+    default) CUDA tensor on the same device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{what}: expected CUDA tensors on one device, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: expected contiguous tensors")

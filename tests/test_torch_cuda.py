@@ -6,14 +6,16 @@ Imports only torch and the port, so it runs where JAX is not installed:
 
 Without a CUDA device every test skips.  Tolerances: Gram 1e-5 (float32,
 values ≤ outputscale); L 1e-4 and W 1e-3 absolute on SPD inputs with
-diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order).
+diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); SSK raw totals
+1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
+recursions vs dense D-matrix products).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from hebo_tpu_torch.ops import chol_kernel
+from hebo_tpu_torch.ops import chol_kernel, ssk
 from hebo_tpu_torch.ops.chol_kernel import chol_inv
 from hebo_tpu_torch.ops.gram import matern32_gram, matern32_gram_plain
 
@@ -62,3 +64,49 @@ def test_chol_kernel_nan_stays_in_its_matrix(cuda):
     L, W = chol_inv(K)
     assert not torch.isfinite(L[1]).all() and not torch.isfinite(W[1]).all()
     assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(W[[0, 2]]).all()
+
+
+def _rel(a, b):
+    return ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,L,P", [(1, 256, 256, 11, 3), (2, 256, 256, 11, 3), (1, 256, 1, 11, 3),
+                                       (1, 13, 5, 6, 2), (2, 37, 70, 4, 5)])
+def test_ssk_kernel_on_card(cuda, B, N, M, L, P):
+    rng = np.random.default_rng(B * N + M)
+    s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=cuda)
+    s2 = torch.as_tensor(rng.integers(0, 20, (M, L)), dtype=torch.int32, device=cuda)
+    md = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
+    gd = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
+    n0 = (ssk.ssk_cross.launches, ssk.ssk_self.launches)
+    cross = ssk.ssk_cross(s1, s2, md * md, gd, P)
+    self1 = ssk.ssk_self(s1, md * md, gd, P)
+    assert (ssk.ssk_cross.launches, ssk.ssk_self.launches) == (n0[0] + 1, n0[1] + 1)
+    cross0 = ssk.ssk_cross_plain(s1, s2, md * md, gd, P)
+    self0 = ssk.ssk_self_plain(s1, md * md, gd, P)
+    for k, tol in enumerate((1e-5, 1e-4, 1e-4)):
+        assert _rel(cross[k], cross0[k]) <= tol
+        assert _rel(self1[k], self0[k]) <= tol
+    md.requires_grad_(True)
+    gd.requires_grad_(True)
+    K = ssk.ssk_gram(s1.float(), s2.float(), md, gd, P)
+    K0 = ssk.ssk_gram_plain(s1, s2, md, gd, P)
+    assert (K - K0).abs().max().item() <= 1e-5
+    w = torch.randn(K.shape, device=cuda)
+    g = torch.autograd.grad((w * K).sum(), (md, gd))
+    g0 = torch.autograd.grad((w * K0).sum(), (md, gd))
+    for a, b in zip(g, g0):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_chol_resident_api_on_card(cuda):
+    rng = np.random.default_rng(8)
+    K = torch.as_tensor(_spd(rng, 2, 512), device=cuda)
+    L = chol_kernel.cholesky_batched(K)
+    L2, W = chol_kernel.chol_inv_batched(K)
+    L0, W0 = chol_kernel.chol_inv(K.cpu())
+    torch.testing.assert_close(L.cpu(), L0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(L2.cpu(), L0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(W.cpu(), W0, rtol=0, atol=1e-3)

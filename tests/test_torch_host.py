@@ -109,6 +109,11 @@ import hebo_tpu_torch
 for m in pkgutil.walk_packages(hebo_tpu_torch.__path__, "hebo_tpu_torch."):
     importlib.import_module(m.name)
 from hebo_tpu_torch import HEBO
+from hebo_tpu_torch.optimizers import AntBOOptimizer, BoBuilder
+from hebo_tpu_torch.tasks import AbsolutTool
+for m in ("ops.ssk", "trust_region.casmo", "acq_optimizers.mcbo_opts", "optimizers.bo_builder",
+          "optimizers.antbo", "tasks.antbo_tools"):
+    assert "hebo_tpu_torch." + m in sys.modules, m
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "hebo_tpu."))]
 assert not bad, bad
 print("ok")

@@ -150,3 +150,35 @@ def test_wrappers_refuse_other_devices():
         matern32_gram(meta, meta, torch.zeros(1, device="meta"))
     with pytest.raises(ValueError):
         chol_winv(meta, torch.zeros((1, 1, 64, 64), device="meta"))
+
+
+# K4: hebo_tpu's r3 resident-kernel API (pallas_chol.py:243/:249), served by K1
+@pytest.mark.parametrize("B,N", [(3, 128), (2, 256)])
+def test_cholesky_batched_api_matches_pallas_interpret(B, N):
+    from hebo_tpu.ops.pallas_chol import cholesky_batched as jchol
+
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((B, N, 32)).astype(np.float32)
+    K = A @ np.swapaxes(A, 1, 2) + 32.0 * np.eye(N, dtype=np.float32)
+    Lj = np.asarray(jchol(jnp.asarray(K), interpret=True))
+    L = chol_kernel.cholesky_batched(torch.as_tensor(K)).numpy()
+    assert L.shape == (B, N, N)
+    assert np.abs(L - Lj).max() / np.abs(Lj).max() < 2e-5
+    iu = np.triu_indices(N, k=1)
+    assert np.abs(L[:, iu[0], iu[1]]).max() == 0.0
+
+
+def test_chol_inv_batched_api_matches_pallas_interpret():
+    from hebo_tpu.ops.pallas_chol import chol_inv_batched as jchol_inv
+
+    rng = np.random.default_rng(1)
+    B, N = 2, 256
+    A = rng.standard_normal((B, N, 16)).astype(np.float32)
+    K = A @ np.swapaxes(A, 1, 2) + 16.0 * np.eye(N, dtype=np.float32)
+    Lj, Wj = (np.asarray(t) for t in jchol_inv(jnp.asarray(K), interpret=True))
+    L, W = (t.numpy() for t in chol_kernel.chol_inv_batched(torch.as_tensor(K)))
+    np.testing.assert_allclose(L, Lj, rtol=0, atol=1e-4 * np.abs(Lj).max())
+    assert np.abs(np.einsum("bij,bjk->bik", W, L) - np.eye(N)[None]).max() < 1e-3
+    np.testing.assert_allclose(W, Wj, rtol=0, atol=1e-4)
+    bad = np.diag([1.0, -1.0] + [1.0] * 126).astype(np.float32)[None]
+    assert np.isnan(chol_kernel.cholesky_batched(torch.as_tensor(bad)).numpy()).any()
