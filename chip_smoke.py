@@ -11,9 +11,10 @@
    calls it).  Tolerances: Gram 1e-5 absolute (values ≤ outputscale ≈ 1.5);
    L 1e-4 and W 1e-3 absolute on SPD inputs AAᵀ/N + 0.5·I; SSK raw totals
    1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute.
+   K1 runs at every shape of the main paths and prints library_ms / ms.
    Checks NaN propagation of the factorization on a batch with one non-PSD
-   member, and the K1-backed ``cholesky_batched`` / ``chol_inv_batched``
-   API at (2, 512).
+   member and on one whose first bad pivot lies in a late tile, and the
+   K1-backed ``cholesky_batched`` / ``chol_inv_batched`` API at (2, 512).
 3. Drives HEBO's suggest/observe loop at full default settings (pop 100 ×
    100 generations, 2 restarts × 50 pSGLD epochs, MACE) through the public
    API, with every kernel launch counted:
@@ -99,8 +100,13 @@ def check_gram(torch, gram, dev, gen, fails):
 
 
 def check_chol(torch, ck, dev, gen, fails):
+    """K1a and K1b at the main paths' shapes: AntBO's fit and cache (1, 32)
+    and (1, 256), HEBO's cache (1, 128) and (1, 1024), HEBO's fit (2, 128)
+    and (2, 1024), and (2, 2048).  Host dispatch is part of the time at the
+    small shapes, for the kernels and the library call alike, so those get
+    more calls per timing."""
     fac, winv = [], []
-    for B, N in [(2, 128), (2, 1024), (1, 1024), (2, 2048)]:
+    for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (2, 2048)]:
         A = torch.randn((B, N, N), generator=gen, device=dev)
         K = (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
         L, Wd = ck.chol_factor(K)
@@ -112,34 +118,47 @@ def check_chol(torch, ck, dev, gen, fails):
             fails.append(f"chol_factor {(B, N)}: max abs err {err_f}")
         if not err_w <= W_TOL:
             fails.append(f"chol_winv {(B, N)}: max abs err {err_w}")
-        reps = 20 if N <= 1024 else 5
+        reps = 200 if N <= 256 else 20 if N <= 1024 else 5
         Np = L.shape[-1]
         eye = torch.eye(Np, device=dev).expand_as(L)
         bf, byf = bound(B * N ** 3 / 3, 4 * (B * N * N + B * Np * Np + Wd.numel()))
         bw, byw = bound(B * N ** 3 / 3, 4 * (2 * B * Np * Np + Wd.numel()))
-        fac.append(dict(
-            shape=[B, N], max_abs_err=err_f,
-            ms=cuda_ms(torch, lambda: ck.chol_factor(K), reps),
-            plain_ms=cuda_ms(torch, lambda: ck.chol_factor_plain(K), reps),
-            bound_ms=bf, bound_by=byf,
-            library_ms=cuda_ms(torch, lambda: torch.linalg.cholesky_ex(K), reps),
-        ))
-        winv.append(dict(
-            shape=[B, N], max_abs_err=err_w,
-            ms=cuda_ms(torch, lambda: ck.chol_winv(L, Wd), reps),
-            plain_ms=cuda_ms(torch, lambda: ck.chol_winv_plain(L, Wd), reps),
-            bound_ms=bw, bound_by=byw,
-            library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, eye, upper=False), reps),
-        ))
+        for rows, fn, plain, lib, err, bms, by in (
+            (fac, lambda: ck.chol_factor(K), lambda: ck.chol_factor_plain(K),
+             lambda: torch.linalg.cholesky_ex(K), err_f, bf, byf),
+            (winv, lambda: ck.chol_winv(L, Wd), lambda: ck.chol_winv_plain(L, Wd),
+             lambda: torch.linalg.solve_triangular(L, eye, upper=False), err_w, bw, byw),
+        ):
+            ms = cuda_ms(torch, fn, reps)
+            library_ms = cuda_ms(torch, lib, reps)
+            rows.append(dict(shape=[B, N], max_abs_err=err, ms=ms, plain_ms=cuda_ms(torch, plain, reps),
+                             bound_ms=bms, bound_by=by, library_ms=library_ms,
+                             library_over_ms=library_ms / ms))
     # NaN propagation: one non-PSD member, its neighbours untouched
     K[0] = -torch.eye(K.shape[-1], device=dev)
     L, W = ck.chol_inv(K)
     nan_ok = (not torch.isfinite(L[0]).all().item() and not torch.isfinite(W[0]).all().item()
               and torch.isfinite(L[1]).all().item() and torch.isfinite(W[1]).all().item())
-    print(f"chol NaN propagation (batch {tuple(K.shape)}, member 0 = -I): "
-          f"{'ok' if nan_ok else 'FAILED'}", flush=True)
+    # ... and a first bad pivot in a late tile: blockdiag(SPD 200x200, -I)
+    # in the middle of a batch of 3 fails in tile 3 of 4
+    A = torch.randn((3, 256, 256), generator=gen, device=dev)
+    K = (A @ A.transpose(1, 2) / 256 + 0.5 * torch.eye(256, device=dev)).contiguous()
+    K[1, :200, 200:] = 0.0
+    K[1, 200:, :200] = 0.0
+    K[1, 200:, 200:] = -torch.eye(56, device=dev)
+    L, W = ck.chol_inv(K)
+    late_ok = (not torch.isfinite(L[1]).all().item() and not torch.isfinite(W[1]).all().item()
+               and torch.isfinite(L[[0, 2]]).all().item() and torch.isfinite(W[[0, 2]]).all().item())
+    print(f"chol NaN propagation (batch (2, 2048, 2048), member 0 = -I): {'ok' if nan_ok else 'FAILED'}; "
+          f"late tile (batch (3, 256, 256), member 1 fails in tile 3): {'ok' if late_ok else 'FAILED'}",
+          flush=True)
     if not nan_ok:
         fails.append("chol NaN propagation")
+    if not late_ok:
+        fails.append("chol NaN propagation from a late tile")
+    for name, rows in (("chol_factor vs cholesky_ex", fac), ("chol_winv vs solve_triangular", winv)):
+        print(f"{name}, library_ms / ms:",
+              ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f}" for r in rows), flush=True)
     return fac, winv
 
 

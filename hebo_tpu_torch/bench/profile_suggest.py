@@ -12,7 +12,10 @@ antigen 1H0D_C), one warm-up suggest, then
   fit and acquisition timers);
 * one suggest under ``torch.profiler`` (CPU + CUDA): wall time, summed
   device kernel time (its share of the wall time is the busy share), kernel
-  launches and the top kernels by device time.
+  launches and the top kernels by device time; kernel K1's device kernels
+  with their launches per ``chol_factor`` call, and the count of library
+  factorization / triangular-solve kernels (cuSOLVER potrf, cuBLAS trsm),
+  which no CUDA path of the port should launch.
 Prints one JSON line per observation count.
 """
 
@@ -28,6 +31,7 @@ import torch
 
 from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
+from ..ops import chol_kernel
 from ..optimizers.antbo import AntBOOptimizer
 from ..tasks import AbsolutTool
 
@@ -96,11 +100,13 @@ def _device_profile(suggest) -> dict:
     """One suggest under torch.profiler: wall, device time, busy share,
     launches and the top kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    k1_calls = chol_kernel.chol_factor.launches
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         suggest()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    k1_calls = chol_kernel.chol_factor.launches - k1_calls
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
     for e in kern:
@@ -108,10 +114,17 @@ def _device_profile(suggest) -> dict:
         by_name[e.name] = (n + 1, ms + e.device_time_total * 1e-3)
     dev_s = sum(ms for _, ms in by_name.values()) * 1e-3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    k1 = {k.split("::")[-1].split("(")[0]: {"n": n, "ms": ms, "per_call": n / max(k1_calls, 1)}
+          for k, (n, ms) in by_name.items() if "chol_" in k or "winv_" in k}
+    library = sum(n for k, (n, _) in by_name.items()
+                  if any(w in k.lower() for w in ("potrf", "trsm", "trsv", "cusolver")))
     return {
         "profiled_wall_s": wall, "device_kernel_s": dev_s,
         "device_busy_share": dev_s / wall, "kernel_launches": len(kern),
         "top_kernels_ms": {k[:80]: {"n": n, "ms": ms} for k, (n, ms) in top},
+        "k1_calls": k1_calls, "k1_kernels": k1,
+        "k1_device_ms": sum(v["ms"] for v in k1.values()),
+        "library_linalg_launches": library,
     }
 
 

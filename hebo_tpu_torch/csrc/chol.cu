@@ -5,295 +5,582 @@
 //   K1a  hebo_chol_factor  <- _factor_slab_kernel (pallas_call :613):
 //        K = L L^T and the inverses Wd_j of the 64x64 diagonal tiles of L;
 //   K1b  hebo_chol_winv    <- _winv_tile_kernel (pallas_call :665):
-//        W = L^-1 by blocked forward substitution,
-//        W_jj = Wd_j,  W_ij = -Wd_i * sum_{j<=k<i} L_ik W_kj.
+//        W = L^-1.
 //
 // Layout: the wrapper pads an (n, n) matrix to Np = 64 * ceil(n / 64) with
 // an identity block (exact: the factor and inverse of blockdiag(K, I) are
-// blockdiag(L, I) and blockdiag(W, I)) and slices back.
+// blockdiag(L, I) and blockdiag(W, I)) and slices back.  nt = Np / 64.
 //
-// What bounds it on an H100: neither bytes nor FLOPs but the serial pivot
-// chain.  The main path factors a batch of B = 2 (fit restarts) or B = 1
-// (posterior cache) matrices of N <= 2048, so one CTA per matrix would use
-// 2 of the 132 SMs, and the N^3/3 FLOPs (0.36 GFLOP at N = 1024) are a few
-// microseconds of the FP32 peak.  The design spreads the O(N^3) work over
-// the SMs and keeps only the irreducible serial part in one CTA per matrix,
-// right-looking with 64-wide panels and a host loop over panels:
-//   1. chol_diag:  one CTA per matrix factors the 64x64 diagonal tile in
-//      shared memory with the serial column loop and, in the same loop,
-//      forward-substitutes its inverse Wd (as _diag_factor_inverse_merged
-//      does: each step yields an L column and a W row);
-//   2. chol_panel: the tiles below it, L_ij = A_ij Wd_j^T, one CTA per tile;
-//   3. chol_trail: the trailing update A_ik -= L_ij L_kj^T over all lower
-//      tiles of the trailing matrix, one CTA per (matrix, tile);
-// and K1b walks the block diagonals s = i - j of W, one CTA per tile of the
-// diagonal, since W_ij needs only the W_kj of earlier diagonals.
-// The tile products are plain FP32 FMA loops over shared memory (no TF32:
-// the JAX package runs them at Precision.HIGHEST).
+// What bounds it on an H100: neither bytes nor FLOPs but the serial chain.
+// The main path factors a batch of B = 2 (fit restarts) or B = 1 (posterior
+// cache) matrices of N <= 2048: N^3/3 FLOPs are 5 us of the FP32 peak at
+// N = 1024, while the factorization is a chain of nt dependent diagonal
+// tiles and every link costs a launch plus the tile work on one SM.  So the
+// design shortens each link and cuts the links:
+//
+// K1a, right-looking over 64-wide panels, nt launches:
+//   chol_first    one CTA per matrix factors tile (0, 0) of blockdiag(K, I)
+//                 while the others copy blockdiag(K, I)'s lower tiles into
+//                 a scratch A and zero the upper tiles of L;
+//   chol_step j   (j = 0 .. nt-2) one CTA per lower tile (i, k) of the
+//                 trailing matrix, j < k <= i: it forms the panel tiles
+//                 L_ij = A_ij Wd_j^T and L_kj itself (CTA (i, i) stores
+//                 L_ij), updates A_ik -= L_ij L_kj^T, and the CTA of tile
+//                 (j+1, j+1) factors it at once (look-ahead), so the next
+//                 step finds Wd_{j+1} ready.  The panel is read from the
+//                 scratch copy A and written to L, so no CTA reads a tile
+//                 another CTA of the same launch writes.  Each link is two
+//                 tile products plus one tile factor on one SM.
+//   Small buckets (Np <= 256, at most 4 launches) take the same route: one
+//   CTA per matrix holding every tile in shared memory would save at most
+//   three ~1 us launch gaps, and would run all trailing products on one SM.
+//   The tile factor (factor_tile) blocks the 64x64 tile into four 16-wide
+//   sub-panels: 16 lanes of one warp factor each 16x16 diagonal block and
+//   its inverse in registers with no CTA barrier (each column step yields
+//   an L column and a W row, as _diag_factor_inverse_merged does, broadcast
+//   through shared memory), the CTA solves the sub-panel below it and
+//   updates the sub-trailing block, and Wd's off-diagonal 16-blocks come by
+//   doubling: 14 CTA barriers per tile instead of 128.  What sets its time
+//   is the chain of 64 dependent column steps on one warp (~190 cycles
+//   each: pivot, broadcast, row update; about 60% of the ~12 us per tile,
+//   measured with clock64 on an H100); blocking the steps four columns per
+//   round did not shorten it, since the warp is bound by its dependent
+//   FMA chains either way.
+//
+// K1b, recursive doubling, 1 + 2 ceil(log2 nt) launches: W's diagonal tiles
+//   are Wd; at level h = 1, 2, 4, ... tiles, for each pair of diagonal
+//   blocks [s1, s1+h), [s1+h, s1+2h) (the second cut at nt),
+//     X = L21 W11            (winv_level<true>,  into a scratch S)
+//     W21 = -W22 X           (winv_level<false>)
+//   one CTA per output tile, summing over the non-zero tiles of the
+//   triangular factor.  The chain is sum 2h ~ 2 nt tile products (30 at
+//   nt = 16) instead of forward substitution's nt(nt-1)/2 (120).
+//
+// Tile products: 256 threads, 4x4 outputs each, FP32 FMA from shared memory
+// with 16-byte reads (no TF32: the JAX package runs them at
+// Precision.HIGHEST); operand tiles arrive by cp.async, double-buffered in
+// K1b.  One 64^3 product is ~1.2 us of one SM's FP32 rate.  Kernels whose
+// dynamic shared memory exceeds 48 KB get cudaFuncSetAttribute first, and
+// its error code is returned like a launch error.
 //
 // Failure semantics: a pivot that is not > 0 (negative, zero or NaN) gives
-// a NaN diagonal entry, never a clamped one, so a non-PSD matrix yields
-// NaNs in its own L (and W) and the jitter ladder sees them, as with
-// jnp.linalg.cholesky.  Every CTA works inside one matrix, so a NaN never
-// reaches a batch neighbour.
+// a NaN diagonal entry, never a clamped one; the NaN spreads through the
+// panel and trailing updates to every later tile of that matrix's L and W,
+// so the jitter ladder sees it, as with jnp.linalg.cholesky.  Every CTA
+// works inside one matrix, so a NaN never reaches a batch neighbour.  No
+// atomics: results are bit-reproducible.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int T = 64;         // tile edge
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int T = 64;           // tile edge
+constexpr int LD = T + 4;       // shared row stride: 16-byte rows, conflict-free float4 reads
+constexpr int TILE_F = T * LD;  // floats per shared tile
+constexpr int SB = 16;          // sub-block edge of the tile factor
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kFourTiles = 4 * TILE_F * (int)sizeof(float);  // 69,632 bytes
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fffffff); }
 
-// L <- blockdiag(K, I) on and below the tile diagonal, 0 above it.
-__global__ void chol_init(const float* __restrict__ K, float* __restrict__ L,
-                          int n, int Np) {
-  const int b = blockIdx.y;
-  const size_t total = (size_t)Np * Np;
-  const float* Kb = K + (size_t)b * n * n;
-  float* Lb = L + (size_t)b * total;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(e / Np);
-    const int c = (int)(e % Np);
-    float v;
-    if (c / T > r / T) v = 0.f;
-    else if (r < n && c < n) v = Kb[(size_t)r * n + c];
-    else v = (r == c) ? 1.f : 0.f;
-    Lb[e] = v;
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start the copy of a 64x64 tile (row stride ld floats) into shared S.
+__device__ __forceinline__ void load_tile_async(float* S, const float* g, size_t ld) {
+#pragma unroll
+  for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+    const int e = threadIdx.x + q * kThreads;
+    const int r = e >> 4, c = (e & 15) * 4;
+    cp_async16(S + r * LD + c, g + r * ld + c);
   }
 }
 
-// Factor the updated diagonal tile j of every matrix: L_jj (written in
-// place, zeros above its diagonal) and Wd_j = L_jj^-1.
-__global__ void __launch_bounds__(kThreads)
-chol_diag(float* __restrict__ L, float* __restrict__ Wd, int Np, int j) {
-  __shared__ float A[T][T + 1];
-  __shared__ float X[T][T + 1];
-  __shared__ float col[T];
-  __shared__ float xk[T];
-  const int b = blockIdx.x;
-  const int nt = Np / T;
-  float* Lt = L + (size_t)b * Np * Np + (size_t)j * T * Np + (size_t)j * T;
-  for (int e = threadIdx.x; e < T * T; e += kThreads) {
-    const int r = e / T, c = e % T;
-    A[r][c] = Lt[(size_t)r * Np + c];
-    X[r][c] = (r == c) ? 1.f : 0.f;
-  }
-  __syncthreads();
-  for (int k = 0; k < T; ++k) {
-    const float d = A[k][k];
-    const float piv = d > 0.f ? sqrtf(d) : quiet_nan();
-    const float inv = 1.f / piv;
-    const int t = threadIdx.x;
-    if (t < T) {
-      col[t] = t > k ? A[t][k] * inv : 0.f;
-    } else if (t < 2 * T) {
-      xk[t - T] = X[k][t - T] * inv;
-    }
-    __syncthreads();
-    // rows below the pivot: columns <= k update the inverse (row ops of
-    // the forward substitution), columns in (k, i] the trailing factor
-    for (int e = threadIdx.x; e < T * T; e += kThreads) {
-      const int i = e / T, c = e % T;
-      if (i <= k || c > i) continue;
-      if (c <= k) X[i][c] -= col[i] * xk[c];
-      else A[i][c] -= col[i] * col[c];
-    }
-    if (t < T) {
-      if (t > k) A[t][k] = col[t];
-      else if (t == k) A[k][k] = piv;
-    } else if (t < 2 * T) {
-      X[k][t - T] = xk[t - T];
-    }
-    __syncthreads();
-  }
-  float* W = Wd + ((size_t)b * nt + j) * T * T;
-  for (int e = threadIdx.x; e < T * T; e += kThreads) {
-    const int r = e / T, c = e % T;
-    Lt[(size_t)r * Np + c] = c <= r ? A[r][c] : 0.f;
-    W[e] = c <= r ? X[r][c] : 0.f;
-  }
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// 64x64 tile product helper: acc[i][j] += sum_m P[r][m] * Q(m, c) for the
-// thread's rows r = ty + 16 i and columns c = tx + 16 j.
-// `QT` selects Q(m, c) = Qs[c][m] (product with a transposed tile).
-template <bool QT>
-__device__ __forceinline__ void tile_fma(float (*P)[T + 1], float (*Q)[T + 1],
-                                         float acc[4][4], int tx, int ty) {
-#pragma unroll 8
-  for (int m = 0; m < T; ++m) {
-    float p[4], q[4];
+// acc[i][j] += sum_m P[ty+16i][m] * Q[tx+16j][m]      (P Q^T)
+__device__ __forceinline__ void mma_nt(const float* P, const float* Q, float acc[4][4],
+                                       int tx, int ty) {
+#pragma unroll 2
+  for (int m = 0; m < T; m += 4) {
+    float4 p[4], q[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      p[i] = P[ty + 16 * i][m];
-      q[i] = QT ? Q[tx + 16 * i][m] : Q[m][tx + 16 * i];
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LD + m);
+      q[i] = *reinterpret_cast<const float4*>(Q + (tx + 16 * i) * LD + m);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(p[i], q[jj], acc[i][jj]);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[j], k), acc[i][j]);
   }
 }
 
-__device__ __forceinline__ void load_tile(float (*S)[T + 1], const float* src,
-                                          int ld) {
+// acc[i][j] += sum_m P[ty+16i][m] * Q[m][4tx+j]       (P Q)
+__device__ __forceinline__ void mma_nn(const float* P, const float* Q, float acc[4][4],
+                                       int tx, int ty) {
+#pragma unroll 2
+  for (int m = 0; m < T; m += 4) {
+    float4 p[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * LD + m);
+      q[i] = *reinterpret_cast<const float4*>(Q + (m + i) * LD + 4 * tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[k], j), acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ float inv_sqrt_pivot(float d) {
+  const float y = rsqrtf(d);  // one Newton step: 1/sqrt(d) to ~1 ulp
+  return d > 0.f ? y * fmaf(-0.5f * d * y, y, 1.5f) : quiet_nan();
+}
+
+// Lanes 0-15 of one warp factor the 16x16 diagonal block at (o, o) of the
+// tile in shared A, and its inverse, in registers.  Lane r holds row r of
+// the block and of its inverse, and its own copy of the block's diagonal.
+// Each column step yields an L column and an inverse row, both broadcast
+// through shared memory; the inverse rows stay unscaled (the multipliers
+// carry 1/L_kk) and each lane scales its own row once at the end.  Writes
+// L into A and the inverse into X (zeros above the diagonal).
+__device__ __forceinline__ void factor_block16(float* A, float* X, int o) {
+  __shared__ __align__(16) float colb[2][SB];  // multipliers of step k
+  __shared__ __align__(16) float xrow[2][SB];  // unscaled row k of the inverse
+  const int r = threadIdx.x;
+  float a[SB], x[SB], dd[SB], own_inv = 0.f;
+#pragma unroll
+  for (int c = 0; c < SB; ++c) {
+    a[c] = A[(o + r) * LD + o + c];
+    x[c] = c == r ? 1.f : 0.f;
+    dd[c] = A[(o + c) * LD + o + c];
+  }
+#pragma unroll
+  for (int k = 0; k < SB; ++k) {
+    const float d = dd[k];
+    const float inv = inv_sqrt_pivot(d);
+    const float m = r > k ? a[k] * inv : 0.f;
+    a[k] = r > k ? m : (r == k ? d * inv : 0.f);
+    if (r == k) own_inv = inv;
+    colb[k & 1][r] = m;
+    if (r == k) {
+#pragma unroll
+      for (int q = 0; 4 * q <= k; ++q)
+        *reinterpret_cast<float4*>(&xrow[k & 1][4 * q]) =
+            make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+    }
+    __syncwarp(0xffffu);
+    const float mx = m * inv;  // row op with the scaled row k
+#pragma unroll
+    for (int q = 0; q < SB / 4; ++q) {
+      if (4 * q + 3 > k) {
+        const float4 v = *reinterpret_cast<const float4*>(&colb[k & 1][4 * q]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = 4 * q + u;
+          if (c > k) {
+            a[c] = fmaf(-m, lane4(v, u), a[c]);
+            dd[c] = fmaf(-lane4(v, u), lane4(v, u), dd[c]);
+          }
+        }
+      }
+      if (4 * q <= k) {
+        const float4 v = *reinterpret_cast<const float4*>(&xrow[k & 1][4 * q]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * q + u <= k) x[4 * q + u] = fmaf(-mx, lane4(v, u), x[4 * q + u]);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < SB; ++c) {
+    A[(o + r) * LD + o + c] = c <= r ? a[c] : 0.f;
+    X[(o + r) * LD + o + c] = c <= r ? x[c] * own_inv : 0.f;
+  }
+}
+
+// Factor the SPD tile in shared A (its lower part is read): A <- L and
+// X <- L^-1 on and below the diagonal (store_factor zeros what lies above).
+// Ends with a barrier.
+__device__ void factor_tile(float* A, float* X) {
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  for (int o = 0; o < T; o += SB) {
+    if (t < SB) factor_block16(A, X, o);
+    __syncthreads();
+    const int nb = (T - o) / SB - 1;  // 16-row blocks below the diagonal block
+    if (nb == 0) break;
+    // sub-panel solve, thread (ty, tx) -> rows o+16+16i+ty, column o+tx:
+    // L[r][o+tx] = sum_m A[r][o+m] Xblk[tx][m]  (Xblk is zero above its
+    // diagonal).  Staged in X's lower blocks, which the doubling below
+    // overwrites, so the trailing update can read it without a second
+    // barrier while A's panel columns take the final values.
+    float v[3] = {};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      if (i >= nb) break;
+      const float* ar = A + (o + SB + SB * i + ty) * LD + o;
+      const float* xr = X + (o + tx) * LD + o;
+#pragma unroll
+      for (int m = 0; m < SB; m += 4) {
+        const float4 p = *reinterpret_cast<const float4*>(ar + m);
+        const float4 q = *reinterpret_cast<const float4*>(xr + m);
+        v[i] = fmaf(p.x, q.x, fmaf(p.y, q.y, fmaf(p.z, q.z, fmaf(p.w, q.w, v[i]))));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < nb) X[(o + SB + SB * i + ty) * LD + o + tx] = v[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < nb) A[(o + SB + SB * i + ty) * LD + o + tx] = v[i];
+    // sub-trailing update of the 16-blocks (bi, bj), bj <= bi < nb:
+    // A[r][c] -= sum_m L[r][o+m] L[c][o+m], r = o+16+16bi+ty, c = o+16+16bj+tx
+    // (the sub-panel L read from its copy in X)
+    float acc[3][3] = {};
+#pragma unroll
+    for (int m = 0; m < SB; m += 4) {
+      float4 p[3], q[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (i >= nb) break;
+        p[i] = *reinterpret_cast<const float4*>(X + (o + SB + SB * i + ty) * LD + o + m);
+        q[i] = *reinterpret_cast<const float4*>(X + (o + SB + SB * i + tx) * LD + o + m);
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j <= i; ++j) {
+          if (i >= nb) break;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[j], k), acc[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j)
+        if (i < nb) A[(o + SB + SB * i + ty) * LD + o + SB + SB * j + tx] -= acc[i][j];
+    __syncthreads();
+  }
+  // off-diagonal 16-blocks of X by doubling.  Level 16: for the pairs of
+  // diagonal blocks (0, 1) and (2, 3), Y = L21 X11 (kept in X's upper
+  // part), X21 = -X22 Y; thread (ty, tx) forms entry (ty, tx) of both.
+  {
+    float y[2] = {};
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int s1 = 32 * pr, s2 = s1 + SB;
+#pragma unroll
+      for (int m = 0; m < SB; ++m) y[pr] = fmaf(A[(s2 + ty) * LD + s1 + m], X[(s1 + m) * LD + s1 + tx], y[pr]);
+      X[(s1 + ty) * LD + s2 + tx] = y[pr];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int s1 = 32 * pr, s2 = s1 + SB;
+      float w = 0.f;
+#pragma unroll
+      for (int m = 0; m < SB; ++m) w = fmaf(X[(s2 + ty) * LD + s2 + m], X[(s1 + m) * LD + s2 + tx], w);
+      X[(s2 + ty) * LD + s1 + tx] = -w;
+    }
+    __syncthreads();
+  }
+  // Level 32: Y = L[32:64, 0:32] X[0:32, 0:32] into X[0:32, 32:64], then
+  // X[32:64, 0:32] = -X[32:64, 32:64] Y; thread (ty, tx) forms the entries
+  // (ty + 16i, tx + 16j).  The sums skip X11's and X22's upper block.
+  {
+    float acc[2][2] = {};
+#pragma unroll
+    for (int m = 0; m < 2 * SB; ++m) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (m >= SB * j)
+            acc[i][j] = fmaf(A[(32 + ty + SB * i) * LD + m], X[m * LD + tx + SB * j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) X[(ty + SB * i) * LD + 32 + tx + SB * j] = acc[i][j];
+    __syncthreads();
+    float w[2][2] = {};
+#pragma unroll
+    for (int m = 0; m < 2 * SB; ++m) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          if (m < SB * (i + 1))
+            w[i][j] = fmaf(X[(32 + ty + SB * i) * LD + 32 + m], X[m * LD + 32 + tx + SB * j], w[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) X[(32 + ty + SB * i) * LD + tx + SB * j] = -w[i][j];
+    __syncthreads();
+  }
+}
+
+// Store a factored tile: its L (lower, zeros above) and its inverse Wd.
+__device__ __forceinline__ void store_factor(const float* A, const float* X, float* Lt,
+                                             size_t ld, float* Wt) {
   for (int e = threadIdx.x; e < T * T; e += kThreads) {
     const int r = e / T, c = e % T;
-    S[r][c] = src[(size_t)r * ld + c];
+    Lt[r * ld + c] = c <= r ? A[r * LD + c] : 0.f;
+    Wt[e] = c <= r ? X[r * LD + c] : 0.f;
   }
 }
 
-// Panel solve: L_ij = A_ij Wd_j^T for the tiles i > j of block column j.
+// First launch, grid (1 + copy CTAs, B).  CTA 0 of each matrix factors
+// tile (0, 0) of blockdiag(K, I) into L_00 and Wd_0; the others (none when
+// nt = 1) copy blockdiag(K, I) on and below the tile diagonal into the
+// scratch A and zero L above it, while tile (0, 0) is factored.
 __global__ void __launch_bounds__(kThreads)
-chol_panel(float* __restrict__ L, const float* __restrict__ Wd, int Np, int j) {
-  __shared__ float As[T][T + 1];
-  __shared__ float Ws[T][T + 1];
+chol_first(const float* __restrict__ K, float* __restrict__ L, float* __restrict__ Wd,
+           float* __restrict__ A, int n, int Np) {
+  __shared__ __align__(16) float As[TILE_F];
+  __shared__ __align__(16) float Xs[TILE_F];
   const int b = blockIdx.y;
-  const int nt = Np / T;
-  const int i = j + 1 + blockIdx.x;
-  float* Lt = L + (size_t)b * Np * Np + (size_t)i * T * Np + (size_t)j * T;
-  load_tile(As, Lt, Np);
-  load_tile(Ws, Wd + ((size_t)b * nt + j) * T * T, T);
-  __syncthreads();
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  tile_fma<true>(As, Ws, acc, tx, ty);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      Lt[(size_t)(ty + 16 * r) * Np + tx + 16 * c] = acc[r][c];
+  const float* Kb = K + (size_t)b * n * n;
+  const size_t total = (size_t)Np * Np;
+  if (blockIdx.x == 0) {
+    for (int e = threadIdx.x; e < T * T; e += kThreads) {
+      const int r = e / T, c = e % T;
+      As[r * LD + c] = (r < n && c < n) ? Kb[(size_t)r * n + c] : (r == c ? 1.f : 0.f);
+    }
+    __syncthreads();
+    factor_tile(As, Xs);
+    store_factor(As, Xs, L + b * total, Np, Wd + (size_t)b * (Np / T) * T * T);
+    return;
+  }
+  float* Ab = A + b * total;
+  float* Lb = L + b * total;
+  for (size_t e = (blockIdx.x - 1) * (size_t)blockDim.x + threadIdx.x; e < total;
+       e += (size_t)(gridDim.x - 1) * blockDim.x) {
+    const int r = (int)(e / Np), c = (int)(e % Np);
+    if (c / T > r / T) Lb[e] = 0.f;
+    else Ab[e] = (r < n && c < n) ? Kb[(size_t)r * n + c] : (r == c ? 1.f : 0.f);
+  }
 }
 
-// Trailing update: A_ik -= L_ij L_kj^T for j < k <= i < nt.
+// Step j: tile (i, k), j < k <= i, of the trailing matrix.  Forms L_ij and
+// L_kj from the panel, A_ik -= L_ij L_kj^T; CTA (i, i) stores L_ij, and
+// CTA (j+1, j+1) factors its updated tile into L and Wd (look-ahead).
 __global__ void __launch_bounds__(kThreads)
-chol_trail(float* __restrict__ L, int Np, int j) {
-  __shared__ float Ps[T][T + 1];
-  __shared__ float Qs[T][T + 1];
-  const int b = blockIdx.y;
+chol_step(float* __restrict__ A, float* __restrict__ L, float* __restrict__ Wd, int Np,
+          int j) {
+  extern __shared__ float4 smem4[];
+  float* P = reinterpret_cast<float*>(smem4);
+  float* Q = P + TILE_F;
+  float* Ws = Q + TILE_F;
+  float* C = Ws + TILE_F;
+  const int b = blockIdx.y, nt = Np / T, t = blockIdx.x;
   // decode the lower-triangle tile index t -> (ii, kk), kk <= ii
-  const int t = blockIdx.x;
   int ii = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
   while ((ii + 1) * (ii + 2) / 2 <= t) ++ii;
   while (ii * (ii + 1) / 2 > t) --ii;
-  const int kk = t - ii * (ii + 1) / 2;
-  const int i = j + 1 + ii, k = j + 1 + kk;
-  float* Lb = L + (size_t)b * Np * Np;
-  load_tile(Ps, Lb + (size_t)i * T * Np + (size_t)j * T, Np);
-  load_tile(Qs, Lb + (size_t)k * T * Np + (size_t)j * T, Np);
+  const int i = j + 1 + ii, k = j + 1 + (t - ii * (ii + 1) / 2);
+  const bool diag = k == i;
+  const size_t mat = (size_t)b * Np * Np, ldt = (size_t)T * Np;
+  float* Ab = A + mat;
+  float* Wdb = Wd + (size_t)b * nt * T * T;
+  load_tile_async(P, Ab + i * ldt + j * T, Np);
+  if (!diag) load_tile_async(Q, Ab + k * ldt + j * T, Np);
+  load_tile_async(Ws, Wdb + (size_t)j * T * T, T);
+  load_tile_async(C, Ab + i * ldt + k * T, Np);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  tile_fma<true>(Ps, Qs, acc, tx, ty);
-  float* At = Lb + (size_t)i * T * Np + (size_t)k * T;
+  float lp[4][4] = {}, lq[4][4] = {};
+  mma_nt(P, Ws, lp, tx, ty);
+  if (!diag) mma_nt(Q, Ws, lq, tx, ty);
+  __syncthreads();
+  float* Lij = L + mat + i * ldt + j * T;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      At[(size_t)(ty + 16 * r) * Np + tx + 16 * c] -= acc[r][c];
+    for (int c = 0; c < 4; ++c) {
+      const int o = (ty + 16 * r) * LD + tx + 16 * c;
+      P[o] = lp[r][c];
+      if (!diag) Q[o] = lq[r][c];
+      else Lij[(size_t)(ty + 16 * r) * Np + tx + 16 * c] = lp[r][c];
+    }
+  __syncthreads();
+  float acc[4][4] = {};
+  mma_nt(P, diag ? P : Q, acc, tx, ty);
+  if (i == j + 1) {  // look-ahead: factor the updated diagonal tile now
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) C[(ty + 16 * r) * LD + tx + 16 * c] -= acc[r][c];
+    __syncthreads();
+    factor_tile(C, P);
+    store_factor(C, P, L + mat + i * ldt + i * T, Np, Wdb + (size_t)i * T * T);
+    return;
+  }
+  float* Aik = Ab + i * ldt + k * T;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int rr = ty + 16 * r, cc = tx + 16 * c;
+      Aik[(size_t)rr * Np + cc] = C[rr * LD + cc] - acc[r][c];
+    }
 }
 
 // W on and above the tile diagonal: Wd_i on it, 0 above it.
-__global__ void winv_init(const float* __restrict__ Wd, float* __restrict__ W,
-                          int Np) {
+__global__ void winv_init(const float* __restrict__ Wd, float* __restrict__ W, int Np) {
   const int b = blockIdx.y;
   const int nt = Np / T;
-  const size_t total = (size_t)Np * Np;
-  float* Wb = W + (size_t)b * total;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total;
+  const size_t total4 = (size_t)Np * Np / 4;
+  float4* Wb = reinterpret_cast<float4*>(W + (size_t)b * Np * Np);
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total4;
        e += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(e / Np), c = (int)(e % Np);
+    const int r = (int)(e * 4 / Np), c = (int)(e * 4 % Np);
     const int ti = r / T, tc = c / T;
-    if (tc > ti) Wb[e] = 0.f;
+    if (tc > ti) Wb[e] = make_float4(0.f, 0.f, 0.f, 0.f);
     else if (tc == ti)
-      Wb[e] = Wd[(((size_t)b * nt + ti) * T + r % T) * T + c % T];
+      Wb[e] = *reinterpret_cast<const float4*>(
+          Wd + (((size_t)b * nt + ti) * T + r % T) * T + c % T);
   }
 }
 
-// Block diagonal s >= 1 of W: W_ij = -Wd_i * sum_{k=j}^{i-1} L_ik W_kj,
-// i = j + s, one CTA per tile.
+// One doubling level of W = L^-1 at block size h tiles, one CTA per output
+// tile (a, bb) of a pair's 21 block (first block [s1, s1+h), second
+// [s2, s2+h) cut at nt):
+//   kX:  S(s2+a, s1+bb) = sum_{c=bb}^{h-1} L(s2+a, s1+c) W(s1+c, s1+bb)
+//   !kX: W(s2+a, s1+bb) = -sum_{c=0}^{a} W(s2+a, s2+c) S(s2+c, s1+bb)
+// The sums skip the zero tiles of the triangular W11 and W22; operand tiles
+// are double-buffered with cp.async.
+template <bool kX>
 __global__ void __launch_bounds__(kThreads)
-winv_step(const float* __restrict__ L, const float* __restrict__ Wd,
-          float* __restrict__ W, int Np, int s) {
-  __shared__ float Ps[T][T + 1];
-  __shared__ float Qs[T][T + 1];
-  const int b = blockIdx.y;
-  const int nt = Np / T;
-  const int j = blockIdx.x, i = j + s;
-  const float* Lb = L + (size_t)b * Np * Np;
-  float* Wb = W + (size_t)b * Np * Np;
+winv_level(const float* __restrict__ L, float* __restrict__ W, float* __restrict__ S, int Np,
+           int h) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int nt = Np / T, b = blockIdx.y;
+  const int p = blockIdx.x / (h * h), a = (blockIdx.x / h) % h, bb = blockIdx.x % h;
+  const int s1 = 2 * p * h, s2 = s1 + h;
+  if (s2 + a >= nt) return;
+  const size_t mat = (size_t)b * Np * Np, ldt = (size_t)T * Np;
+  const float* Lb = L + mat;
+  float* Wb = W + mat;
+  float* Sb = S + mat;
+  const int c_lo = kX ? bb : 0, c_hi = kX ? h : a + 1;
+  auto ptrP = [&](int c) -> const float* {
+    return kX ? Lb + (s2 + a) * ldt + (s1 + c) * T : Wb + (s2 + a) * ldt + (s2 + c) * T;
+  };
+  auto ptrQ = [&](int c) -> const float* {
+    return kX ? Wb + (s1 + c) * ldt + (s1 + bb) * T : Sb + (s2 + c) * ldt + (s1 + bb) * T;
+  };
+  load_tile_async(sm, ptrP(c_lo), Np);
+  load_tile_async(sm + TILE_F, ptrQ(c_lo), Np);
+  cp_async_commit();
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float acc[4][4] = {};
-  for (int k = j; k < i; ++k) {
-    load_tile(Ps, Lb + (size_t)i * T * Np + (size_t)k * T, Np);
-    load_tile(Qs, Wb + (size_t)k * T * Np + (size_t)j * T, Np);
+  for (int c = c_lo; c < c_hi; ++c) {
+    const float* cur = sm + ((c - c_lo) & 1) * 2 * TILE_F;
+    if (c + 1 < c_hi) {
+      float* nxt = sm + ((c + 1 - c_lo) & 1) * 2 * TILE_F;
+      load_tile_async(nxt, ptrP(c + 1), Np);
+      load_tile_async(nxt + TILE_F, ptrQ(c + 1), Np);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    tile_fma<false>(Ps, Qs, acc, tx, ty);
+    mma_nn(cur, cur + TILE_F, acc, tx, ty);
     __syncthreads();
   }
+  float* out = (kX ? Sb : Wb) + (s2 + a) * ldt + (s1 + bb) * T;
+  const float sign = kX ? 1.f : -1.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) Qs[ty + 16 * r][tx + 16 * c] = acc[r][c];
-  load_tile(Ps, Wd + ((size_t)b * nt + i) * T * T, T);
-  __syncthreads();
-  float out[4][4] = {};
-  tile_fma<false>(Ps, Qs, out, tx, ty);
-  float* Wt = Wb + (size_t)i * T * Np + (size_t)j * T;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      Wt[(size_t)(ty + 16 * r) * Np + tx + 16 * c] = -out[r][c];
+    *reinterpret_cast<float4*>(out + (size_t)(ty + 16 * r) * Np + 4 * tx) =
+        make_float4(sign * acc[r][0], sign * acc[r][1], sign * acc[r][2], sign * acc[r][3]);
 }
 
-int elementwise_blocks(int Np) {
-  const long long total = (long long)Np * Np;
+int elementwise_blocks(int Np, int per_thread) {
+  const long long total = (long long)Np * Np / per_thread;
   long long blocks = (total + kThreads - 1) / kThreads;
   return (int)(blocks < 1024 ? blocks : 1024);
 }
 
+// Allow the 69,632 bytes of dynamic shared memory of `fn`, once per device.
+template <typename F>
+int allow_four_tiles(F* fn, unsigned* done) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err || (*done >> dev & 1u)) return err;
+  err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kFourTiles);
+  if (!err) *done |= 1u << dev;
+  return err;
+}
+
+unsigned g_step_smem = 0, g_xlevel_smem = 0, g_wlevel_smem = 0;
+
 }  // namespace
 
-// K1a.  K (B,n,n) -> L (B,Np,Np) lower triangular, Wd (B,Np/64,64,64).
-// Np must be a multiple of 64 and >= n.  Returns the first launch error.
-extern "C" int hebo_chol_factor(const float* K, float* L, float* Wd, int B,
-                                int n, int Np, void* stream) {
+// K1a.  K (B,n,n) -> L (B,Np,Np) lower triangular, Wd (B,Np/64,64,64);
+// A (B,Np,Np) is scratch (unused when Np == 64).  Np must be a multiple of
+// 64 and >= n.  Returns the first error (attribute or launch).
+extern "C" int hebo_chol_factor(const float* K, float* L, float* Wd, float* A, int B, int n,
+                                int Np, void* stream) {
   if (B == 0) return 0;
   if (Np % T != 0 || Np < n) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = Np / T;
-  chol_init<<<dim3(elementwise_blocks(Np), B), kThreads, 0, st>>>(K, L, n, Np);
-  int err = (int)cudaGetLastError();
+  int err = nt > 1 ? allow_four_tiles(chol_step, &g_step_smem) : 0;
   if (err) return err;
-  for (int j = 0; j < nt; ++j) {
-    chol_diag<<<B, kThreads, 0, st>>>(L, Wd, Np, j);
-    if ((err = (int)cudaGetLastError())) return err;
-    const int ntr = nt - j - 1;
-    if (ntr == 0) break;
-    chol_panel<<<dim3(ntr, B), kThreads, 0, st>>>(L, Wd, Np, j);
-    if ((err = (int)cudaGetLastError())) return err;
-    chol_trail<<<dim3(ntr * (ntr + 1) / 2, B), kThreads, 0, st>>>(L, Np, j);
+  const int copy_ctas = nt > 1 ? elementwise_blocks(Np, 1) : 0;
+  chol_first<<<dim3(1 + copy_ctas, B), kThreads, 0, st>>>(K, L, Wd, A, n, Np);
+  if ((err = (int)cudaGetLastError())) return err;
+  for (int j = 0; j + 1 < nt; ++j) {
+    const int m = nt - 1 - j;
+    chol_step<<<dim3(m * (m + 1) / 2, B), kThreads, kFourTiles, st>>>(A, L, Wd, Np, j);
     if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;
 }
 
-// K1b.  L (B,Np,Np), Wd (B,Np/64,64,64) -> W = L^-1 (B,Np,Np).
-extern "C" int hebo_chol_winv(const float* L, const float* Wd, float* W, int B,
+// K1b.  L (B,Np,Np), Wd (B,Np/64,64,64) -> W = L^-1 (B,Np,Np); S (B,Np,Np)
+// is scratch (unused when Np == 64).
+extern "C" int hebo_chol_winv(const float* L, const float* Wd, float* W, float* S, int B,
                               int Np, void* stream) {
   if (B == 0) return 0;
   if (Np % T != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = Np / T;
-  winv_init<<<dim3(elementwise_blocks(Np), B), kThreads, 0, st>>>(Wd, W, Np);
+  winv_init<<<dim3(elementwise_blocks(Np, 4), B), kThreads, 0, st>>>(Wd, W, Np);
   int err = (int)cudaGetLastError();
-  if (err) return err;
-  for (int s = 1; s < nt; ++s) {
-    winv_step<<<dim3(nt - s, B), kThreads, 0, st>>>(L, Wd, W, Np, s);
+  if (err || nt == 1) return err;
+  if ((err = allow_four_tiles(winv_level<true>, &g_xlevel_smem))) return err;
+  if ((err = allow_four_tiles(winv_level<false>, &g_wlevel_smem))) return err;
+  for (int h = 1; h < nt; h *= 2) {
+    const int pairs = (nt - h + 2 * h - 1) / (2 * h);
+    const dim3 grid(pairs * h * h, B);
+    winv_level<true><<<grid, kThreads, kFourTiles, st>>>(L, W, S, Np, h);
+    if ((err = (int)cudaGetLastError())) return err;
+    winv_level<false><<<grid, kThreads, kFourTiles, st>>>(L, W, S, Np, h);
     if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;

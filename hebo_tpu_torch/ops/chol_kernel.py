@@ -23,6 +23,10 @@ Failure semantics: a non-PSD matrix yields NaNs in its own L and W and in
 no other matrix of the batch.  The plain version gets there by NaN-filling
 the matrices whose ``cholesky_ex`` ``info`` is non-zero, because
 ``cholesky_ex`` itself returns a finite, wrong factor for them.
+
+``_schedule_plain`` mirrors, in plain PyTorch, the block schedule that the
+CUDA kernels run (16-wide sub-blocked tile factor, look-ahead panel steps,
+doubling levels of W); only the CPU tests call it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ __all__ = [
 ]
 
 TILE = 64
+SUB = 16  # sub-block edge of the CUDA tile factor
 
 
 def padded_size(n: int) -> int:
@@ -84,12 +89,10 @@ def chol_factor(K: torch.Tensor):
     Np = padded_size(n)
     L = torch.empty((B, Np, Np), dtype=torch.float32, device=K.device)
     Wd = torch.empty((B, Np // TILE, TILE, TILE), dtype=torch.float32, device=K.device)
+    A = torch.empty_like(L) if Np > TILE else L  # scratch: the trailing matrix
     lib = native.load("chol")
-    with torch.cuda.device(K.device):
-        err = lib.hebo_chol_factor(
-            K.data_ptr(), L.data_ptr(), Wd.data_ptr(), B, n, Np,
-            native.stream_handle(K.device),
-        )
+    err = native.call(lib.hebo_chol_factor, K.device, K.data_ptr(), L.data_ptr(),
+                      Wd.data_ptr(), A.data_ptr(), B, n, Np)
     native.check(err, "chol_factor")
     chol_factor.launches += 1
     return L, Wd
@@ -104,12 +107,10 @@ def chol_winv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
     if Np % TILE or Wd.shape != (B, Np // TILE, TILE, TILE):
         raise ValueError(f"chol_winv: bad shapes L {tuple(L.shape)}, Wd {tuple(Wd.shape)}")
     W = torch.empty_like(L)
+    S = torch.empty_like(L) if Np > TILE else W  # scratch: L21 W11 per level
     lib = native.load("chol")
-    with torch.cuda.device(L.device):
-        err = lib.hebo_chol_winv(
-            L.data_ptr(), Wd.data_ptr(), W.data_ptr(), B, Np,
-            native.stream_handle(L.device),
-        )
+    err = native.call(lib.hebo_chol_winv, L.device, L.data_ptr(), Wd.data_ptr(),
+                      W.data_ptr(), S.data_ptr(), B, Np)
     native.check(err, "chol_winv")
     chol_winv.launches += 1
     return W
@@ -136,3 +137,81 @@ def cholesky_batched(K: torch.Tensor) -> torch.Tensor:
 
 # (L, W) with K = L Lᵀ and W = L⁻¹, each (B, N, N): K1 on CUDA
 chol_inv_batched = chol_inv
+
+
+def _block16_plain(a: torch.Tensor):
+    """(L, L⁻¹) of a (B, 16, 16) batch by the column loop that one warp of
+    the CUDA tile factor runs: each step yields an L column and an L⁻¹ row
+    (the rows below take one row operation each).  A pivot that is not
+    > 0 gives NaN."""
+    a = a.clone()
+    x = torch.eye(SUB, dtype=a.dtype).expand_as(a).clone()
+    for k in range(SUB):
+        d = a[:, k, k]
+        piv = torch.where(d > 0, d.clamp(min=0).sqrt(), torch.full_like(d, float("nan")))
+        lk = a[:, :, k] / piv[:, None]
+        lk[:, :k] = 0.0
+        lk[:, k] = piv
+        x[:, k] = x[:, k] / piv[:, None]
+        a[:, k + 1:, k + 1:] -= lk[:, k + 1:, None] * lk[:, None, k + 1:]
+        x[:, k + 1:] -= lk[:, k + 1:, None] * x[:, None, k]
+        a[:, :, k] = lk
+    return torch.tril(a), torch.tril(x)
+
+
+def _tile_factor_plain(A: torch.Tensor):
+    """(L, L⁻¹) of a (B, 64, 64) SPD batch in the CUDA tile factor's order:
+    per 16-wide sub-panel, the 16×16 diagonal block (``_block16_plain``),
+    the sub-panel solve and the sub-trailing update; then L⁻¹'s
+    off-diagonal blocks by doubling over 16 and 32."""
+    A = A.clone()
+    X = torch.zeros_like(A)
+    for o in range(0, TILE, SUB):
+        d_ = slice(o, o + SUB)
+        A[:, d_, d_], X[:, d_, d_] = _block16_plain(A[:, d_, d_])
+        r = slice(o + SUB, TILE)
+        A[:, r, d_] = A[:, r, d_] @ X[:, d_, d_].transpose(1, 2)
+        A[:, r, r] -= A[:, r, d_] @ A[:, r, d_].transpose(1, 2)
+    h = SUB
+    while h < TILE:
+        for s1 in range(0, TILE, 2 * h):
+            b1, b2 = slice(s1, s1 + h), slice(s1 + h, s1 + 2 * h)
+            X[:, b2, b1] = -X[:, b2, b2] @ (A[:, b2, b1] @ X[:, b1, b1])
+        h *= 2
+    return torch.tril(A), X
+
+
+def _schedule_plain(K: torch.Tensor):
+    """(L, Wd, W) of a (B, n, n) float32 CPU batch by the block schedule of
+    ``csrc/chol.cu``, for the CPU tests only.  K1a: tile (0, 0), then for
+    each panel j every trailing tile forms its panel tiles L_ij = A_ij Wd_jᵀ
+    and takes A_ik −= L_ij L_kjᵀ, and tile (j+1, j+1) is factored at once.
+    K1b: W's diagonal tiles are Wd; at level h = 1, 2, 4, … tiles each pair
+    of diagonal blocks (the second cut at nt) gets W21 = −W22 (L21 W11)."""
+    B, n, _ = K.shape
+    Np = padded_size(n)
+    nt = Np // TILE
+
+    def tl(i, j=None):
+        return slice(i * TILE, (i + 1 if j is None else j) * TILE)
+
+    A = _pad_identity(K, Np).clone()
+    L = torch.zeros_like(A)
+    Wd = torch.empty((B, nt, TILE, TILE), dtype=K.dtype)
+    L[:, tl(0), tl(0)], Wd[:, 0] = _tile_factor_plain(A[:, tl(0), tl(0)])
+    for j in range(nt - 1):
+        rest = tl(j + 1, nt)
+        P = A[:, rest, tl(j)] @ Wd[:, j].transpose(1, 2)
+        L[:, rest, tl(j)] = P
+        A[:, rest, rest] -= P @ P.transpose(1, 2)
+        L[:, tl(j + 1), tl(j + 1)], Wd[:, j + 1] = _tile_factor_plain(A[:, tl(j + 1), tl(j + 1)])
+    W = torch.zeros_like(L)
+    for t in range(nt):
+        W[:, tl(t), tl(t)] = Wd[:, t]
+    h = 1
+    while h < nt:
+        for s1 in range(0, nt - h, 2 * h):
+            b1, b2 = tl(s1, s1 + h), tl(s1 + h, min(s1 + 2 * h, nt))
+            W[:, b2, b1] = -W[:, b2, b2] @ (L[:, b2, b1] @ W[:, b1, b1])
+        h *= 2
+    return L, Wd, W

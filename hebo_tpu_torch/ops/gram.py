@@ -55,11 +55,10 @@ def _launch(a, b, sc, jitter):
     M = b.shape[1]
     lib = native.load("gram")
     out = torch.empty((B, N, M), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.hebo_matern32_gram(
-            a.data_ptr(), b.data_ptr(), sc.data_ptr(), float(jitter),
-            out.data_ptr(), B, N, M, D, native.stream_handle(a.device),
-        )
+    err = native.call(
+        lib.hebo_matern32_gram, a.device, a.data_ptr(), b.data_ptr(), sc.data_ptr(),
+        float(jitter), out.data_ptr(), B, N, M, D,
+    )
     native.check(err, "matern32_gram")
     matern32_gram.launches += 1
     return out

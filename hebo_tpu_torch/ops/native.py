@@ -33,8 +33,8 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gram": {"hebo_matern32_gram": [_P, _P, _P, _F, _P, _I, _I, _I, _I, _P]},
     "chol": {
-        "hebo_chol_factor": [_P, _P, _P, _I, _I, _I, _P],
-        "hebo_chol_winv": [_P, _P, _P, _I, _I, _P],
+        "hebo_chol_factor": [_P, _P, _P, _P, _I, _I, _I, _P],
+        "hebo_chol_winv": [_P, _P, _P, _P, _I, _I, _P],
     },
     "ssk": {
         "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -116,9 +116,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as an int for ctypes."""
-    return torch.cuda.current_stream(device).cuda_stream
+def call(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current and PyTorch's current
+    stream there as the last argument; returns the C function's error code.
+
+    Host time per launch matters where a kernel's device time is a few
+    microseconds: the device switch is skipped when ``device`` is current,
+    and the stream comes as the raw handle that PyTorch's own generated
+    launchers read (``torch.cuda.current_stream()`` builds a Stream object,
+    4-5 µs on an H100 host)."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def check(err: int, what: str) -> None:

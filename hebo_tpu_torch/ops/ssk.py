@@ -128,12 +128,11 @@ def ssk_cross(s1, s2, lam2, gap, max_subseq: int = 3) -> Triple:
     B, (N, L), M = lam2.shape[0], a.shape, b.shape[0]
     out = torch.empty((3, B, N, M), dtype=torch.float32, device=a.device)
     lib = native.load("ssk")
-    with torch.cuda.device(a.device):
-        err = lib.hebo_ssk_cross(
-            a.data_ptr(), b.data_ptr(), lam2.data_ptr(), gap.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            B, N, M, L, int(max_subseq), native.stream_handle(a.device),
-        )
+    err = native.call(
+        lib.hebo_ssk_cross, a.device, a.data_ptr(), b.data_ptr(), lam2.data_ptr(),
+        gap.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        B, N, M, L, int(max_subseq),
+    )
     native.check(err, "ssk_cross")
     ssk_cross.launches += 1
     return out[0], out[1], out[2]
@@ -150,12 +149,10 @@ def ssk_self(s, lam2, gap, max_subseq: int = 3) -> Triple:
     B, (N, L) = lam2.shape[0], a.shape
     out = torch.empty((3, B, N), dtype=torch.float32, device=a.device)
     lib = native.load("ssk")
-    with torch.cuda.device(a.device):
-        err = lib.hebo_ssk_self(
-            a.data_ptr(), lam2.data_ptr(), gap.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            B, N, L, int(max_subseq), native.stream_handle(a.device),
-        )
+    err = native.call(
+        lib.hebo_ssk_self, a.device, a.data_ptr(), lam2.data_ptr(), gap.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, N, L, int(max_subseq),
+    )
     native.check(err, "ssk_self")
     ssk_self.launches += 1
     return out[0], out[1], out[2]

@@ -6,7 +6,9 @@ Imports only torch and the port, so it runs where JAX is not installed:
 
 Without a CUDA device every test skips.  Tolerances: Gram 1e-5 (float32,
 values ≤ outputscale); L 1e-4 and W 1e-3 absolute on SPD inputs with
-diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); SSK raw totals
+diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
+Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
+version's (W by doubling vs forward substitution); SSK raw totals
 1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
 recursions vs dense D-matrix products).
 """
@@ -46,7 +48,8 @@ def test_gram_kernel_on_card(cuda, B, N, M, D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N", [(2, 128), (2, 1024), (1, 1024), (2, 2048), (2, 40), (1, 384)])
+@pytest.mark.parametrize("B,N", [(2, 128), (2, 1024), (1, 1024), (2, 2048), (2, 40), (1, 384),
+                                 (1, 32), (1, 256), (1, 1000), (3, 384)])
 def test_chol_kernel_on_card(cuda, B, N):
     rng = np.random.default_rng(6)
     K = torch.as_tensor(_spd(rng, B, N), device=cuda)
@@ -64,6 +67,44 @@ def test_chol_kernel_nan_stays_in_its_matrix(cuda):
     L, W = chol_inv(K)
     assert not torch.isfinite(L[1]).all() and not torch.isfinite(W[1]).all()
     assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(W[[0, 2]]).all()
+
+
+@pytest.mark.gpu
+def test_chol_kernel_nan_in_late_tile(cuda):
+    """blockdiag(SPD 200×200, −I) in a batch of 3: the first bad pivot lies
+    in tile 3 of 4, after two look-ahead steps; it must reach that matrix's
+    L and W, and its neighbours must come out as if factored alone."""
+    rng = np.random.default_rng(9)
+    K = _spd(rng, 3, 256)
+    K[1] = np.eye(256, dtype=np.float32)
+    K[1, :200, :200] = _spd(rng, 1, 200)[0]
+    K[1, 200:, 200:] = -np.eye(56, dtype=np.float32)
+    Kc = torch.as_tensor(K, device=cuda)
+    L, W = chol_inv(Kc)
+    assert not torch.isfinite(L[1]).all() and not torch.isfinite(W[1]).all()
+    assert torch.isfinite(L[1, :192]).all()
+    for b in (0, 2):
+        Lb, Wb = chol_inv(Kc[b:b + 1].contiguous())
+        assert torch.equal(L[b], Lb[0]) and torch.equal(W[b], Wb[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengthscale", [0.3, 1.5])
+def test_chol_kernel_gp_like_residual(cuda, lengthscale):
+    """Matérn-3/2 Gram of 1024 Sobol points in 6-D, jitter 1e-6 × mean
+    diagonal (condition number ~4e2 at lengthscale 0.3, ~5e5 at 1.5)."""
+    from hebo_tpu_torch.ops.gram import matern32_gram_plain as gram_plain
+
+    x = torch.quasirandom.SobolEngine(6, scramble=True, seed=0).draw(1024)[None] / lengthscale
+    K = gram_plain(x, x, torch.ones(1), 0.0)
+    K = (K + 1e-6 * K.diagonal(dim1=1, dim2=2).mean() * torch.eye(1024)).contiguous()
+    eye = torch.eye(1024, dtype=torch.float64)
+    L, W = chol_inv(K.to(cuda))
+    L0, W0 = chol_kernel.chol_inv(K)
+    res = (W.cpu().double() @ L.cpu().double() - eye).abs().max().item()
+    res0 = (W0.double() @ L0.double() - eye).abs().max().item()
+    assert np.isfinite(res) and res <= 10 * res0
+    torch.testing.assert_close(L.cpu(), L0, rtol=0, atol=1e-4)
 
 
 def _rel(a, b):

@@ -8,6 +8,9 @@ both.
 Tolerances (float32 on both sides, different summation orders):
 * Gram: rtol 1e-5, atol 1e-6; its gradient: rtol 1e-4, atol 1e-5.
 * (L, W): 1e-4 absolute on well-conditioned SPD inputs (diagonal ≥ 0.5).
+  The same for ``_schedule_plain``, the plain mirror of the CUDA kernels'
+  block schedule (16-wide sub-blocked tile factor, look-ahead panel steps,
+  doubling levels of W), checked here before the kernels run on a card.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -26,7 +29,10 @@ from hebo_tpu.models.gp import kernels as jkernels
 from hebo_tpu.ops.pallas_gram import matern32_gram_reference
 from hebo_tpu_torch.models.gp import kernels as tkernels
 from hebo_tpu_torch.ops import chol_kernel
-from hebo_tpu_torch.ops.chol_kernel import chol_factor, chol_inv, chol_winv, padded_size
+from hebo_tpu_torch.ops.chol_kernel import (
+    _schedule_plain, _tile_factor_plain, chol_factor, chol_factor_plain, chol_inv, chol_winv,
+    padded_size,
+)
 from hebo_tpu_torch.ops.gram import matern32_gram
 
 
@@ -142,6 +148,68 @@ def test_chol_nan_propagation_stays_in_its_matrix():
     K2 = torch.tensor([[[1.0, 2.0], [2.0, 1.0]]])
     assert torch.isfinite(torch.linalg.cholesky_ex(K2)[0]).all()
     assert not torch.isfinite(chol_inv(K2)[0]).all()
+
+
+@pytest.mark.parametrize("B,N", [(2, 128), (1, 384), (1, 1024)])
+def test_schedule_mirror_matches_slab_interpret(B, N):
+    """The CUDA block schedule, mirrored in plain torch, against the JAX
+    package's slab kernels (interpret mode) and the plain version."""
+    rng = np.random.default_rng(10 + N)
+    K = _spd(rng, B, N)
+    L, Wd, W = (t.numpy() for t in _schedule_plain(torch.as_tensor(K)))
+    Lj, Wj = (np.asarray(t) for t in chol_inv_slab(jnp.asarray(K), interpret=True))
+    np.testing.assert_allclose(L, Lj, atol=1e-4)
+    np.testing.assert_allclose(W, Wj, atol=1e-4)
+    assert np.abs(np.triu(L, 1)).max() == 0.0 and np.abs(np.triu(W, 1)).max() == 0.0
+    L0, Wd0 = chol_factor_plain(torch.as_tensor(K))
+    np.testing.assert_allclose(Wd, Wd0.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N", [(3, 200), (1, 320), (2, 448), (1, 1000), (2, 40)])
+def test_schedule_mirror_ragged_tile_counts(B, N):
+    """nt = 4, 5, 7, 16 and 1 tiles: the doubling's second block is cut at
+    nt, and the identity padding holds at every level."""
+    rng = np.random.default_rng(N)
+    K = _spd(rng, B, N)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K))
+    L0, Wd0 = chol_factor_plain(torch.as_tensor(K))
+    np.testing.assert_allclose(L.numpy(), L0.numpy(), atol=1e-4)
+    np.testing.assert_allclose(Wd.numpy(), Wd0.numpy(), atol=1e-4)
+    np.testing.assert_allclose(W.numpy(), chol_winv(L0, Wd0).numpy(), atol=1e-4)
+    Np = padded_size(N)
+    np.testing.assert_allclose(W[:, N:, N:].numpy(), np.broadcast_to(np.eye(Np - N), (B, Np - N, Np - N)),
+                               atol=0)
+
+
+def test_tile_factor_mirror():
+    """The 16-sub-blocked tile factor: L and L⁻¹ of one 64×64 tile against
+    float64 LAPACK, and NaN from a pivot that is not > 0 in its last block."""
+    rng = np.random.default_rng(11)
+    K = _spd(rng, 2, 64)
+    K[1, 50:, 50:] -= 4.0 * np.eye(14, dtype=np.float32)
+    L, X = _tile_factor_plain(torch.as_tensor(K))
+    L64 = np.linalg.cholesky(K[0].astype(np.float64))
+    np.testing.assert_allclose(L[0].numpy(), L64, atol=1e-5)
+    np.testing.assert_allclose(X[0].numpy(), np.linalg.inv(L64), atol=1e-4)
+    assert torch.isfinite(L[1, :50]).all() and not torch.isfinite(L[1]).all()
+    assert not torch.isfinite(X[1]).all()
+
+
+def test_schedule_mirror_nan_in_late_tile():
+    """blockdiag(SPD 200×200, −I): the first bad pivot is in tile 3 of 4;
+    the NaN reaches that matrix's L and W and no neighbour's."""
+    rng = np.random.default_rng(12)
+    K = _spd(rng, 3, 256)
+    K[1, :200, 200:] = 0.0
+    K[1, 200:, :200] = 0.0
+    K[1, 200:, 200:] = -np.eye(56, dtype=np.float32)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K))
+    assert torch.isfinite(L[1, :192]).all()
+    assert not torch.isfinite(L[1]).all() and not torch.isfinite(W[1]).all()
+    assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(W[[0, 2]]).all()
+    L0, _ = chol_factor_plain(torch.as_tensor(K))
+    np.testing.assert_allclose(L[[0, 2]].numpy(), L0[[0, 2]].numpy(), atol=1e-4)
+    assert not torch.isfinite(chol_inv(torch.as_tensor(K))[0][1]).all()
 
 
 def test_wrappers_refuse_other_devices():
