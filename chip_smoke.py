@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``hebo_tpu_torch/csrc`` (one nvcc per source,
-   all at once: gram.cu, chol.cu, ssk.cu).
+   all at once: gram.cu, chol.cu, ssk.cu) and prints ptxas' registers and
+   spills per kernel; K3's register route must spill nothing.
 2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times the kernel, the plain version and one PyTorch library
    call where one computes the same function (the yardstick; the port never
@@ -12,6 +13,8 @@
    L 1e-4 and W 1e-3 absolute on SPD inputs AAᵀ/N + 0.5·I; SSK raw totals
    1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute.
    K1 runs at every shape of the main paths and prints library_ms / ms.
+   K3 runs at every AntBO shape and one beyond its register budget, with
+   its route and device µs per launch (torch.profiler) beside ms per call.
    Checks NaN propagation of the factorization on a batch with one non-PSD
    member and on one whose first bad pivot lies in a late tile, and the
    K1-backed ``cholesky_batched`` / ``chol_inv_batched`` API at (2, 512).
@@ -164,28 +167,36 @@ def check_chol(torch, ck, dev, gen, fails):
 
 def ssk_flops(s1, s2, B, P, self_mode):
     """FP32 operations the SSK recursion needs on these codes over the batch
-    (FMA = 2).  The match mask m is a select, so K_p is formed and summed
-    only where codes match, and only where it is not structurally zero (a
-    subsequence of length p ends at a, b ≥ p − 1): step 1 adds λ_m² and 1
-    to two totals (2 per match); a later step forms λ_m²·T, λ_m²·T′_λ + T
-    and λ_m²·T′_g and adds them (7 per match).  Transition p (p = 1..P−1)
-    runs the R and T prefix recursions of the three chains over the
-    non-zero part of K_p, (L−p)(L−p−1) carried steps each (the first step
-    of each scan is a copy): value and λ_m² tangent one FMA each, the λ_g
-    tangent an add and an FMA, 14 per step for both recursions."""
+    (FMA = 2).  K_p = λ_m²^p·V_p with V_p free of λ_m², so only the value
+    and the λ_g tangent of V run the recursions; the λ_m² tangent is
+    Σ_p p·λ_m²^(p−1)·S_p from the per-step sums S_p = Σ V_p.  The match
+    mask is a select, so V_p is summed only where codes match and it is not
+    structurally zero (a, b ≥ p − 1): 1 add per match at p = 1 (the value),
+    2 at p > 1 (value and gap tangent).  Transition p (p = 1..P−1) runs the
+    R and T prefix recursions over the non-zero part of V_p, (L−p)(L−p−1)
+    carried steps (the first step of each scan is a copy): the value one
+    FMA in each recursion, the gap tangent an add and an FMA in each, 10
+    per step.  The totals take 3 FMAs per step p and pair."""
     L = s1.shape[1]
     eq = (s1[:, :, None] == s1[:, None, :]) if self_mode else (s1[:, None, :, None] == s2[None, :, None, :])
     pairs = eq.numel() // (L * L)
-    ops = sum((2 if p == 1 else 7) * int(eq[..., p - 1:, p - 1:].sum().item()) for p in range(1, P + 1))
-    ops += sum(14 * (L - p) * max(L - p - 1, 0) * pairs for p in range(1, P))
+    ops = sum((1 if p == 1 else 2) * int(eq[..., p - 1:, p - 1:].sum().item()) for p in range(1, P + 1))
+    ops += sum(10 * (L - p) * max(L - p - 1, 0) * pairs for p in range(1, P))
+    ops += 6 * P * pairs
     return B * ops
 
 
-def check_ssk(torch, ssk, dev, fails):
+def check_ssk(torch, ssk, device_us, dev, fails):
+    """K3 at the AntBO paths' shapes: the fit and cache at buckets 256 and
+    32 (B = 1; B = 2 for two restarts), the local search's one-flip
+    neighbours against the bucket (209 × bucket), M = 1, (6, 2), and one
+    shape just beyond the register budget (L = 12, the smem route)."""
     cross_rows, self_rows = [], []
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
     cases = [(1, 256, 256, 11, 3, [(0.6, 0.7)]), (2, 256, 256, 11, 3, [(0.6, 0.7), (0.35, 0.9)]),
-             (1, 256, 1, 11, 3, [(0.5, 0.5)]), (1, 13, 5, 6, 2, [(0.8, 0.3)])]
+             (1, 209, 256, 11, 3, [(0.7, 0.6)]), (1, 209, 32, 11, 3, [(0.7, 0.6)]),
+             (1, 32, 32, 11, 3, [(0.55, 0.8)]), (1, 256, 1, 11, 3, [(0.5, 0.5)]),
+             (1, 13, 5, 6, 2, [(0.8, 0.3)]), (1, 256, 256, 12, 3, [(0.6, 0.7)])]
     rng = np.random.default_rng(0)
     for B, N, M, L, P, decays in cases:
         s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=dev)
@@ -207,23 +218,43 @@ def check_ssk(torch, ssk, dev, fails):
         reps = 200 if N * M > 1e4 else 1000
         bc, byc = bound(ssk_flops(s1, s2, B, P, False), 4 * ((N + M) * L + 2 * B + 3 * B * N * M))
         bs, bys = bound(ssk_flops(s1, s1, B, P, True), 4 * (N * L + 2 * B + 3 * B * N))
+        cross = lambda: ssk.ssk_cross(s1, s2, lam2, gd, P)
+        self_ = lambda: ssk.ssk_self(s1, lam2, gd, P)
         # no single PyTorch call computes the SSK DP: library_ms is null
         cross_rows.append(dict(
-            shape=[B, N, M, L, P], max_abs_err=max(abs_errs[:3]), max_rel_err=max(errs[:3]),
-            gram_max_abs_err=k_err,
-            ms=cuda_ms(torch, lambda: ssk.ssk_cross(s1, s2, lam2, gd, P), reps),
+            shape=[B, N, M, L, P], route=ssk.route(L, P), max_abs_err=max(abs_errs[:3]),
+            max_rel_err=max(errs[:3]), gram_max_abs_err=k_err, ms=cuda_ms(torch, cross, reps),
+            device_us=device_us(torch, cross, 100, "ssk_cross")[0],
             plain_ms=cuda_ms(torch, lambda: ssk.ssk_cross_plain(s1, s2, lam2, gd, P), 20),
             bound_ms=bc, bound_by=byc, library_ms=None,
         ))
         if [B, N, L, P] in [r["shape"] for r in self_rows]:
-            continue  # (1, 256, 1) repeats the self set of (1, 256, 256)
+            continue  # (1, 256, 1) and (1, 209, 32) repeat an earlier self set
         self_rows.append(dict(
-            shape=[B, N, L, P], max_abs_err=max(abs_errs[3:]), max_rel_err=max(errs[3:]),
-            ms=cuda_ms(torch, lambda: ssk.ssk_self(s1, lam2, gd, P), reps),
+            shape=[B, N, L, P], route=ssk.route(L, P), max_abs_err=max(abs_errs[3:]),
+            max_rel_err=max(errs[3:]), ms=cuda_ms(torch, self_, reps),
+            device_us=device_us(torch, self_, 100, "ssk_self")[0],
             plain_ms=cuda_ms(torch, lambda: ssk.ssk_self_plain(s1, lam2, gd, P), 20),
             bound_ms=bs, bound_by=bys, library_ms=None,
         ))
     return cross_rows, self_rows
+
+
+def check_ptxas(logs, fails):
+    """Print ptxas' registers / spills per kernel; K3's register route must
+    spill nothing and keep no stack frame."""
+    for src, log in logs.items():
+        name = None
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[-1].strip()
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"ptxas {src}: {line.split('info    :')[-1].strip()}", flush=True)
+            if "spill" in line and name and "_regs" in name and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+                fails.append(f"ptxas {src} {name}: {line.strip()}")
+    if "_regs" not in logs.get("ssk", ""):
+        fails.append("ptxas: no report of K3's register route")
 
 
 def check_chol_api(torch, ck, dev, gen, fails):
@@ -377,6 +408,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.bench.ssk_probe import device_us
     from hebo_tpu_torch.ops import chol_kernel as ck
     from hebo_tpu_torch.ops import gram, native, ssk
     from hebo_tpu_torch.optimizers import AntBOOptimizer
@@ -389,17 +421,14 @@ def main() -> int:
     t0 = time.time()
     logs = native.build()
     print(f"kernels built in {time.time() - t0:.1f} s", flush=True)
-    for src, log in logs.items():  # ptxas: registers, shared memory, spills
-        for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print(f"ptxas {src}: {line.split('info    :')[-1].strip()}", flush=True)
+    fails = []
+    check_ptxas(logs, fails)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    fails = []
     g_rows = check_gram(torch, gram, dev, gen, fails)
     f_rows, w_rows = check_chol(torch, ck, dev, gen, fails)
-    c_rows, s_rows = check_ssk(torch, ssk, dev, fails)
+    c_rows, s_rows = check_ssk(torch, ssk, device_us, dev, fails)
     check_chol_api(torch, ck, dev, gen, fails)
     for name, rows in (("matern32_gram", g_rows), ("chol_factor", f_rows), ("chol_winv", w_rows),
                        ("ssk_cross", c_rows), ("ssk_self", s_rows)):
@@ -449,6 +478,7 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
+            **({"device_us": r["device_us"], "k3_route": r["route"]} if "device_us" in r else {}),
         })
     if fails:
         print("FAILED:\n  " + "\n  ".join(fails), flush=True)

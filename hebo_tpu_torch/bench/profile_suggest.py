@@ -13,9 +13,11 @@ antigen 1H0D_C), one warm-up suggest, then
 * one suggest under ``torch.profiler`` (CPU + CUDA): wall time, summed
   device kernel time (its share of the wall time is the busy share), kernel
   launches and the top kernels by device time; kernel K1's device kernels
-  with their launches per ``chol_factor`` call, and the count of library
-  factorization / triangular-solve kernels (cuSOLVER potrf, cuBLAS trsm),
-  which no CUDA path of the port should launch.
+  with their launches per ``chol_factor`` call, kernel K3's ``ssk_cross`` and
+  ``ssk_self`` kernels with their launches, device ms and µs per launch,
+  and the count of library factorization / triangular-solve kernels
+  (cuSOLVER potrf, cuBLAS trsm), which no CUDA path of the port should
+  launch.
 Prints one JSON line per observation count.
 """
 
@@ -31,7 +33,7 @@ import torch
 
 from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
-from ..ops import chol_kernel
+from ..ops import chol_kernel, ssk
 from ..optimizers.antbo import AntBOOptimizer
 from ..tasks import AbsolutTool
 
@@ -101,12 +103,14 @@ def _device_profile(suggest) -> dict:
     launches and the top kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     k1_calls = chol_kernel.chol_factor.launches
+    k3_calls = {"ssk_cross": ssk.ssk_cross.launches, "ssk_self": ssk.ssk_self.launches}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         suggest()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     k1_calls = chol_kernel.chol_factor.launches - k1_calls
+    k3_calls = {k: getattr(ssk, k).launches - n for k, n in k3_calls.items()}
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
     for e in kern:
@@ -116,6 +120,11 @@ def _device_profile(suggest) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     k1 = {k.split("::")[-1].split("(")[0]: {"n": n, "ms": ms, "per_call": n / max(k1_calls, 1)}
           for k, (n, ms) in by_name.items() if "chol_" in k or "winv_" in k}
+    k3 = {}
+    for mode, calls in k3_calls.items():
+        n = sum(n for k, (n, _) in by_name.items() if mode in k)
+        ms = sum(ms for k, (_, ms) in by_name.items() if mode in k)
+        k3[mode] = {"calls": calls, "n": n, "ms": ms, "us_per_launch": 1e3 * ms / max(n, 1)}
     library = sum(n for k, (n, _) in by_name.items()
                   if any(w in k.lower() for w in ("potrf", "trsm", "trsv", "cusolver")))
     return {
@@ -124,6 +133,7 @@ def _device_profile(suggest) -> dict:
         "top_kernels_ms": {k[:80]: {"n": n, "ms": ms} for k, (n, ms) in top},
         "k1_calls": k1_calls, "k1_kernels": k1,
         "k1_device_ms": sum(v["ms"] for v in k1.values()),
+        "k3_kernels": k3, "k3_device_ms": sum(v["ms"] for v in k3.values()),
         "library_linalg_launches": library,
     }
 

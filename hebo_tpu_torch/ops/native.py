@@ -39,6 +39,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "ssk": {
         "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hebo_ssk_self": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "hebo_ssk_route": [_I, _I],
     },
 }
 
@@ -73,12 +74,14 @@ def lib_path(name: str) -> Path:
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
     """Compile the named sources that are not built yet, all in parallel
-    (one ``nvcc`` per source).  Returns the compiler output per source
-    (ptxas' registers / shared memory / spills per kernel); raises on a
-    failed build."""
+    (one ``nvcc`` per source), and keep each compiler output beside its
+    library (``.log``).  Returns the compiler output per named source
+    (ptxas' registers / shared memory / spills per kernel), this build's or
+    the kept one; raises on a failed build."""
+    names = list(names)
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
-        return {}
+        return {n: _log(n) for n in names}
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -93,13 +96,19 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
         out, _ = proc.communicate()
         logs[n] = out
         if proc.returncode == 0:
+            lib_path(n).with_suffix(".log").write_text(out)
             os.replace(tmp, lib_path(n))
         else:
             os.unlink(tmp)
             failed.append(f"{n}.cu (nvcc exit {proc.returncode}):\n{out}")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return logs
+    return {n: logs.get(n) or _log(n) for n in names}
+
+
+def _log(name: str) -> str:
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -23,6 +23,12 @@ for the custom VJP :218-228) returns Σ g·∂K/∂λ_m² and Σ g·∂K/∂λ_g
 batch entry.  The codes get no gradient.  ``ssk_gram_plain`` is the same
 function over the plain versions.
 
+The kernel picks one of two routes by (L, P) (``csrc/ssk.cu::pick_route``,
+reported by ``route``): ``regs`` (one thread per pair, state in registers,
+L ≤ 11 at P ≤ 3 and L ≤ 8 at P = 4, 5) and ``smem`` (everything beyond that
+register budget).  ``ssk_scan_plain`` is the kernel's recursion in plain
+torch, for the CPU tests.
+
 Tolerances of the kernel against the plain version (sums in another order):
 raw totals 1e-5 relative, normalised K 1e-5 absolute (K ∈ [0, 1]), tangents
 1e-4 relative.
@@ -30,18 +36,26 @@ raw totals 1e-5 relative, normalised K 1e-5 absolute (K ∈ [0, 1]), tangents
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import native
 
 __all__ = [
-    "decay_mats", "ssk_cross", "ssk_cross_plain", "ssk_self", "ssk_self_plain",
-    "ssk_gram", "ssk_gram_plain",
+    "decay_mats", "route", "ssk_cross", "ssk_cross_plain", "ssk_scan_plain",
+    "ssk_self", "ssk_self_plain", "ssk_gram", "ssk_gram_plain",
 ]
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+ROUTES = ("regs", "smem")
+
+
+def route(L: int, P: int) -> str:
+    """The route K3 takes on the card for strings of length L and max_subseq
+    P, as the built kernel reports it (``csrc/ssk.cu::pick_route``)."""
+    return ROUTES[native.load("ssk").hebo_ssk_route(int(L), int(P))]
 
 
 def decay_mats(gap: torch.Tensor, L: int):
@@ -98,6 +112,70 @@ def ssk_self_plain(s, lam2, gap, max_subseq: int = 3) -> Triple:
     """Plain version of ``ssk_self``: 3 × (B, N)."""
     match = (s[:, :, None] == s[:, None, :]).to(lam2.dtype)
     return _dp_plain(match, lam2, gap, max_subseq)
+
+
+def _scan_serial(u, ug, g, p):
+    """Exclusive decayed row scan R[b] = Σ_{c<b} u[c]·g^{b−1−c} and its gap
+    tangent, one column after another as the kernel runs it; R = 0 at
+    b ≤ p − 1."""
+    R, Rg = torch.zeros_like(u), torch.zeros_like(u)
+    r, rg, g = R[..., 0], Rg[..., 0], g[..., 0]
+    for b in range(p, u.shape[-1]):
+        rg = g * rg + (ug[..., b - 1] + r)
+        r = g * r + u[..., b - 1]
+        R[..., b], Rg[..., b] = r, rg
+    return R, Rg
+
+
+def ssk_scan_plain(s1: torch.Tensor, s2: Optional[torch.Tensor], lam2: torch.Tensor,
+                   gap: torch.Tensor, max_subseq: int = 3) -> Triple:
+    """Kernel K3's recursion in plain torch (used by the tests only): raw
+    totals and tangents of all pairs of s1 × s2 (B, N, M), or of the pairs
+    (i, i) of s1 when s2 is None (B, N).
+
+    It follows ``csrc/ssk.cu``'s schedule: rows streamed, steps from P down
+    to 1, the λ_m²-free chain V_p = m·(DᵀV_{p−1}D) with its gap tangent as
+    row scans R and column recursions T, structural zeros (rows and columns
+    < p − 1) skipped, and the totals Σ_p λ^p S_p, Σ_p p·λ^{p−1} S_p,
+    Σ_p λ^p S′_p."""
+    P = int(max_subseq)
+    if s2 is None:
+        match = s1[:, :, None] == s1[:, None, :]
+    else:
+        match = (s1[:, None, :, None] == s2[None, :, None, :]).flatten(0, 1)
+    B, (pairs, L) = lam2.shape[0], match.shape[:2]
+    g = gap.reshape(B, 1, 1)
+    zero = lam2.new_zeros(())
+    tv = lam2.new_zeros((max(P - 1, 1), B, pairs, L))  # T_p[a, ·] for p = 2..P
+    tg = torch.zeros_like(tv)
+    S = lam2.new_zeros((P, B, pairs))
+    Sg = torch.zeros_like(S)
+    for a in range(L):
+        m = match[:, a, :]
+        for p in range(P, 0, -1):
+            if a < p - 1:
+                continue  # structural zero row
+            if p == 1:
+                u, ug = m.to(lam2.dtype).expand(B, -1, -1), torch.zeros_like(tv[0])
+            else:
+                u, ug = torch.where(m, tv[p - 2], zero), torch.where(m, tg[p - 2], zero)
+            S[p - 1] += u[..., p - 1:].sum(-1)
+            Sg[p - 1] += ug[..., p - 1:].sum(-1)
+            if p < P:
+                R, Rg = _scan_serial(u, ug, g, p)
+                Tv, Tg = tv[p - 1, ..., p:], tg[p - 1, ..., p:]  # zero at columns < p
+                Tg.copy_(g * Tg + (Rg[..., p:] + Tv))
+                Tv.copy_(g * Tv + R[..., p:])
+    tot, totl, totg = (torch.zeros_like(S[0]) for _ in range(3))
+    lam = lam2.reshape(B, 1)
+    pw = torch.ones_like(lam)  # λ^{p−1}
+    for p in range(1, P + 1):
+        totl = totl + p * pw * S[p - 1]
+        pw = pw * lam
+        tot = tot + pw * S[p - 1]
+        totg = totg + pw * Sg[p - 1]
+    shape = (B, s1.shape[0]) if s2 is None else (B, s1.shape[0], s2.shape[0])
+    return tot.reshape(shape), totl.reshape(shape), totg.reshape(shape)
 
 
 def _codes(s: torch.Tensor) -> torch.Tensor:
@@ -158,8 +236,7 @@ def ssk_self(s, lam2, gap, max_subseq: int = 3) -> Triple:
     return out[0], out[1], out[2]
 
 
-ssk_cross.launches = 0
-ssk_self.launches = 0
+ssk_cross.launches = ssk_self.launches = 0
 
 
 def _normalise(cross: Triple, sa: Triple, sb: Triple):

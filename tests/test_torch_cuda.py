@@ -10,7 +10,7 @@ diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
 Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
 version's (W by doubling vs forward substitution); SSK raw totals
 1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
-recursions vs dense D-matrix products).
+recursions vs dense D-matrix products), on both of K3's routes.
 """
 
 import numpy as np
@@ -112,14 +112,33 @@ def _rel(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M,L,P", [(1, 256, 256, 11, 3), (2, 256, 256, 11, 3), (1, 256, 1, 11, 3),
-                                       (1, 13, 5, 6, 2), (2, 37, 70, 4, 5)])
-def test_ssk_kernel_on_card(cuda, B, N, M, L, P):
+@pytest.mark.parametrize("B,N,M,L,P,A,route", [
+    (1, 256, 256, 11, 3, 20, "regs"),  # AntBO fit at bucket 256
+    (2, 256, 256, 11, 3, 20, "regs"),  # B = 2, distinct decays
+    (1, 256, 1, 11, 3, 20, "regs"),    # M = 1
+    (1, 13, 5, 6, 2, 20, "regs"),
+    (2, 37, 70, 4, 5, 20, "regs"),
+    (1, 32, 32, 11, 3, 20, "regs"),    # AntBO bucket 32: the fit
+    (1, 209, 32, 11, 3, 20, "regs"),   # AntBO bucket 32: one-flip neighbours
+    (2, 40, 50, 13, 3, 20, "smem"),
+    (1, 70, 80, 11, 3, 4, "regs"),     # L at the regs bound of P ≤ 3
+    (1, 70, 80, 8, 5, 4, "regs"),      # L at the regs bound of P = 5
+    (1, 70, 80, 1, 1, 4, "regs"),      # L = 1, P = 1
+    (1, 70, 80, 12, 3, 4, "smem"),     # one column beyond the register budget
+    (1, 70, 80, 9, 5, 4, "smem"),
+    (1, 20, 30, 11, 6, 4, "smem"),     # P beyond the register budget
+])
+def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
+    """Codes from an alphabet of A letters (4: dense matches, every step of
+    the DP non-zero).  The route the shape takes, one launch per wrapper
+    call, both wrappers and the normalised Gram's decay gradients against
+    the plain version."""
     rng = np.random.default_rng(B * N + M)
-    s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=cuda)
-    s2 = torch.as_tensor(rng.integers(0, 20, (M, L)), dtype=torch.int32, device=cuda)
+    s1 = torch.as_tensor(rng.integers(0, A, (N, L)), dtype=torch.int32, device=cuda)
+    s2 = torch.as_tensor(rng.integers(0, A, (M, L)), dtype=torch.int32, device=cuda)
     md = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
     gd = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
+    assert ssk.route(L, P) == route
     n0 = (ssk.ssk_cross.launches, ssk.ssk_self.launches)
     cross = ssk.ssk_cross(s1, s2, md * md, gd, P)
     self1 = ssk.ssk_self(s1, md * md, gd, P)

@@ -1,5 +1,6 @@
-"""hebo_tpu_torch's SSK Gram (ops/ssk.py, the plain version of kernel K3)
-and categorical kernels against hebo_tpu on CPU.
+"""hebo_tpu_torch's SSK Gram (ops/ssk.py: the plain version of kernel K3 and
+``ssk_scan_plain``, the mirror of the kernel's recursion) and categorical
+kernels against hebo_tpu on CPU.
 
 The JAX side runs its Pallas SSK kernel in interpret mode, as
 tests/test_pallas_ssk.py does.  Tolerances (float32 on both sides, sums in
@@ -74,6 +75,31 @@ def test_raw_totals_and_tangents_match_pallas(N, M, L, P):
         for k, rtol in enumerate((1e-5, 1e-4, 1e-4)):
             np.testing.assert_allclose(cross[k][b].numpy(), np.asarray(cj[k])[:N, :M], rtol=rtol, atol=1e-6)
             np.testing.assert_allclose(self1[k][b].numpy(), np.asarray(s1j[k])[:N], rtol=rtol, atol=1e-6)
+
+
+# CASES plus L = 1, P = 1, P = 5 and M = 1
+SCAN_CASES = CASES + [(7, 4, 1, 3), (8, 5, 11, 1), (6, 7, 6, 5), (9, 1, 8, 5)]
+
+
+@pytest.mark.parametrize("N,M,L,P", SCAN_CASES)
+def test_scan_mirror_matches_pallas(N, M, L, P):
+    """ssk_scan_plain (kernel K3's recursion: rows streamed, two chains, the
+    λ_m² tangent from Σ p·λ^{p−1} S_p, structural zeros skipped) against the
+    JAX Pallas kernel in interpret mode, cross and self totals."""
+    s1, s2 = _codes(N, L, 3, N + 20), _codes(M, L, 3, M + 40)
+    lam2 = torch.tensor([d[0] ** 2 for d in DECAYS])
+    gap = torch.tensor([d[1] for d in DECAYS])
+    cross = ssk.ssk_scan_plain(torch.as_tensor(s1), torch.as_tensor(s2), lam2, gap, P)
+    self1 = ssk.ssk_scan_plain(torch.as_tensor(s1), None, lam2, gap, P)
+    self2 = ssk.ssk_scan_plain(torch.as_tensor(s2), None, lam2, gap, P)
+    assert cross[0].shape == (len(DECAYS), N, M) and self1[0].shape == (len(DECAYS), N)
+    for b in range(len(DECAYS)):
+        cj, s1j, s2j = _raw_call(jnp.asarray(s1, jnp.float32), jnp.asarray(s2, jnp.float32),
+                                 jnp.float32(lam2[b].item()), jnp.float32(gap[b].item()), P, True)
+        for k, rtol in enumerate((1e-5, 1e-4, 1e-4)):
+            np.testing.assert_allclose(cross[k][b].numpy(), np.asarray(cj[k])[:N, :M], rtol=rtol, atol=1e-6)
+            np.testing.assert_allclose(self1[k][b].numpy(), np.asarray(s1j[k])[:N], rtol=rtol, atol=1e-6)
+            np.testing.assert_allclose(self2[k][b].numpy(), np.asarray(s2j[k])[:M], rtol=rtol, atol=1e-6)
 
 
 def test_self_similarity_is_one_and_bounded():
