@@ -10,8 +10,15 @@
    shapes, and times the kernel, the plain version and one PyTorch library
    call where one computes the same function (the yardstick; the port never
    calls it).  Tolerances: Gram 1e-5 absolute (values ≤ outputscale ≈ 1.5);
-   L 1e-4 and W 1e-3 absolute on SPD inputs AAᵀ/N + 0.5·I; SSK raw totals
-   1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute.
+   its VJP (ga, gb, gsc) 1e-4 × the largest |value| of each plain gradient
+   (float32 sums over M or N terms in another order); L 1e-4 and W 1e-3
+   absolute on SPD inputs AAᵀ/N + 0.5·I; SSK raw totals 1e-5 and tangents
+   1e-4 relative, normalised SSK Gram 1e-5 absolute.
+   K2 and its VJP run at every HEBO shape (fit, cache, NSGA-II predict at
+   buckets 128 and 1024; the VJP at the fit's), with device µs per call
+   (``bench/gram_probe.device_per_call``, torch.profiler) beside ms per
+   call, the VJP also on a self-Gram with coincident rows, and twice on
+   the same inputs, which must give the same bits.
    K1 runs at every shape of the main paths and prints library_ms / ms.
    K3 runs at every AntBO shape and one beyond its register budget, with
    its route and device µs per launch (torch.profiler) beside ms per call.
@@ -25,7 +32,8 @@
        (bucket 128); the best y must beat the init phase's;
    (b) Ackley-6D warm-started with 800 Sobol observations (bucket 1024),
        then 2 × suggest(8).
-   Every suggestion must be finite and inside the box.
+   Every suggestion must be finite and inside the box, and every pSGLD
+   step's Gram gradient must have gone through K2's VJP kernel.
 4. Drives AntBO (CDRH3 length 11, 20 amino acids, SSK GP with max_subseq 3
    and 50 pSGLD epochs, constrained local search 256 × 8 × 8, Casmopolitan
    TR) on the AbsolutTool surrogate energy of antigen 1H0D_C, with the
@@ -55,7 +63,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet, 700 W)
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
-GRAM_TOL, L_TOL, W_TOL = 1e-5, 1e-4, 1e-3
+GRAM_TOL, VJP_TOL, L_TOL, W_TOL = 1e-5, 1e-4, 1e-4, 1e-3
 SSK_RAW_TOL, SSK_TAN_TOL, SSK_K_TOL = 1e-5, 1e-4, 1e-5
 
 
@@ -78,9 +86,13 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_gram(torch, gram, dev, gen, fails):
+def check_gram(torch, gram, device_per_call, dev, gen, fails):
+    """K2 at HEBO's shapes: the fit (2, bucket, bucket, 6), the cache
+    (1, bucket, bucket, 6) and NSGA-II's predict (1, bucket, 100, 6) at
+    buckets 1024 and 128."""
     rows = []
-    for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 100, 6), (2, 128, 128, 6)]:
+    for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
+                       (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6)]:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -90,14 +102,55 @@ def check_gram(torch, gram, dev, gen, fails):
         reps = 200 if N * M > 1e5 else 1000
         bms, by = bound(B * N * M * (2 * D + 8), 4 * (B * N * D + B * M * D + B + B * N * M))
         rows.append(dict(
-            shape=[B, N, M, D], max_abs_err=err,
+            shape=[B, N, M, D], tile_rows=gram.tile_rows(B, N, M), max_abs_err=err,
             ms=cuda_ms(torch, lambda: gram.matern32_gram(a, b, sc), reps),
+            device_us=device_per_call(torch, lambda: gram.matern32_gram(a, b, sc), 100, "matern32_gram")[0],
             plain_ms=cuda_ms(torch, lambda: gram.matern32_gram_plain(a, b, sc), reps),
             bound_ms=bms, bound_by=by,
             # no single PyTorch call computes the Matérn Gram; torch.cdist
             # (distances only) is printed beside it as the nearest library call
             library_ms=None,
             cdist_ms=cuda_ms(torch, lambda: torch.cdist(a, b), reps),
+        ))
+    return rows
+
+
+def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
+    """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
+    128, on random points and on a self-Gram with coincident rows (repeated
+    rows and the zero rows of a padded bucket); twice on the same inputs,
+    which must give the same bits."""
+    rows = []
+    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6)]:
+        a = torch.randn((B, N, D), generator=gen, device=dev)
+        b = torch.randn((B, M, D), generator=gen, device=dev)
+        sc = torch.rand((B,), generator=gen, device=dev) + 0.5
+        g = torch.randn((B, N, M), generator=gen, device=dev)
+        x = a.clone()
+        x[:, N // 2: N // 2 + 8] = x[:, :8]
+        x[:, -16:] = 0.0
+        for what, (p, q) in (("random points", (a, b)), ("self-Gram, coincident rows", (x, x))):
+            got, want = gram.matern32_gram_vjp(p, q, sc, g), gram.matern32_gram_vjp_plain(p, q, sc, g)
+            errs = [((u - v).abs().max() / v.abs().max()).item() for u, v in zip(got, want)]
+            same_bits = all(torch.equal(u, v) for u, v in zip(got, gram.matern32_gram_vjp(p, q, sc, g)))
+            print(f"matern32_gram_vjp {(B, N, M, D)} {what}: errors over max |ga|, |gb|, |gsc| "
+                  f"{errs}, same bits twice {same_bits}", flush=True)
+            if not (max(errs) <= VJP_TOL and same_bits):
+                fails.append(f"matern32_gram_vjp {(B, N, M, D)} {what}: errors {errs}, "
+                             f"same bits twice {same_bits}")
+        got, want = gram.matern32_gram_vjp(a, b, sc, g), gram.matern32_gram_vjp_plain(a, b, sc, g)
+        vjp = lambda: gram.matern32_gram_vjp(a, b, sc, g)
+        reps = 200 if N * M > 1e5 else 1000
+        # bytes: a, b, sc, g read, ga, gb, gsc written; operations per pair:
+        # d2 (2D), s, e^{-s}, G and gsc's term (~14), the row and column sums (4D)
+        bms, by = bound(B * N * M * (6 * D + 14), 4 * (2 * B * N * D + 2 * B * M * D + 2 * B + B * N * M))
+        us, launches = device_per_call(torch, vjp, 100, "matern32_vjp")
+        rows.append(dict(
+            shape=[B, N, M, D], tile_rows=gram.tile_rows(B, N, M),
+            max_abs_err=max((u - v).abs().max().item() for u, v in zip(got, want)),
+            ms=cuda_ms(torch, vjp, reps), device_us=us, device_launches_per_call=launches,
+            plain_ms=cuda_ms(torch, lambda: gram.matern32_gram_vjp_plain(a, b, sc, g), reps),
+            bound_ms=bms, bound_by=by, library_ms=None,
         ))
     return rows
 
@@ -408,6 +461,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.bench.gram_probe import device_per_call
     from hebo_tpu_torch.bench.ssk_probe import device_us
     from hebo_tpu_torch.ops import chol_kernel as ck
     from hebo_tpu_torch.ops import gram, native, ssk
@@ -426,23 +480,27 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    g_rows = check_gram(torch, gram, dev, gen, fails)
+    g_rows = check_gram(torch, gram, device_per_call, dev, gen, fails)
+    v_rows = check_gram_vjp(torch, gram, device_per_call, dev, gen, fails)
     f_rows, w_rows = check_chol(torch, ck, dev, gen, fails)
     c_rows, s_rows = check_ssk(torch, ssk, device_us, dev, fails)
     check_chol_api(torch, ck, dev, gen, fails)
-    for name, rows in (("matern32_gram", g_rows), ("chol_factor", f_rows), ("chol_winv", w_rows),
+    for name, rows in (("matern32_gram", g_rows), ("matern32_gram_vjp", v_rows),
+                       ("chol_factor", f_rows), ("chol_winv", w_rows),
                        ("ssk_cross", c_rows), ("ssk_self", s_rows)):
         for r in rows:
             print(f"kernel {name}", json.dumps(r), flush=True)
-    print("kernel ssk_cross / ssk_self: library_ms null, no single PyTorch call computes "
-          "the string-subsequence DP", flush=True)
+    print("kernel matern32_gram / matern32_gram_vjp / ssk_cross / ssk_self: library_ms null, "
+          "no single PyTorch call computes the Matérn Gram, its VJP or the string-subsequence DP",
+          flush=True)
 
-    wrappers = {"matern32_gram": gram.matern32_gram, "chol_factor": ck.chol_factor,
+    wrappers = {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
+                "chol_factor": ck.chol_factor,
                 "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross, "ssk_self": ssk.ssk_self}
     # each path is driven with every count at 0 and read just after
     paths = {
         "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, fails),
-                 ("matern32_gram", "chol_factor", "chol_winv")),
+                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv")),
         "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
                   ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
     }
@@ -459,10 +517,13 @@ def main() -> int:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
 
-    main_shape = {"matern32_gram": [2, 1024, 1024, 6], "chol_factor": [2, 1024], "chol_winv": [2, 1024],
+    main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
+                  "chol_factor": [2, 1024], "chol_winv": [2, 1024],
                   "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3]}
     meta = {
         "matern32_gram": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:87", g_rows),
+        # the JAX package's VJP is XLA-fused jnp (no pallas_call) at :128-133
+        "matern32_gram_vjp": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:128", v_rows),
         "chol_factor": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:613", f_rows),
         "chol_winv": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:665", w_rows),
         "ssk_cross": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:148", c_rows),
@@ -478,7 +539,9 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-            **({"device_us": r["device_us"], "k3_route": r["route"]} if "device_us" in r else {}),
+            **({"device_us": r["device_us"]} if "device_us" in r else {}),
+            **({"k3_route": r["route"]} if "route" in r else {}),
+            **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
         })
     if fails:
         print("FAILED:\n  " + "\n  ".join(fails), flush=True)

@@ -15,9 +15,13 @@ antigen 1H0D_C), one warm-up suggest, then
   launches and the top kernels by device time; kernel K1's device kernels
   with their launches per ``chol_factor`` call, kernel K3's ``ssk_cross`` and
   ``ssk_self`` kernels with their launches, device ms and µs per launch,
-  and the count of library factorization / triangular-solve kernels
+  the count of library factorization / triangular-solve kernels
   (cuSOLVER potrf, cuBLAS trsm), which no CUDA path of the port should
-  launch.
+  launch, and (HEBO) a ``k2`` block: kernel K2's forward and VJP wrapper
+  calls, the device launches, device ms and µs per launch of the forward
+  and of the VJP kernels, and the device launches and µs inside one Gram
+  backward at the fit's shape (B 2, the bucket, D 6), timed apart after
+  the suggest with ``bench/gram_probe.device_per_call``.
 Prints one JSON line per observation count.
 """
 
@@ -33,9 +37,10 @@ import torch
 
 from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
-from ..ops import chol_kernel, ssk
+from ..ops import chol_kernel, gram, ssk
 from ..optimizers.antbo import AntBOOptimizer
 from ..tasks import AbsolutTool
+from .gram_probe import device_per_call
 
 
 def _ackley(df):
@@ -77,9 +82,32 @@ def profile(n_obs: int) -> dict:
     finally:
         hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched = saved
 
-    return {"n_obs": n_obs, "bucket": int(opt.model.data.X.shape[0]),
-            "device": torch.cuda.get_device_name(0), **phases,
-            **_device_profile(lambda: opt.suggest(8))}
+    bucket = int(opt.model.data.X.shape[0])
+    calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+    prof = _device_profile(lambda: opt.suggest(8))
+    return {"n_obs": n_obs, "bucket": bucket, "device": torch.cuda.get_device_name(0), **phases,
+            **prof, "k2": _k2_block(prof.pop("by_name"), calls, bucket)}
+
+
+def _k2_block(by_name, calls, bucket) -> dict:
+    """K2 in the profiled suggest, and one Gram backward at the fit's
+    shape timed apart."""
+    block = {"fwd_calls": gram.matern32_gram.launches - calls[0],
+             "vjp_calls": gram.matern32_gram_vjp.launches - calls[1]}
+    for part, key in (("fwd", "matern32_gram"), ("vjp", "matern32_vjp")):
+        n = sum(n for k, (n, _) in by_name.items() if key in k)
+        ms = sum(ms for k, (_, ms) in by_name.items() if key in k)
+        block.update({f"{part}_launches": n, f"{part}_device_ms": ms,
+                      f"{part}_us_per_launch": 1e3 * ms / max(n, 1)})
+    rng = np.random.default_rng(0)
+    dev = torch.device("cuda")
+    leaves = [torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
+              .requires_grad_(True) for s in ((2, bucket, 6), (2, bucket, 6), (2,))]
+    K = gram.matern32_gram(*leaves)
+    g = torch.randn_like(K)
+    us, n = device_per_call(torch, lambda: torch.autograd.grad(K, leaves, g, retain_graph=True), 200)
+    block.update(one_backward_launches=n, one_backward_device_us=us)
+    return block
 
 
 def profile_antbo(n_obs: int) -> dict:
@@ -93,9 +121,10 @@ def profile_antbo(n_obs: int) -> dict:
     torch.cuda.synchronize()
     phases = {"suggest_s": time.perf_counter() - t0, "fit_s": opt.fit_time[-1],
               "acq_s": opt.acq_time[-1]}
+    prof = _device_profile(lambda: opt.suggest(2))
+    prof.pop("by_name")
     return {"n_obs": n_obs, "bucket": int(opt.model.data.X.shape[0]),
-            "device": torch.cuda.get_device_name(0), **phases,
-            **_device_profile(lambda: opt.suggest(2))}
+            "device": torch.cuda.get_device_name(0), **phases, **prof}
 
 
 def _device_profile(suggest) -> dict:
@@ -134,7 +163,7 @@ def _device_profile(suggest) -> dict:
         "k1_calls": k1_calls, "k1_kernels": k1,
         "k1_device_ms": sum(v["ms"] for v in k1.values()),
         "k3_kernels": k3, "k3_device_ms": sum(v["ms"] for v in k3.values()),
-        "library_linalg_launches": library,
+        "library_linalg_launches": library, "by_name": by_name,
     }
 
 

@@ -11,10 +11,16 @@ package used ``vmap``:
     →  K (B, N, M) = sc·(1+s)·e^{−s},  s = √3·√(max(‖a‖²+‖b‖²−2abᵀ, 0)+1e-16).
 
 On a CUDA tensor ``matern32_gram`` launches the kernel (or raises); on a CPU
-tensor it runs ``matern32_gram_plain``, the same expansion form in PyTorch.
-The gradient is a ``torch.autograd.Function`` whose backward differentiates
-the plain form, as the JAX package's custom VJP (pallas_gram.py:128-133)
-differentiates its jnp form: neither package has a backward kernel.
+tensor it runs ``matern32_gram_plain``, the same expansion form in PyTorch,
+under autograd.  On CUDA the gradient is a ``torch.autograd.Function`` whose
+backward launches the VJP kernel (``matern32_gram_vjp``), in place of the
+XLA-fused VJP of the JAX package's jnp form (pallas_gram.py:128-133).  Its
+closed form, ``matern32_gram_vjp_plain``, with G = −3·sc·g·e^{−s}·[d² ≥ 0]:
+
+    ga = a·Σ_j G − G b,   gb = b·Σ_i G − Gᵀ a,   gsc = Σ g·(1+s)·e^{−s}.
+
+Both kernels take their tile rows from one rule in ``csrc/gram.cu``
+(``pick_rows``), which ``tile_rows`` reports.
 """
 
 from __future__ import annotations
@@ -25,9 +31,11 @@ import torch
 
 from . import native
 
-__all__ = ["matern32_gram", "matern32_gram_plain"]
+__all__ = ["matern32_gram", "matern32_gram_plain", "matern32_gram_vjp", "matern32_gram_vjp_plain",
+           "tile_rows"]
 
 _SQRT3 = math.sqrt(3.0)
+_TILE_COLS = 64  # columns per CTA tile of both kernels (csrc/gram.cu kCols)
 
 
 def matern32_gram_plain(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
@@ -44,15 +52,41 @@ def matern32_gram_plain(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
     return K
 
 
-def _launch(a, b, sc, jitter):
-    native.require_cuda("matern32_gram", a, b, sc)
+def matern32_gram_vjp_plain(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
+                            g: torch.Tensor):
+    """(ga, gb, gsc): the closed-form VJP of ``matern32_gram_plain`` against
+    the cotangent g (B, N, M), in plain PyTorch (the same expansion form;
+    the clamp passes the gradient where d² ≥ 0)."""
+    an = (a * a).sum(-1)[..., :, None]
+    bn = (b * b).sum(-1)[..., None, :]
+    d2 = an + bn - 2.0 * (a @ b.transpose(-1, -2))
+    s = _SQRT3 * torch.sqrt(torch.clamp(d2, min=0.0) + 1e-16)
+    e = torch.exp(-s)
+    G = torch.where(d2 >= 0, -3.0 * sc[:, None, None] * g * e, torch.zeros_like(e))
+    ga = a * G.sum(-1)[..., None] - G @ b
+    gb = b * G.sum(-2)[..., None] - G.transpose(-1, -2) @ a
+    return ga, gb, (g * (1.0 + s) * e).sum((-2, -1))
+
+
+def _shapes(what, a, b, sc):
     B, N, D = a.shape
     if b.shape[0] != B or b.shape[2] != D or sc.shape != (B,):
         raise ValueError(
-            f"matern32_gram: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
+            f"{what}: shapes a {tuple(a.shape)}, b {tuple(b.shape)}, "
             f"sc {tuple(sc.shape)} do not agree"
         )
-    M = b.shape[1]
+    return B, N, b.shape[1], D
+
+
+def tile_rows(B: int, N: int, M: int) -> int:
+    """Rows per CTA tile (64, 32 or 16) that K2's kernels take at this
+    shape, as ``csrc/gram.cu::pick_rows`` decides it on the current card."""
+    return native.load("gram").hebo_matern32_gram_rows(B, N, M)
+
+
+def _launch(a, b, sc, jitter):
+    native.require_cuda("matern32_gram", a, b, sc)
+    B, N, M, D = _shapes("matern32_gram", a, b, sc)
     lib = native.load("gram")
     out = torch.empty((B, N, M), dtype=torch.float32, device=a.device)
     err = native.call(
@@ -64,6 +98,37 @@ def _launch(a, b, sc, jitter):
     return out
 
 
+def matern32_gram_vjp(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
+                      g: torch.Tensor):
+    """(ga (B,N,D), gb (B,M,D), gsc (B,)): the VJP of ``matern32_gram``
+    against g (B,N,M).  CUDA tensors go through the kernel (two launches:
+    per-tile partial sums, then their sum in tile order), CPU tensors
+    through ``matern32_gram_vjp_plain``."""
+    if a.device.type == "cpu":
+        return matern32_gram_vjp_plain(a, b, sc, g)
+    native.require_cuda("matern32_gram_vjp", a, b, sc, g)
+    B, N, M, D = _shapes("matern32_gram_vjp", a, b, sc)
+    if g.shape != (B, N, M):
+        raise ValueError(f"matern32_gram_vjp: g {tuple(g.shape)}, expected {(B, N, M)}")
+    if g.data_ptr() % 16:  # the kernel reads g in 16-byte pieces
+        g = g.clone()
+    lib = native.load("gram")
+    Rt = -(-N // lib.hebo_matern32_gram_rows(B, N, M))
+    Ct = -(-M // _TILE_COLS)
+    out = torch.empty(B * (N + M) * D + B, dtype=torch.float32, device=a.device)
+    scratch = torch.empty(B * (Ct * N * D + Rt * M * D + Rt * Ct), dtype=torch.float32,
+                          device=a.device)
+    ga, gb, gsc = out.split([B * N * D, B * M * D, B])
+    err = native.call(
+        lib.hebo_matern32_gram_vjp, a.device, a.data_ptr(), b.data_ptr(), sc.data_ptr(),
+        g.data_ptr(), scratch.data_ptr(), ga.data_ptr(), gb.data_ptr(), gsc.data_ptr(),
+        B, N, M, D,
+    )
+    native.check(err, "matern32_gram_vjp")
+    matern32_gram_vjp.launches += 1
+    return ga.view(B, N, D), gb.view(B, M, D), gsc
+
+
 class _Matern32Gram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, sc, jitter):
@@ -72,14 +137,8 @@ class _Matern32Gram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        a, b, sc = ctx.saved_tensors
-        need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n) for t, n in zip((a, b, sc), need)]
-            K = matern32_gram_plain(*ins)
-            wrt = [t for t in ins if t.requires_grad]
-            grads = iter(torch.autograd.grad(K, wrt, g) if wrt else ())
-        return tuple(next(grads) if n else None for n in need) + (None,)
+        grads = matern32_gram_vjp(*ctx.saved_tensors, g.contiguous())
+        return tuple(t if n else None for t, n in zip(grads, ctx.needs_input_grad)) + (None,)
 
 
 def matern32_gram(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
@@ -95,3 +154,4 @@ def matern32_gram(a: torch.Tensor, b: torch.Tensor, sc: torch.Tensor,
 
 
 matern32_gram.launches = 0
+matern32_gram_vjp.launches = 0

@@ -31,7 +31,11 @@ _F = ctypes.c_float
 # exported C functions per source: name -> argtypes (restype is c_int, the
 # cudaGetLastError() code)
 SIGNATURES: Dict[str, Dict[str, list]] = {
-    "gram": {"hebo_matern32_gram": [_P, _P, _P, _F, _P, _I, _I, _I, _I, _P]},
+    "gram": {
+        "hebo_matern32_gram": [_P, _P, _P, _F, _P, _I, _I, _I, _I, _P],
+        "hebo_matern32_gram_rows": [_I, _I, _I],
+        "hebo_matern32_gram_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
     "chol": {
         "hebo_chol_factor": [_P, _P, _P, _P, _I, _I, _I, _P],
         "hebo_chol_winv": [_P, _P, _P, _P, _I, _I, _P],

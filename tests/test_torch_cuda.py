@@ -5,7 +5,8 @@ Imports only torch and the port, so it runs where JAX is not installed:
     python3 -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Without a CUDA device every test skips.  Tolerances: Gram 1e-5 (float32,
-values ≤ outputscale); L 1e-4 and W 1e-3 absolute on SPD inputs with
+values ≤ outputscale); its VJP 1e-4 × the largest |value| of each plain
+gradient (float32 sums over M or N terms in another order); L 1e-4 and W 1e-3 absolute on SPD inputs with
 diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
 Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
 version's (W by doubling vs forward substitution); SSK raw totals
@@ -19,6 +20,7 @@ import torch
 
 from hebo_tpu_torch.ops import chol_kernel, ssk
 from hebo_tpu_torch.ops.chol_kernel import chol_inv
+from hebo_tpu_torch.ops import gram
 from hebo_tpu_torch.ops.gram import matern32_gram, matern32_gram_plain
 
 
@@ -45,6 +47,91 @@ def test_gram_kernel_on_card(cuda, B, N, M, D):
     K = matern32_gram(a, b, sc, jitter=1e-3)
     assert matern32_gram.launches == n0 + 1
     torch.testing.assert_close(K, matern32_gram_plain(a, b, sc, 1e-3), rtol=1e-5, atol=1e-5)
+
+
+def _gram_inputs(cuda, B, N, M, D, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=cuda)
+    sc = torch.as_tensor(rng.uniform(0.5, 1.5, B).astype(np.float32), device=cuda)
+    return t(B, N, D), t(B, M, D), sc, t(B, N, M)
+
+
+def _assert_vjp_close(got, want):
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,D", [
+    (2, 1024, 1024, 6), (1, 1024, 1024, 6), (2, 128, 128, 6),  # fit and cache
+    (1, 1024, 100, 6), (1, 128, 100, 6),                       # NSGA-II predict
+    (2, 1000, 1000, 6), (2, 256, 256, 20),                     # ragged edge; D past one chunk
+    (1, 100, 1, 6), (3, 70, 45, 6), (1, 37, 130, 6),           # M = 1, B = 3, ragged tiles
+    (2, 90, 70, 1), (1, 90, 70, 16), (2, 70, 45, 17), (3, 70, 45, 40),
+])
+def test_gram_vjp_kernel_on_card(cuda, B, N, M, D):
+    a, b, sc, g = _gram_inputs(cuda, B, N, M, D)
+    n0 = gram.matern32_gram_vjp.launches
+    got = gram.matern32_gram_vjp(a, b, sc, g)
+    assert gram.matern32_gram_vjp.launches == n0 + 1
+    _assert_vjp_close(got, gram.matern32_gram_vjp_plain(a, b, sc, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [128, 1024])
+def test_gram_vjp_self_gram_coincident_rows(cuda, N):
+    """A fit's self-Gram: repeated rows and the zero rows of a padded bucket."""
+    a, _, sc, g = _gram_inputs(cuda, 2, N, N, 6, seed=1)
+    a[:, N // 2: N // 2 + 8] = a[:, :8]
+    a[:, -16:] = 0.0
+    _assert_vjp_close(gram.matern32_gram_vjp(a, a, sc, g), gram.matern32_gram_vjp_plain(a, a, sc, g))
+
+
+@pytest.mark.gpu
+def test_gram_backward_goes_through_vjp_kernel(cuda):
+    """One backward through ``matern32_gram`` on CUDA is one VJP wrapper
+    call, and gives the plain closed form's gradients."""
+    a, b, sc, g = _gram_inputs(cuda, 2, 128, 128, 6, seed=2)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, sc)]
+    K = matern32_gram(*leaves, jitter=1e-3)
+    n0 = gram.matern32_gram_vjp.launches
+    got = torch.autograd.grad(K, leaves, g)
+    assert gram.matern32_gram_vjp.launches == n0 + 1
+    _assert_vjp_close(got, gram.matern32_gram_vjp_plain(a, b, sc, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,D", [(2, 1024, 1024, 6), (1, 1000, 100, 20)])
+def test_gram_vjp_same_bits_twice(cuda, B, N, M, D):
+    """No float atomics: the same inputs give the same bits."""
+    a, b, sc, g = _gram_inputs(cuda, B, N, M, D, seed=3)
+    for x, y in zip(gram.matern32_gram_vjp(a, b, sc, g), gram.matern32_gram_vjp(a, b, sc, g)):
+        assert torch.equal(x, y)
+
+
+def _expected_rows(B, N, M, sms):
+    """csrc/gram.cu::pick_rows: the largest tile (64 or 32 rows) that gives
+    every SM a CTA, else 16 rows."""
+    for rows in (64, 32):
+        if B * -(-N // rows) * -(-M // 64) >= sms:
+            return rows
+    return 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,edge", [(64, 0), (32, 0), (32, 1), (16, 1)])
+def test_gram_tile_rows_at_the_edges(cuda, rows, edge):
+    """At the edge of each tile choice (one 64-column tile, N giving exactly
+    one CTA per SM, or one row less), both kernels take the rule's rows and
+    agree with their plain versions."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    N = (rows if edge == 0 else 2 * rows) * (sms - 1) + 1 - edge
+    assert _expected_rows(1, N, 64, sms) == rows and gram.tile_rows(1, N, 64) == rows
+    a, b, sc, g = _gram_inputs(cuda, 1, N, 64, 6, seed=4)
+    torch.testing.assert_close(matern32_gram(a, b, sc, 1e-3), matern32_gram_plain(a, b, sc, 1e-3),
+                               rtol=1e-5, atol=1e-5)
+    _assert_vjp_close(gram.matern32_gram_vjp(a, b, sc, g), gram.matern32_gram_vjp_plain(a, b, sc, g))
 
 
 @pytest.mark.gpu
