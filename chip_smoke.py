@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``hebo_tpu_torch/csrc`` (one nvcc per source,
-   all at once: gram.cu, chol.cu, ssk.cu) and prints ptxas' registers and
-   spills per kernel; K3's register route must spill nothing.
+   all at once: gram.cu, chol.cu, ssk.cu, pareto.cu) and prints ptxas'
+   registers and spills per kernel; K3's register route must spill nothing.
 2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times the kernel, the plain version and one PyTorch library
    call where one computes the same function (the yardstick; the port never
@@ -19,7 +19,14 @@
    (``bench/gram_probe.device_per_call``, torch.profiler) beside ms per
    call, the VJP also on a self-Gram with coincident rows, and twice on
    the same inputs, which must give the same bits.
-   K1 runs at every shape of the main paths and prints library_ms / ms.
+   K1 runs at every shape of the main paths and prints library_ms / ms;
+   with the jitter ladder's arguments (jitter on the diagonal, a skipped
+   matrix that keeps its outputs) against its plain version, the ladder
+   (every rung launched) against the host-decided ladder at the fit's
+   shape, bit for bit, and the time of a rung that every matrix skips.
+   K5 (nondominated rank + crowding) at NSGA-II's (100, 3) and (200, 3),
+   with ties, duplicate rows, ±inf and NaN objectives and invalid rows:
+   the same ranks and crowding bits as its plain version, with device µs.
    K3 runs at every AntBO shape and one beyond its register budget, with
    its route and device µs per launch (torch.profiler) beside ms per call.
    Checks NaN propagation of the factorization on a batch with one non-PSD
@@ -27,13 +34,20 @@
    K1-backed ``cholesky_batched`` / ``chol_inv_batched`` API at (2, 512).
 3. Drives HEBO's suggest/observe loop at full default settings (pop 100 ×
    100 generations, 2 restarts × 50 pSGLD epochs, MACE) through the public
-   API, with every kernel launch counted:
+   API, on the graph path (one captured CUDA graph per bucket), with every
+   kernel launch counted (a replay adds its graph's tally):
    (a) Ackley-6D, batches of 8, from the Sobol init to 120 observations
        (bucket 128); the best y must beat the init phase's;
-   (b) Ackley-6D warm-started with 800 Sobol observations (bucket 1024),
-       then 2 × suggest(8).
-   Every suggestion must be finite and inside the box, and every pSGLD
-   step's Gram gradient must have gone through K2's VJP kernel.
+   (b) Ackley-6D warm-started with 800 Sobol observations (bucket 1024):
+       the capturing suggest, then 3 timed suggests on the graph path and
+       3 on the eager CUDA path, with walls and launches per suggest; each
+       suggest after the capture must add exactly 50 K2 VJP, 200 K5 and
+       107 + 107 K1 launches (51 NLL ladders of 2 rungs and the cache's 5,
+       every rung launched).
+   Each phase ends with one suggest on each path at the same seed, which
+   must give the same suggestion.  Every suggestion must be finite and
+   inside the box, and every pSGLD step's Gram gradient must have gone
+   through K2's VJP kernel.
 4. Drives AntBO (CDRH3 length 11, 20 amino acids, SSK GP with max_subseq 3
    and 50 pSGLD epochs, constrained local search 256 × 8 × 8, Casmopolitan
    TR) on the AbsolutTool surrogate energy of antigen 1H0D_C, with the
@@ -293,6 +307,131 @@ def check_ssk(torch, ssk, device_us, dev, fails):
     return cross_rows, self_rows
 
 
+def pareto_inputs(torch, P, edge, dev, seed):
+    rng = np.random.default_rng(seed)
+    F = (rng.integers(0, 4 if edge else 1000, (P, 3)) / 4).astype(np.float32)
+    F[3] = F[4]
+    F[10] = F[11] = F[12]
+    if edge:
+        F[20, 1] = F[21, 1] = np.inf
+        F[22, 0] = -np.inf
+        F[23] = -np.inf
+        F[30, 2] = np.nan
+        F[31] = np.nan
+        F[40] = [np.inf, -np.inf, 0.5]
+    return torch.as_tensor(F, device=dev)
+
+
+def same_bits(torch, a, b):
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)
+                and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def check_pareto(torch, pareto, device_us, dev, fails):
+    """K5 at NSGA-II's shapes: the tournament's (100, 3) and survival's
+    (200, 3), on inputs with ties, duplicate rows, ±inf and NaN, with and
+    without a valid mask: the same ranks and crowding bits as the plain
+    version.  Timed on standard-normal objectives."""
+    rows = []
+    for P in (100, 200):
+        for edge in (False, True):
+            F = pareto_inputs(torch, P, edge, dev, P + edge)
+            for valid in (None, torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25,
+                                                device=dev)):
+                r, c = pareto.nsga2_rank_crowd(F, valid)
+                r0, c0 = pareto.nsga2_rank_crowd_plain(F, valid)
+                if not (torch.equal(r, r0) and same_bits(torch, c, c0)):
+                    fails.append(f"nsga2_rank_crowd {(P, 3)} edge={edge} masked={valid is not None}: "
+                                 f"ranks equal {torch.equal(r, r0)}, crowding bits equal "
+                                 f"{same_bits(torch, c, c0)}")
+        F = torch.randn((P, 3), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
+        fn = lambda: pareto.nsga2_rank_crowd(F)
+        # operations: the domination compares (<=, <) and the crowding
+        # scans' (neighbour, span) over every pair and objective
+        bms, by = bound(4 * P * P * 3, 4 * (P * 3 + 2 * P))
+        r, c = fn()
+        r0, c0 = pareto.nsga2_rank_crowd_plain(F)
+        rows.append(dict(
+            shape=[P, 3], fronts=int(r.max().item()) + 1,
+            max_abs_err=float((c - c0).abs().nan_to_num(0.0).max().item()),
+            ms=cuda_ms(torch, fn, 1000), device_us=device_us(torch, fn, 200, "nsga2_rank_crowd")[0],
+            plain_ms=cuda_ms(torch, lambda: pareto.nsga2_rank_crowd_plain(F), 50),
+            bound_ms=bms, bound_by=by, library_ms=None,
+        ))
+    print("kernel nsga2_rank_crowd: library_ms null, no single PyTorch call computes "
+          "nondominated ranks with crowding", flush=True)
+    return rows
+
+
+def check_ladder(torch, ck, dev, gen, fails):
+    """K1 with the jitter ladder's arguments: jitter and skip against the
+    plain version at (3, 256); the ladder at the fit's shape (2, 1024), one
+    member first factoring at rung 2, against the ladder that forms
+    K + jitter·I first and decides its retries on the host, bit for bit;
+    and the time of a rung that every matrix skips (its launch floors)."""
+    from hebo_tpu_torch.ops import chol as tchol
+
+    A = torch.randn((3, 256, 256), generator=gen, device=dev)
+    K = (A @ A.transpose(1, 2) / 256 + 0.5 * torch.eye(256, device=dev)).contiguous()
+    jitter = torch.tensor([1e-3, 0.5, 0.25], device=dev)
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    out = [(torch.full((3, 256, 256), 7.0, device=dev), torch.full((3, 4, 64, 64), 7.0, device=dev),
+            torch.full((3, 256, 256), 7.0, device=dev)) for _ in range(2)]
+    for (L, Wd, W), (fac, winv) in zip(out, ((ck.chol_factor, ck.chol_winv),
+                                             (ck.chol_factor_plain, ck.chol_winv_plain))):
+        fac(K, jitter, skip, out=(L, Wd))
+        winv(L, Wd, skip, out=W)
+    (L, Wd, W), (L0, Wd0, W0) = out
+    err = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
+    err_w = (W - W0).abs().max().item()
+    kept = bool((L[1] == 7).all() and (Wd[1] == 7).all() and (W[1] == 7).all())
+    print(f"chol skip/jitter (3, 256): L/Wd err {err}, W err {err_w}, skipped member kept {kept}",
+          flush=True)
+    if not (err <= L_TOL and err_w <= W_TOL and kept):
+        fails.append(f"chol skip/jitter (3, 256): L/Wd err {err}, W err {err_w}, kept {kept}")
+
+    N = 1024
+    A = torch.randn((2, N, N), generator=gen, device=dev)
+    K = A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)
+    Q, _ = torch.linalg.qr(torch.randn((N, N), generator=gen, device=dev))
+    d = torch.rand(N, generator=gen, device=dev) * 0.5 + 0.5
+    d[0] = -2e-5
+    K[1] = (Q * d) @ Q.T
+    K = K.contiguous()
+    L, W, ok = tchol.batched_ladder_factor(K, tchol.LADDER)
+    eye = torch.eye(N, device=dev)
+    scale = torch.clamp(torch.diagonal(K, dim1=-2, dim2=-1).mean(-1), min=1e-12)[:, None, None]
+    L0, W0 = ck.chol_inv((K + (1e-6 + tchol.LADDER[0] * scale) * eye).contiguous())
+    ok0 = torch.isfinite(L0).all(-1).all(-1)
+    first = torch.zeros(2, dtype=torch.int64, device=dev)
+    for i, rung in enumerate(tchol.LADDER[1:], 1):
+        if bool(ok0.all()):
+            break
+        L2, W2 = ck.chol_inv((K + (1e-6 + rung * scale) * eye).contiguous())
+        ok2 = torch.isfinite(L2).all(-1).all(-1)
+        take = (~ok0) & ok2
+        first = torch.where(take, i, first)
+        L0 = torch.where(take[:, None, None], L2, L0)
+        W0 = torch.where(take[:, None, None], W2, W0)
+        ok0 = ok0 | ok2
+    same = bool(torch.equal(ok, ok0) and torch.equal(L, L0) and torch.equal(W, W0))
+    print(f"chol ladder (2, 1024), every rung launched vs retries decided on the host: same bits "
+          f"{same}, ok {ok.tolist()}, first rung {first.tolist()}", flush=True)
+    if not (same and bool(ok.all()) and first.tolist() == [0, 2]):
+        fails.append(f"chol ladder (2, 1024): same bits {same}, ok {ok.tolist()}, "
+                     f"first rung {first.tolist()} (expected [0, 2])")
+    Lp, Wdp = ck.chol_factor(K)
+    Wp = ck.chol_winv(Lp, Wdp)
+    all_skip = torch.ones(2, dtype=torch.int32, device=dev)
+    jit = torch.zeros(2, device=dev)
+    skipped_ms = cuda_ms(torch, lambda: (ck.chol_factor(K, jit, all_skip, out=(Lp, Wdp)),
+                                         ck.chol_winv(Lp, Wdp, all_skip, out=Wp)), 200)
+    print(f"chol skipped rung (2, 1024): {skipped_ms:.4f} ms per chol_factor + chol_winv pair "
+          f"(16 + 9 launches whose CTAs return at once)", flush=True)
+    return dict(skipped_rung_ms=skipped_ms, ladder_same_bits=same)
+
+
 def check_ptxas(logs, fails):
     """Print ptxas' registers / spills per kernel; K3's register route must
     spill nothing and keep no stack frame."""
@@ -346,7 +485,24 @@ def check_batch(space, rec, what, fails):
         fails.append(f"{what}: suggestion not finite / out of bounds / wrong size")
 
 
-def run_phases(torch, HEBO, DesignSpace, fails):
+def graph_vs_eager(torch, opt, what, fails):
+    """One suggest on the graph path and one on the eager CUDA path, at the
+    same observations and seed: the suggestions must be the same."""
+    rec_g = opt.suggest(8)
+    alpha_g = opt.model.caches.alpha.clone()
+    opt._use_graphs = False
+    try:
+        rec_e = opt.suggest(8)
+    finally:
+        opt._use_graphs = True
+    same = bool(rec_g.equals(rec_e) and torch.equal(alpha_g, opt.model.caches.alpha))
+    print(f"{what}: graph and eager suggestions at {opt.num_obs} observations identical: {same}",
+          flush=True)
+    if not same:
+        fails.append(f"{what}: the graph path's suggestion differs from the eager path's")
+
+
+def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
     # (a) Sobol init → 120 observations, bucket 128
@@ -365,26 +521,52 @@ def run_phases(torch, HEBO, DesignSpace, fails):
     if not opt.best_y < init_best:
         fails.append(f"phase a: best {opt.best_y} does not beat the init phase's {init_best}")
     a = dict(n_obs=opt.num_obs, init_best=init_best, best=opt.best_y, suggests=len(times),
-             s_per_suggest_median=float(np.median(times)), s_first=times[0], s_all=times)
-    print("phase a (Ackley-6D b8, Sobol init -> 120 obs, bucket 128):", json.dumps(a), flush=True)
+             s_per_suggest_median=float(np.median(times)), s_first=times[0], s_all=times,
+             graphs=sorted(k[0] for k in opt._graphs))
+    print("phase a (Ackley-6D b8, Sobol init -> 120 obs, bucket 128, graph path):", json.dumps(a),
+          flush=True)
+    graph_vs_eager(torch, opt, "phase a", fails)
 
-    # (b) 800 Sobol observations (bucket 1024), then 2 x suggest(8)
+    # (b) 800 Sobol observations (bucket 1024): the capture, then 3 timed
+    # suggests on each path
     opt = HEBO(space, device="cuda")
     warm = space.inverse_transform(space.sobol_sample_opt(800, seed=1))
     opt.observe(warm, ackley(warm))
-    times = []
-    for _ in range(2):
-        t0 = time.time()
-        rec = opt.suggest(8)
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-        check_batch(space, rec, f"phase b @ {opt.num_obs}", fails)
-        opt.observe(rec, ackley(rec))
-    if not bool(opt.model.caches.ok.all()):
-        fails.append("phase b: posterior factorization failed")
-    b = dict(n_obs=opt.num_obs, bucket=int(opt.model.data.X.shape[0]), best=opt.best_y,
-             s_per_suggest=times)
+    b = {}
+    # every rung of each ladder is launched: 51 NLLs (50 steps and the
+    # final loss) of 2 rungs and the cache's 5
+    steps = opt.model_config["num_epochs"]
+    expect = {"matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
+              "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5}
+    for path, use_graphs, n in (("graph", True, 4), ("eager", False, 3)):
+        opt._use_graphs = use_graphs
+        walls, launches = [], []
+        for _ in range(n):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.time()
+            rec = opt.suggest(8)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            launches.append({k: w.launches - before[k] for k, w in wrappers.items()
+                             if w.launches > before[k]})
+            check_batch(space, rec, f"phase b {path} @ {opt.num_obs}", fails)
+            opt.observe(rec, ackley(rec))
+        if use_graphs:  # the first suggest captured the graph
+            b["s_capture"] = walls.pop(0)
+            b["launches_capture"] = launches.pop(0)
+        for got in launches:
+            for k, want in expect.items():
+                if got.get(k) != want:
+                    fails.append(f"phase b {path}: {k} launched {got.get(k)} times in a suggest, "
+                                 f"expected {want}")
+        b[path] = dict(s_per_suggest=walls, s_median=float(np.median(walls)),
+                       launches_per_suggest=launches[-1])
+        if not bool(opt.model.caches.ok.all()):
+            fails.append(f"phase b {path}: posterior factorization failed")
+    opt._use_graphs = True
+    b.update(n_obs=opt.num_obs, bucket=int(opt.model.data.X.shape[0]), best=opt.best_y)
     print("phase b (Ackley-6D b8, 800 warm obs, bucket 1024):", json.dumps(b), flush=True)
+    graph_vs_eager(torch, opt, "phase b", fails)
     return a, b
 
 
@@ -464,7 +646,7 @@ def main() -> int:
     from hebo_tpu_torch.bench.gram_probe import device_per_call
     from hebo_tpu_torch.bench.ssk_probe import device_us
     from hebo_tpu_torch.ops import chol_kernel as ck
-    from hebo_tpu_torch.ops import gram, native, ssk
+    from hebo_tpu_torch.ops import gram, native, pareto, ssk
     from hebo_tpu_torch.optimizers import AntBOOptimizer
     from hebo_tpu_torch.tasks import AbsolutTool
     from hebo_tpu_torch.utils.dtypes import pad_bucket
@@ -483,11 +665,13 @@ def main() -> int:
     g_rows = check_gram(torch, gram, device_per_call, dev, gen, fails)
     v_rows = check_gram_vjp(torch, gram, device_per_call, dev, gen, fails)
     f_rows, w_rows = check_chol(torch, ck, dev, gen, fails)
+    ladder = check_ladder(torch, ck, dev, gen, fails)
+    p_rows = check_pareto(torch, pareto, device_us, dev, fails)
     c_rows, s_rows = check_ssk(torch, ssk, device_us, dev, fails)
     check_chol_api(torch, ck, dev, gen, fails)
     for name, rows in (("matern32_gram", g_rows), ("matern32_gram_vjp", v_rows),
                        ("chol_factor", f_rows), ("chol_winv", w_rows),
-                       ("ssk_cross", c_rows), ("ssk_self", s_rows)):
+                       ("ssk_cross", c_rows), ("ssk_self", s_rows), ("nsga2_rank_crowd", p_rows)):
         for r in rows:
             print(f"kernel {name}", json.dumps(r), flush=True)
     print("kernel matern32_gram / matern32_gram_vjp / ssk_cross / ssk_self: library_ms null, "
@@ -496,11 +680,13 @@ def main() -> int:
 
     wrappers = {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
                 "chol_factor": ck.chol_factor,
-                "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross, "ssk_self": ssk.ssk_self}
+                "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross, "ssk_self": ssk.ssk_self,
+                "nsga2_rank_crowd": pareto.nsga2_rank_crowd}
     # each path is driven with every count at 0 and read just after
     paths = {
-        "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, fails),
-                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv")),
+        "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, wrappers, fails),
+                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                  "nsga2_rank_crowd")),
         "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
                   ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
     }
@@ -519,7 +705,8 @@ def main() -> int:
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
                   "chol_factor": [2, 1024], "chol_winv": [2, 1024],
-                  "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3]}
+                  "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3],
+                  "nsga2_rank_crowd": [200, 3]}
     meta = {
         "matern32_gram": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:87", g_rows),
         # the JAX package's VJP is XLA-fused jnp (no pallas_call) at :128-133
@@ -528,6 +715,8 @@ def main() -> int:
         "chol_winv": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:665", w_rows),
         "ssk_cross": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:148", c_rows),
         "ssk_self": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:167", s_rows),
+        # the JAX package peels in an XLA while_loop (no pallas_call) at :45-78
+        "nsga2_rank_crowd": ("hebo_tpu_torch/csrc/pareto.cu", "hebo_tpu/ops/pareto.py:45", p_rows),
     }
     kernels = []
     for name, (src, rep, rows) in meta.items():
@@ -542,6 +731,7 @@ def main() -> int:
             **({"device_us": r["device_us"]} if "device_us" in r else {}),
             **({"k3_route": r["route"]} if "route" in r else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
+            **({"skipped_rung_ms": ladder["skipped_rung_ms"]} if name == "chol_factor" else {}),
         })
     if fails:
         print("FAILED:\n  " + "\n  ".join(fails), flush=True)

@@ -9,7 +9,10 @@ survival.
 
 The JAX package draws each generation's random numbers from split keys.
 Here they come from a ``torch.Generator`` on the device, or from a
-``draws(gen) → GenDraws`` callable, so that a test can feed the JAX draws.
+``draws(gen) → GenDraws`` callable, so that a test can feed the JAX draws
+and a captured CUDA graph can read them from buffers filled before replay.
+On CUDA, each generation's rank and crowding are one launch of kernel K5
+(``ops/pareto.nsga2_rank_crowd``).
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..ops.pareto import crowding_distance, nondominated_rank, nsga2_key
+from ..ops.pareto import nsga2_key, nsga2_rank_crowd
 
-__all__ = ["EvolveSpaceMeta", "GenDraws", "evolve_raw", "draw_generation"]
+__all__ = ["EvolveSpaceMeta", "GenDraws", "MetaTensors", "evolve_raw", "draw_generation",
+           "meta_tensors"]
 
 
 class EvolveSpaceMeta(NamedTuple):
@@ -67,11 +71,32 @@ def _space_meta(space, fix_input=None) -> EvolveSpaceMeta:
     )
 
 
-def _round_discrete(X: torch.Tensor, meta: EvolveSpaceMeta) -> torch.Tensor:
-    disc = torch.as_tensor(meta.is_discrete, device=X.device)
-    lb = torch.as_tensor(meta.lb, dtype=X.dtype, device=X.device)
-    ub = torch.as_tensor(meta.ub, dtype=X.dtype, device=X.device)
-    return _clip(torch.where(disc[None, :], torch.round(X), X), lb, ub)
+class MetaTensors(NamedTuple):
+    """``EvolveSpaceMeta`` as tensors on the device (D,) each."""
+
+    lb: torch.Tensor
+    ub: torch.Tensor
+    is_discrete: torch.Tensor
+    is_cat: torch.Tensor
+    fix: torch.Tensor
+
+
+def meta_tensors(meta: EvolveSpaceMeta, device) -> MetaTensors:
+    """Copy the column metadata to ``device`` once, outside any captured
+    graph (a host-to-device copy cannot be captured)."""
+    D = len(meta.lb)
+    f32 = dict(dtype=torch.float32, device=device)
+    return MetaTensors(
+        lb=torch.as_tensor(meta.lb, **f32), ub=torch.as_tensor(meta.ub, **f32),
+        is_discrete=torch.as_tensor(meta.is_discrete, dtype=torch.bool, device=device),
+        is_cat=torch.as_tensor(meta.is_cat, dtype=torch.bool, device=device),
+        fix=torch.as_tensor(meta.fix_mask if meta.fix_mask else (False,) * D,
+                            dtype=torch.bool, device=device),
+    )
+
+
+def _round_discrete(X: torch.Tensor, mt: MetaTensors) -> torch.Tensor:
+    return _clip(torch.where(mt.is_discrete[None, :], torch.round(X), X), mt.lb, mt.ub)
 
 
 def _clip(x, lb, ub):
@@ -125,25 +150,24 @@ def evolve_raw(
     n_gens: int = 100,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Callable[[int], GenDraws]] = None,
+    mt: Optional[MetaTensors] = None,
 ):
     """NSGA-II loop.  ``eval_fn(X (P, D)) → (P, n_obj)``.  Returns the final
-    population (rounded) and its objectives."""
+    population (rounded) and its objectives.  ``mt`` is ``meta`` on the
+    device (``meta_tensors``), made here when not given."""
     P, D = init_pop.shape
     dev = init_pop.device
-    lb = torch.as_tensor(meta.lb, dtype=torch.float32, device=dev)
-    ub = torch.as_tensor(meta.ub, dtype=torch.float32, device=dev)
-    cat = torch.as_tensor(meta.is_cat, device=dev)
-    fix = torch.as_tensor(meta.fix_mask if meta.fix_mask else (False,) * D, device=dev)
+    mt = meta_tensors(meta, dev) if mt is None else mt
+    lb, ub, cat, fix = mt.lb, mt.ub, mt.is_cat, mt.fix
 
     def evaluate(X):
-        return eval_fn(_round_discrete(X, meta))
+        return eval_fn(_round_discrete(X, mt))
 
     X = init_pop
     F = evaluate(X)
     for g in range(n_gens):
         dr = draws(g) if draws is not None else draw_generation(P, D, generator, dev)
-        rank = nondominated_rank(F)
-        skey = nsga2_key(rank, crowding_distance(F, rank))
+        skey = nsga2_key(*nsga2_rank_crowd(F))
         sel = dr.sel.long()
         win = torch.where(skey[sel[0]] <= skey[sel[1]], sel[0], sel[1])
         mate = torch.roll(win, 1)
@@ -156,8 +180,6 @@ def evolve_raw(
         Fc = evaluate(child)
         Xall = torch.cat([X, child], 0)
         Fall = torch.cat([F, Fc], 0)
-        rank_all = nondominated_rank(Fall)
-        order = torch.argsort(nsga2_key(rank_all, crowding_distance(Fall, rank_all)),
-                              stable=True)[:P]
+        order = torch.argsort(nsga2_key(*nsga2_rank_crowd(Fall)), stable=True)[:P]
         X, F = Xall[order], Fall[order]
-    return _round_discrete(X, meta), F
+    return _round_discrete(X, mt), F

@@ -1,18 +1,27 @@
 """Where one HEBO or AntBO suggest spends its time on a CUDA card.
 
-    python3 -m hebo_tpu_torch.bench.profile_suggest [--obs 112 800]
+    python3 -m hebo_tpu_torch.bench.profile_suggest [--obs 112 800] [--paths graph eager]
     python3 -m hebo_tpu_torch.bench.profile_suggest --antbo [--obs 28 200]
 
-For each observation count: HEBO on Ackley-6D with that many Sobol
+For each observation count (and, for HEBO, each path: ``graph``, the
+suggest as one captured CUDA graph per bucket, and ``eager``, the same
+program launched op by op): HEBO on Ackley-6D with that many Sobol
 observations (or, with ``--antbo``, AntBO's SSK GP on length-11 CDRH3
 sequences drawn at random and scored by the AbsolutTool surrogate of
-antigen 1H0D_C), one warm-up suggest, then
-* one suggest timed by phase (HEBO: fit, posterior cache, NSGA-II, each
-  phase ending in ``torch.cuda.synchronize()``; AntBO: the optimizer's own
-  fit and acquisition timers);
+antigen 1H0D_C), one warm-up suggest (on the graph path it captures the
+graph; its wall is reported as ``first_s``), then
+* (HEBO) ``--timed`` suggests at the same observations, their walls;
+* one suggest timed by phase (HEBO's eager path: fit, posterior cache,
+  NSGA-II, each phase ending in ``torch.cuda.synchronize()``; a captured
+  graph has no phases; AntBO: the optimizer's own fit and acquisition
+  timers);
 * one suggest under ``torch.profiler`` (CPU + CUDA): wall time, summed
-  device kernel time (its share of the wall time is the busy share), kernel
-  launches and the top kernels by device time; kernel K1's device kernels
+  device kernel time (its share of the wall time is the busy share), the
+  device kernels (a graph's nodes count as kernels), the host's launch
+  calls (``cudaLaunchKernel`` and its kin) and graph launches apart, the
+  top kernels by device time; kernel K5's launches and device ms; kernel
+  K1's rungs that every matrix skipped, with their device launches, apart
+  from the rungs that factor; kernel K1's device kernels
   with their launches per ``chol_factor`` call, kernel K3's ``ssk_cross`` and
   ``ssk_self`` kernels with their launches, device ms and µs per launch,
   the count of library factorization / triangular-solve kernels
@@ -37,7 +46,8 @@ import torch
 
 from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
-from ..ops import chol_kernel, gram, ssk
+from ..ops import chol as chol_mod
+from ..ops import chol_kernel, gram, pareto, ssk
 from ..optimizers.antbo import AntBOOptimizer
 from ..tasks import AbsolutTool
 from .gram_probe import device_per_call
@@ -61,32 +71,84 @@ def _timed(fn, log, name):
     return wrapper
 
 
-def profile(n_obs: int) -> dict:
+class _RungLog:
+    """Records the skip flags of every K1 call the ladder makes (on the
+    graph path: the calls made while capturing, whose flags each replay
+    rewrites in place), to tell the rungs that every matrix skipped from
+    the rungs that factor."""
+
+    def __init__(self):
+        self.calls = []
+        self._saved = chol_mod.chol_factor
+
+        def factor(K, jitter=None, skip=None, out=None):
+            capturing = torch.cuda.is_current_stream_capturing()
+            self.calls.append((capturing, skip, chol_kernel.padded_size(K.shape[-1]) // chol_kernel.TILE))
+            return self._saved(K, jitter, skip, out)
+
+        chol_mod.chol_factor = factor
+
+    def close(self):
+        chol_mod.chol_factor = self._saved
+
+    def count(self, captured: bool) -> dict:
+        """Rungs skipped by every matrix and their device launches (K1a nt,
+        K1b 1 + 2 ceil(log2 nt)), and the rungs that factor."""
+        calls = [c for c in self.calls if c[0] == captured]
+        skipped = [nt for _, skip, nt in calls if skip is not None and bool(skip.all())]
+        launches = sum(nt + 1 + 2 * math.ceil(math.log2(nt)) for nt in skipped)
+        return {"k1_rungs": len(calls), "k1_rungs_skipped": len(skipped),
+                "k1_rungs_factoring": len(calls) - len(skipped),
+                "k1_skipped_rung_launches": launches}
+
+
+def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
     opt = HEBO(space, device="cuda")
+    opt._use_graphs = path == "graph"
     warm = space.inverse_transform(space.sobol_sample_opt(n_obs, seed=1))
     opt.observe(warm, _ackley(warm))
-    opt.suggest(8)  # warm-up: builds/loads kernels, cuBLAS handles
-
-    phases = {}
-    core_cls = type(opt.model.core)
-    saved = (hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched)
-    hebo_mod.map_fit = _timed(saved[0], phases, "fit_s")
-    hebo_mod.evolve_raw = _timed(saved[1], phases, "nsga2_s")
-    core_cls.posterior_cache_batched = _timed(saved[2], phases, "cache_s")
+    rungs = _RungLog()
     try:
         t0 = time.perf_counter()
-        opt.suggest(8)
-        phases["suggest_s"] = time.perf_counter() - t0
-    finally:
-        hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched = saved
+        opt.suggest(8)  # warm-up: builds/loads kernels, cuBLAS handles; captures the graph
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            opt.suggest(8)
+            walls.append(time.perf_counter() - t0)
+        phases = {"first_s": first_s, "s_per_suggest": walls,
+                  "s_median": float(np.median(walls)) if walls else None}
+        if path == "eager":
+            core_cls = type(opt.model.core)
+            saved = (hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched)
+            hebo_mod.map_fit = _timed(saved[0], phases, "fit_s")
+            hebo_mod.evolve_raw = _timed(saved[1], phases, "nsga2_s")
+            core_cls.posterior_cache_batched = _timed(saved[2], phases, "cache_s")
+            try:
+                t0 = time.perf_counter()
+                opt.suggest(8)
+                phases["suggest_s"] = time.perf_counter() - t0
+            finally:
+                hebo_mod.map_fit, hebo_mod.evolve_raw, core_cls.posterior_cache_batched = saved
 
-    bucket = int(opt.model.data.X.shape[0])
-    calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
-    prof = _device_profile(lambda: opt.suggest(8))
-    return {"n_obs": n_obs, "bucket": bucket, "device": torch.cuda.get_device_name(0), **phases,
-            **prof, "k2": _k2_block(prof.pop("by_name"), calls, bucket)}
+        bucket = int(opt.model.data.X.shape[0])
+        calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+        if path == "eager":
+            rungs.calls.clear()
+        prof = _device_profile(lambda: opt.suggest(8))
+        k1_rungs = rungs.count(captured=path == "graph")
+    finally:
+        rungs.close()
+    by_name = prof.pop("by_name")
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    k5_n, k5_ms = sum(n for n, _ in k5), sum(ms for _, ms in k5)
+    return {"n_obs": n_obs, "bucket": bucket, "path": path, "device": torch.cuda.get_device_name(0),
+            **phases, **prof, **k1_rungs,
+            "k5_launches": k5_n, "k5_device_ms": k5_ms, "k5_us_per_launch": 1e3 * k5_ms / max(k5_n, 1),
+            "k2": _k2_block(by_name, calls, bucket)}
 
 
 def _k2_block(by_name, calls, bucket) -> dict:
@@ -141,6 +203,12 @@ def _device_profile(suggest) -> dict:
     k1_calls = chol_kernel.chol_factor.launches - k1_calls
     k3_calls = {k: getattr(ssk, k).launches - n for k, n in k3_calls.items()}
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    api = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(("cuda", "cu")):
+            api[e.name] = api.get(e.name, 0) + 1
+    host_launches = sum(n for k, n in api.items() if "LaunchKernel" in k)
+    graph_launches = sum(n for k, n in api.items() if "GraphLaunch" in k)
     by_name = {}
     for e in kern:
         n, ms = by_name.get(e.name, (0, 0.0))
@@ -159,6 +227,8 @@ def _device_profile(suggest) -> dict:
     return {
         "profiled_wall_s": wall, "device_kernel_s": dev_s,
         "device_busy_share": dev_s / wall, "kernel_launches": len(kern),
+        "host_kernel_launches": host_launches, "graph_launches": graph_launches,
+        "host_api_calls": dict(sorted(api.items(), key=lambda kv: -kv[1])[:8]),
         "top_kernels_ms": {k[:80]: {"n": n, "ms": ms} for k, (n, ms) in top},
         "k1_calls": k1_calls, "k1_kernels": k1,
         "k1_device_ms": sum(v["ms"] for v in k1.values()),
@@ -172,12 +242,18 @@ def main():
     ap.add_argument("--antbo", action="store_true", help="profile AntBO (SSK GP) instead of HEBO")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
                     help="observation counts (default 112 800; with --antbo 28 200)")
+    ap.add_argument("--paths", nargs="+", default=["graph", "eager"], choices=["graph", "eager"],
+                    help="HEBO's paths to profile (default both)")
+    ap.add_argument("--timed", type=int, default=3, help="timed suggests per path (HEBO)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
-    run = profile_antbo if args.antbo else profile
     for n in args.obs or ([28, 200] if args.antbo else [112, 800]):
-        print(json.dumps(run(n)), flush=True)
+        if args.antbo:
+            print(json.dumps(profile_antbo(n)), flush=True)
+            continue
+        for path in args.paths:
+            print(json.dumps(profile(n, path, args.timed)), flush=True)
 
 
 if __name__ == "__main__":

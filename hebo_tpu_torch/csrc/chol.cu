@@ -63,6 +63,18 @@
 // dynamic shared memory exceeds 48 KB get cudaFuncSetAttribute first, and
 // its error code is returned like a launch error.
 //
+// The jitter ladder (ops/chol.py::batched_ladder_factor) runs every rung
+// on the device, with no host test: each rung passes
+//   jitter (B,)  added to K's diagonal (not the identity padding) where
+//                chol_first reads K, so no K + jitter*I is formed in device
+//                memory;
+//   skip (B,)    a matrix whose flag is set is left as it is in L, Wd and
+//                W: every CTA of it returns at once.  The ladder sets the
+//                flag for the matrices an earlier rung factored, so a rung
+//                that no matrix needs costs its launches (nt in K1a,
+//                1 + 2 ceil(log2 nt) in K1b), not a factorization.
+// Either may be null (no jitter, no skip).
+//
 // Failure semantics: a pivot that is not > 0 (negative, zero or NaN) gives
 // a NaN diagonal entry, never a clamped one; the NaN spreads through the
 // panel and trailing updates to every later tile of that matrix's L and W,
@@ -353,17 +365,21 @@ __device__ __forceinline__ void store_factor(const float* A, const float* X, flo
 // nt = 1) copy blockdiag(K, I) on and below the tile diagonal into the
 // scratch A and zero L above it, while tile (0, 0) is factored.
 __global__ void __launch_bounds__(kThreads)
-chol_first(const float* __restrict__ K, float* __restrict__ L, float* __restrict__ Wd,
+chol_first(const float* __restrict__ K, const float* __restrict__ jitter,
+           const int* __restrict__ skip, float* __restrict__ L, float* __restrict__ Wd,
            float* __restrict__ A, int n, int Np) {
   __shared__ __align__(16) float As[TILE_F];
   __shared__ __align__(16) float Xs[TILE_F];
   const int b = blockIdx.y;
+  if (skip != nullptr && skip[b]) return;
+  const float jit = jitter != nullptr ? jitter[b] : 0.f;
   const float* Kb = K + (size_t)b * n * n;
   const size_t total = (size_t)Np * Np;
   if (blockIdx.x == 0) {
     for (int e = threadIdx.x; e < T * T; e += kThreads) {
       const int r = e / T, c = e % T;
-      As[r * LD + c] = (r < n && c < n) ? Kb[(size_t)r * n + c] : (r == c ? 1.f : 0.f);
+      As[r * LD + c] = (r < n && c < n) ? (r == c ? Kb[(size_t)r * n + c] + jit : Kb[(size_t)r * n + c])
+                                        : (r == c ? 1.f : 0.f);
     }
     __syncthreads();
     factor_tile(As, Xs);
@@ -376,7 +392,8 @@ chol_first(const float* __restrict__ K, float* __restrict__ L, float* __restrict
        e += (size_t)(gridDim.x - 1) * blockDim.x) {
     const int r = (int)(e / Np), c = (int)(e % Np);
     if (c / T > r / T) Lb[e] = 0.f;
-    else Ab[e] = (r < n && c < n) ? Kb[(size_t)r * n + c] : (r == c ? 1.f : 0.f);
+    else Ab[e] = (r < n && c < n) ? (r == c ? Kb[(size_t)r * n + c] + jit : Kb[(size_t)r * n + c])
+                                  : (r == c ? 1.f : 0.f);
   }
 }
 
@@ -384,8 +401,9 @@ chol_first(const float* __restrict__ K, float* __restrict__ L, float* __restrict
 // L_kj from the panel, A_ik -= L_ij L_kj^T; CTA (i, i) stores L_ij, and
 // CTA (j+1, j+1) factors its updated tile into L and Wd (look-ahead).
 __global__ void __launch_bounds__(kThreads)
-chol_step(float* __restrict__ A, float* __restrict__ L, float* __restrict__ Wd, int Np,
-          int j) {
+chol_step(const int* __restrict__ skip, float* __restrict__ A, float* __restrict__ L,
+          float* __restrict__ Wd, int Np, int j) {
+  if (skip != nullptr && skip[blockIdx.y]) return;
   extern __shared__ float4 smem4[];
   float* P = reinterpret_cast<float*>(smem4);
   float* Q = P + TILE_F;
@@ -447,8 +465,10 @@ chol_step(float* __restrict__ A, float* __restrict__ L, float* __restrict__ Wd, 
 }
 
 // W on and above the tile diagonal: Wd_i on it, 0 above it.
-__global__ void winv_init(const float* __restrict__ Wd, float* __restrict__ W, int Np) {
+__global__ void winv_init(const int* __restrict__ skip, const float* __restrict__ Wd,
+                          float* __restrict__ W, int Np) {
   const int b = blockIdx.y;
+  if (skip != nullptr && skip[b]) return;
   const int nt = Np / T;
   const size_t total4 = (size_t)Np * Np / 4;
   float4* Wb = reinterpret_cast<float4*>(W + (size_t)b * Np * Np);
@@ -472,8 +492,9 @@ __global__ void winv_init(const float* __restrict__ Wd, float* __restrict__ W, i
 // are double-buffered with cp.async.
 template <bool kX>
 __global__ void __launch_bounds__(kThreads)
-winv_level(const float* __restrict__ L, float* __restrict__ W, float* __restrict__ S, int Np,
-           int h) {
+winv_level(const int* __restrict__ skip, const float* __restrict__ L, float* __restrict__ W,
+           float* __restrict__ S, int Np, int h) {
+  if (skip != nullptr && skip[blockIdx.y]) return;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int nt = Np / T, b = blockIdx.y;
@@ -540,11 +561,13 @@ unsigned g_step_smem = 0, g_xlevel_smem = 0, g_wlevel_smem = 0;
 
 }  // namespace
 
-// K1a.  K (B,n,n) -> L (B,Np,Np) lower triangular, Wd (B,Np/64,64,64);
-// A (B,Np,Np) is scratch (unused when Np == 64).  Np must be a multiple of
-// 64 and >= n.  Returns the first error (attribute or launch).
-extern "C" int hebo_chol_factor(const float* K, float* L, float* Wd, float* A, int B, int n,
-                                int Np, void* stream) {
+// K1a.  K (B,n,n) + diag(jitter) -> L (B,Np,Np) lower triangular, Wd
+// (B,Np/64,64,64); matrices whose skip flag is set keep their L and Wd.
+// jitter (B,) and skip (B,) may be null.  A (B,Np,Np) is scratch (unused
+// when Np == 64).  Np must be a multiple of 64 and >= n.  Returns the first
+// error (attribute or launch).
+extern "C" int hebo_chol_factor(const float* K, const float* jitter, const int* skip, float* L,
+                                float* Wd, float* A, int B, int n, int Np, void* stream) {
   if (B == 0) return 0;
   if (Np % T != 0 || Np < n) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -552,25 +575,26 @@ extern "C" int hebo_chol_factor(const float* K, float* L, float* Wd, float* A, i
   int err = nt > 1 ? allow_four_tiles(chol_step, &g_step_smem) : 0;
   if (err) return err;
   const int copy_ctas = nt > 1 ? elementwise_blocks(Np, 1) : 0;
-  chol_first<<<dim3(1 + copy_ctas, B), kThreads, 0, st>>>(K, L, Wd, A, n, Np);
+  chol_first<<<dim3(1 + copy_ctas, B), kThreads, 0, st>>>(K, jitter, skip, L, Wd, A, n, Np);
   if ((err = (int)cudaGetLastError())) return err;
   for (int j = 0; j + 1 < nt; ++j) {
     const int m = nt - 1 - j;
-    chol_step<<<dim3(m * (m + 1) / 2, B), kThreads, kFourTiles, st>>>(A, L, Wd, Np, j);
+    chol_step<<<dim3(m * (m + 1) / 2, B), kThreads, kFourTiles, st>>>(skip, A, L, Wd, Np, j);
     if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;
 }
 
-// K1b.  L (B,Np,Np), Wd (B,Np/64,64,64) -> W = L^-1 (B,Np,Np); S (B,Np,Np)
-// is scratch (unused when Np == 64).
-extern "C" int hebo_chol_winv(const float* L, const float* Wd, float* W, float* S, int B,
-                              int Np, void* stream) {
+// K1b.  L (B,Np,Np), Wd (B,Np/64,64,64) -> W = L^-1 (B,Np,Np); matrices
+// whose skip flag is set keep their W (skip may be null).  S (B,Np,Np) is
+// scratch (unused when Np == 64).
+extern "C" int hebo_chol_winv(const float* L, const float* Wd, const int* skip, float* W,
+                              float* S, int B, int Np, void* stream) {
   if (B == 0) return 0;
   if (Np % T != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = Np / T;
-  winv_init<<<dim3(elementwise_blocks(Np, 4), B), kThreads, 0, st>>>(Wd, W, Np);
+  winv_init<<<dim3(elementwise_blocks(Np, 4), B), kThreads, 0, st>>>(skip, Wd, W, Np);
   int err = (int)cudaGetLastError();
   if (err || nt == 1) return err;
   if ((err = allow_four_tiles(winv_level<true>, &g_xlevel_smem))) return err;
@@ -578,9 +602,9 @@ extern "C" int hebo_chol_winv(const float* L, const float* Wd, float* W, float* 
   for (int h = 1; h < nt; h *= 2) {
     const int pairs = (nt - h + 2 * h - 1) / (2 * h);
     const dim3 grid(pairs * h * h, B);
-    winv_level<true><<<grid, kThreads, kFourTiles, st>>>(L, W, S, Np, h);
+    winv_level<true><<<grid, kThreads, kFourTiles, st>>>(skip, L, W, S, Np, h);
     if ((err = (int)cudaGetLastError())) return err;
-    winv_level<false><<<grid, kThreads, kFourTiles, st>>>(L, W, S, Np, h);
+    winv_level<false><<<grid, kThreads, kFourTiles, st>>>(skip, L, W, S, Np, h);
     if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;

@@ -142,28 +142,43 @@ class GPCore:
         self.n_feat_dims = self.d_num + n_cat_feat
         self.d_feat = self.n_feat_dims + self.n_cat_param
         self.max_cholesky_size = int(max_cholesky_size)
+        self._index = {}
+
+    def _columns(self, device: torch.device):
+        """(numeric column indices, categorical column indices, embedding
+        offsets) as tensors on ``device``, made once per device: indexing
+        with a Python list copies it to the device at every call, which a
+        captured CUDA graph cannot hold."""
+        key = str(device)
+        cols = self._index.get(key)
+        if cols is None:
+            as_t = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+            cols = (as_t(self.numeric_dims), as_t(self.cat_dims), as_t(self._cat_offsets))
+            self._index[key] = cols
+        return cols
 
     # ------------------------------------------------------------- features
     def features(self, params: GPParams, X: torch.Tensor, data: GPData) -> torch.Tensor:
         """(B, N, n_feat_dims): scaled numerics in [-1, 1] ++ embeddings;
         zero-width for a purely pairwise categorical kernel."""
         B = params.log_sc.shape[0]
+        num_idx, cat_idx, offs = self._columns(X.device)
         parts = []
         if self.d_num:
-            xn = X[:, list(self.numeric_dims)]
+            xn = X.index_select(1, num_idx)
             u = torch.clamp((xn - data.x_lb) / data.x_span, 0.0, 1.0)
             parts.append((2.0 * u - 1.0).expand(B, -1, -1))
         if self.cat_dims and self.cat_kernel == "embedding":
-            offs = torch.as_tensor(self._cat_offsets, device=X.device)
-            parts.append(embed_categorical(X[:, list(self.cat_dims)], params.emb, offs))
+            parts.append(embed_categorical(X.index_select(1, cat_idx), params.emb, offs))
         if not parts:
             return X.new_zeros((B, X.shape[0], 0))
         return torch.cat(parts, -1)
 
     def cat_gram(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor) -> torch.Tensor:
         """(B or 1, N, M) pairwise categorical kernel (gp.py:298-327)."""
-        c1 = X1[:, list(self.cat_dims)]
-        c2 = X2[:, list(self.cat_dims)]
+        cat_idx = self._columns(X1.device)[1]
+        c1 = X1.index_select(1, cat_idx)
+        c2 = X2.index_select(1, cat_idx)
         cat_p = params.log_ls[:, self.n_feat_dims:]
         if self.cat_kernel == "overlap":
             return overlap(c1, c2)[None]
@@ -283,7 +298,9 @@ class GPCore:
         S = self.n_ensemble
         sample_steps = [burn + (k * max(n - burn, 1)) // S for k in range(S)]
         p = [t.detach().clone() for t in params0]
-        taken = {}
+        # the samples are copied out at their steps, into buffers made here
+        # (a captured graph may not keep references to its step tensors)
+        samples = [t.new_empty((S,) + t.shape) for t in p]
 
         def grad(p):
             leaves = [t.detach().requires_grad_(True) for t in p]
@@ -331,11 +348,12 @@ class GPCore:
                 G = 1.0 / (lam + torch.sqrt(V[j]))
                 step_noise = torch.sqrt(torch.clamp(lr * G, min=0.0)) * z[j]
                 p[j] = p[j] - 0.5 * lr * G * g[j] + inject * step_noise
-            if i in sample_steps:
-                taken[i] = list(p)
+            for k, s in enumerate(sample_steps):
+                if s == i:
+                    for buf, t in zip(samples, p):
+                        buf[k].copy_(t)
         pf = GPParams(*p)
-        samples = GPParams(*(torch.stack([taken[s][j] for s in sample_steps])
-                             for j in range(len(p))))
+        samples = GPParams(*samples)
         with torch.no_grad():
             return pf, self.loss_batched(pf, data), samples
 
@@ -389,11 +407,15 @@ def select(params: GPParams, idx: torch.Tensor, dim: int = 0) -> GPParams:
 
 
 def map_fit(core: GPCore, data: GPData, n_restarts: int,
-            generator: Optional[torch.Generator] = None):
+            generator: Optional[torch.Generator] = None,
+            init_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            noise: Optional[Callable[[int], Sequence[torch.Tensor]]] = None):
     """Init ``n_restarts`` stacked restarts, fit them, keep the best:
-    returns (params (1,...) of the best restart, its samples (S,...))."""
-    p0 = core.init_params(data, n_restarts, generator)
-    pf, loss, samples = core.fit_from_batched(p0, data, generator)
+    returns (params (1,...) of the best restart, its samples (S,...)).
+    ``init_draws`` and ``noise`` replace the generator's draws, as in
+    ``init_params`` and ``fit_from_batched``."""
+    p0 = core.init_params(data, n_restarts, generator, draws=init_draws)
+    pf, loss, samples = core.fit_from_batched(p0, data, generator, noise=noise)
     best = torch.argmin(loss)
     pf = GPParams(*(t.index_select(0, best.reshape(1)) for t in pf))
     return pf, select(samples, best, dim=1)

@@ -6,10 +6,11 @@ here NaN-fill every matrix whose ``cholesky_ex`` reports ``info != 0``
 (``cholesky_ex`` alone returns a finite, wrong factor), and the CUDA kernel
 (``chol_kernel``) propagates NaNs itself.
 
-``batched_ladder_factor`` runs the retry rungs only when some matrix failed.
-The JAX package decides that inside the program with ``lax.cond``
-(chol.py:209); here it is a Python ``if`` on ``ok.all()``, which costs one
-host sync per factorization and gives the same result.
+``batched_ladder_factor`` decides its retries on the device, as the JAX
+package does inside its program with ``lax.cond`` (chol.py:209): every rung
+is launched, and kernel K1 skips the matrices an earlier rung factored
+(``skip``), so no value comes back to the host and the ladder can sit in a
+captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import math
 
 import torch
 
-from .chol_kernel import chol_inv
+from .chol_kernel import TILE, chol_factor, chol_winv, padded_size
 
 __all__ = [
     "safe_cholesky", "chol_solve", "chol_logdet", "make_masked_nll",
@@ -106,23 +107,25 @@ def batched_ladder_factor(Kt: torch.Tensor, rungs: tuple, base_jitter: float = 1
     """Scale-aware jitter-ladder factorization of a (B, N, N) batch.
 
     Returns ``(L, W, ok)`` with ``W = L⁻¹`` of the first succeeding rung per
-    matrix.  Every factorization goes through ``chol_inv`` (kernel K1 on
-    CUDA).  Later rungs run only when some matrix failed (one host sync)."""
+    matrix; a matrix that fails every rung has non-finite L and W.  Every
+    rung goes through ``chol_factor`` / ``chol_winv`` (kernel K1 on CUDA)
+    into one padded (L, W) pair, with the rung's jitter on the diagonal and
+    the matrices that an earlier rung factored skipped: no host sync."""
     B, n, _ = Kt.shape
-    eye = torch.eye(n, dtype=Kt.dtype, device=Kt.device)
-    scale = _scale(Kt)[:, None, None]
-    L, W = chol_inv((Kt + (base_jitter + rungs[0] * scale) * eye).contiguous())
-    ok = _all_finite(L)
-    for rung in rungs[1:]:
-        if bool(ok.all()):
-            break
-        L2, W2 = chol_inv((Kt + (base_jitter + rung * scale) * eye).contiguous())
-        ok2 = _all_finite(L2)
-        take = ((~ok) & ok2)[:, None, None]
-        L = torch.where(take, L2, L)
-        W = torch.where(take, W2, W)
-        ok = ok | ok2
-    return L, W, ok
+    Kt = Kt.contiguous()
+    scale = _scale(Kt)
+    Np = padded_size(n)
+    L = Kt.new_empty((B, Np, Np))
+    Wd = Kt.new_empty((B, Np // TILE, TILE, TILE))
+    W = Kt.new_empty((B, Np, Np))
+    skip = None
+    for rung in rungs:
+        jitter = base_jitter + rung * scale
+        chol_factor(Kt, jitter, skip, out=(L, Wd))
+        chol_winv(L, Wd, skip, out=W)
+        ok = _all_finite(L)
+        skip = ok.to(torch.int32)
+    return L[:, :n, :n], W[:, :n, :n], ok
 
 
 class _MaskedNLLBatched(torch.autograd.Function):

@@ -19,6 +19,11 @@ package's r3 VMEM-resident kernel ``_chol_kernel`` (pallas_call :228,
 ``cholesky_batched`` :243 and ``chol_inv_batched`` :249, N ≤ 1024): the
 same L, or (L, W), computed here by K1 at any N.
 
+The jitter ladder's arguments: ``jitter`` (B,) is added to K's diagonal
+inside K1a, and ``skip`` (B,) int32 leaves a flagged matrix's L, Wd and W
+as they are in the ``out`` buffers of an earlier call, so that a rung runs
+on the device for the matrices that still need it, with no host test.
+
 Failure semantics: a non-PSD matrix yields NaNs in its own L and W and in
 no other matrix of the batch.  The plain version gets there by NaN-filling
 the matrices whose ``cholesky_ex`` ``info`` is non-zero, because
@@ -57,10 +62,35 @@ def _pad_identity(K: torch.Tensor, Np: int) -> torch.Tensor:
     return Kp
 
 
-def chol_factor_plain(K: torch.Tensor):
-    """Plain version of K1a: (L, Wd) of the identity-padded batch."""
+def _skip_args(what, B, Np, skip, out, shapes):
+    if skip is not None and out is None:
+        raise ValueError(f"{what}: skip needs the out buffers whose skipped matrices it keeps")
+    if out is not None and tuple(tuple(t.shape) for t in out) != shapes:
+        raise ValueError(f"{what}: out shapes {[tuple(t.shape) for t in out]}, expected {list(shapes)}")
+    if skip is not None and (skip.shape != (B,) or skip.dtype != torch.int32):
+        raise ValueError(f"{what}: skip must be a (B,) int32 tensor")
+
+
+def _merge_plain(new, skip, out):
+    """Write ``new`` into ``out`` where ``skip`` is 0 (plain versions)."""
+    if out is None:
+        return new
+    keep = skip.bool() if skip is not None else torch.zeros(new[0].shape[0], dtype=torch.bool)
+    for o, t in zip(out, new):
+        o.copy_(torch.where(keep.reshape((-1,) + (1,) * (t.dim() - 1)).to(o.device), o, t))
+    return out
+
+
+def chol_factor_plain(K: torch.Tensor, jitter=None, skip=None, out=None):
+    """Plain version of K1a: (L, Wd) of the identity-padded batch
+    K + diag(jitter), written into ``out`` except where ``skip`` is set."""
     B, n, _ = K.shape
     Np = padded_size(n)
+    _skip_args("chol_factor", B, Np, skip, out, ((B, Np, Np), (B, Np // TILE, TILE, TILE)))
+    if skip is not None and K.device.type == "cpu" and bool(skip.all()):
+        return out  # nothing to factor (a host read: the CPU only)
+    if jitter is not None:
+        K = K + jitter[:, None, None] * torch.eye(n, dtype=K.dtype, device=K.device)
     L, info = torch.linalg.cholesky_ex(_pad_identity(K, Np))
     L = torch.where((info != 0)[:, None, None], torch.full_like(L, float("nan")), L)
     nt = Np // TILE
@@ -69,47 +99,77 @@ def chol_factor_plain(K: torch.Tensor):
     )
     eye = torch.eye(TILE, dtype=K.dtype, device=K.device).expand_as(Ld)
     Wd = torch.linalg.solve_triangular(Ld, eye, upper=False)
-    return L, Wd
+    return _merge_plain((L, Wd), skip, out)
 
 
-def chol_winv_plain(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
-    """Plain version of K1b: W = L⁻¹ (``Wd`` is implied by ``L``)."""
+def chol_winv_plain(L: torch.Tensor, Wd: torch.Tensor, skip=None, out=None) -> torch.Tensor:
+    """Plain version of K1b: W = L⁻¹ (``Wd`` is implied by ``L``), written
+    into ``out`` except where ``skip`` is set."""
+    B, Np, _ = L.shape
+    _skip_args("chol_winv", B, Np, skip, None if out is None else (out,), ((B, Np, Np),))
+    if skip is not None and L.device.type == "cpu" and bool(skip.all()):
+        return out
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
+    W = torch.linalg.solve_triangular(L, eye, upper=False)
+    return _merge_plain((W,), skip, None if out is None else (out,))[0]
 
 
-def chol_factor(K: torch.Tensor):
-    """K1a: (L, Wd) for K (B, n, n) float32; kernel on CUDA, plain on CPU."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def chol_factor(K: torch.Tensor, jitter=None, skip=None, out=None):
+    """K1a: (L, Wd) for K (B, n, n) float32 plus ``jitter`` (B,) on its
+    diagonal; kernel on CUDA, plain on CPU.  With ``out`` = (L, Wd) the
+    result goes there, and matrices whose ``skip`` (B,) int32 flag is set
+    keep what ``out`` holds."""
     if K.device.type == "cpu":
-        return chol_factor_plain(K)
+        return chol_factor_plain(K, jitter, skip, out)
     native.require_cuda("chol_factor", K)
     B, n, n2 = K.shape
     if n != n2:
         raise ValueError(f"chol_factor: expected square matrices, got {tuple(K.shape)}")
     Np = padded_size(n)
-    L = torch.empty((B, Np, Np), dtype=torch.float32, device=K.device)
-    Wd = torch.empty((B, Np // TILE, TILE, TILE), dtype=torch.float32, device=K.device)
+    _skip_args("chol_factor", B, Np, skip, out, ((B, Np, Np), (B, Np // TILE, TILE, TILE)))
+    if jitter is not None:
+        native.require_cuda("chol_factor", K, jitter)
+        if jitter.shape != (B,):
+            raise ValueError(f"chol_factor: jitter {tuple(jitter.shape)}, expected {(B,)}")
+    if skip is not None:
+        native.require_cuda("chol_factor", skip, dtype=torch.int32)
+    if out is None:
+        L = torch.empty((B, Np, Np), dtype=torch.float32, device=K.device)
+        Wd = torch.empty((B, Np // TILE, TILE, TILE), dtype=torch.float32, device=K.device)
+    else:
+        L, Wd = out
+        native.require_cuda("chol_factor", K, L, Wd)
     A = torch.empty_like(L) if Np > TILE else L  # scratch: the trailing matrix
     lib = native.load("chol")
-    err = native.call(lib.hebo_chol_factor, K.device, K.data_ptr(), L.data_ptr(),
-                      Wd.data_ptr(), A.data_ptr(), B, n, Np)
+    err = native.call(lib.hebo_chol_factor, K.device, K.data_ptr(), _ptr(jitter), _ptr(skip),
+                      L.data_ptr(), Wd.data_ptr(), A.data_ptr(), B, n, Np)
     native.check(err, "chol_factor")
     chol_factor.launches += 1
     return L, Wd
 
 
-def chol_winv(L: torch.Tensor, Wd: torch.Tensor) -> torch.Tensor:
-    """K1b: W = L⁻¹ from ``chol_factor``'s outputs; kernel on CUDA."""
+def chol_winv(L: torch.Tensor, Wd: torch.Tensor, skip=None, out=None) -> torch.Tensor:
+    """K1b: W = L⁻¹ from ``chol_factor``'s outputs; kernel on CUDA.  With
+    ``out`` the result goes there, and matrices whose ``skip`` flag is set
+    keep what ``out`` holds."""
     if L.device.type == "cpu":
-        return chol_winv_plain(L, Wd)
+        return chol_winv_plain(L, Wd, skip, out)
     native.require_cuda("chol_winv", L, Wd)
     B, Np, _ = L.shape
     if Np % TILE or Wd.shape != (B, Np // TILE, TILE, TILE):
         raise ValueError(f"chol_winv: bad shapes L {tuple(L.shape)}, Wd {tuple(Wd.shape)}")
-    W = torch.empty_like(L)
+    _skip_args("chol_winv", B, Np, skip, None if out is None else (out,), ((B, Np, Np),))
+    if skip is not None:
+        native.require_cuda("chol_winv", skip, dtype=torch.int32)
+    W = torch.empty_like(L) if out is None else out
+    native.require_cuda("chol_winv", L, W)
     S = torch.empty_like(L) if Np > TILE else W  # scratch: L21 W11 per level
     lib = native.load("chol")
-    err = native.call(lib.hebo_chol_winv, L.device, L.data_ptr(), Wd.data_ptr(),
+    err = native.call(lib.hebo_chol_winv, L.device, L.data_ptr(), Wd.data_ptr(), _ptr(skip),
                       W.data_ptr(), S.data_ptr(), B, Np)
     native.check(err, "chol_winv")
     chol_winv.launches += 1

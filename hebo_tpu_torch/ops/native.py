@@ -37,13 +37,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hebo_matern32_gram_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "chol": {
-        "hebo_chol_factor": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "hebo_chol_winv": [_P, _P, _P, _P, _I, _I, _P],
+        "hebo_chol_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "hebo_chol_winv": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "ssk": {
         "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hebo_ssk_self": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "hebo_ssk_route": [_I, _I],
+    },
+    "pareto": {
+        "hebo_nsga2_rank_crowd": [_P, _P, _P, _P, _I, _I, _P],
     },
 }
 

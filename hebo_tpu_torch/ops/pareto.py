@@ -3,20 +3,26 @@
 Port of ``hebo_tpu/ops/pareto.py`` (:29-141), minimization.  Every sort is
 stable, as JAX's are: ``torch.argsort(stable=True)``, with the lexsort of
 pareto.py:110 built from two stable sorts.  The per-front min/max
-(``segment_min``/``segment_max``, :98-105) are ``scatter_reduce`` with
-``include_self=False``.
+(``segment_min``/``segment_max``, :98-105) are masked ``amax``/``amin``
+over each point's front, which propagate NaN on every device (CUDA's
+``scatter_reduce`` does not promise to).  The crowding sum runs over the
+objectives in order.
 
-Front peeling stops when every point has a front, as the JAX
-``while_loop`` does (:55-77).  Here the test is a host sync; it is made
-once every ``_PEEL_CHUNK`` peels (extra peels past the last front change
-nothing).
+On the card, rank and crowding come from kernel K5 (``csrc/pareto.cu``,
+``nsga2_rank_crowd``), which peels every front on the device as the JAX
+``while_loop`` does (:55-77), with no host sync.  On the CPU the plain
+version peels with a host test made once every ``_PEEL_CHUNK`` peels
+(extra peels past the last front change nothing).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["domination_matrix", "nondominated_rank", "crowding_distance", "nsga2_key"]
+from . import native
+
+__all__ = ["domination_matrix", "nondominated_rank", "crowding_distance", "nsga2_key",
+           "nsga2_rank_crowd", "nsga2_rank_crowd_plain"]
 
 _PEEL_CHUNK = 4
 
@@ -35,7 +41,14 @@ def domination_matrix(F: torch.Tensor, valid: torch.Tensor | None = None) -> tor
 
 
 def nondominated_rank(F: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
-    """Front index per point (0 = Pareto front) by iterative peeling."""
+    """Front index per point (0 = Pareto front) by iterative peeling
+    (kernel K5 on CUDA)."""
+    if F.device.type != "cpu":
+        return nsga2_rank_crowd(F, valid)[0]
+    return _rank_plain(F, valid)
+
+
+def _rank_plain(F: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
     P = F.shape[0]
     D = domination_matrix(F, valid)
     Di = D.to(torch.int32)
@@ -69,11 +82,10 @@ def crowding_distance(F: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     objectives)."""
     P, M = F.shape
     big = 1e30
-    n_seg = P + 1
-    idx = rank.long()[:, None].expand(P, M)
-    zeros = torch.zeros((n_seg, M), dtype=F.dtype, device=F.device)
-    f_max = zeros.scatter_reduce(0, idx, F, "amax", include_self=False)
-    f_min = zeros.scatter_reduce(0, idx, F, "amin", include_self=False)
+    same = (rank[:, None] == rank[None, :])[..., None]  # (P, P, 1): k in j's front
+    inf = torch.tensor(float("inf"), dtype=F.dtype, device=F.device)
+    f_max = torch.where(same, F[None], -inf).amax(1)  # (P, M), per point's front
+    f_min = torch.where(same, F[None], inf).amin(1)
     span = torch.clamp(f_max - f_min, min=1e-12)
     dists = []
     for m in range(M):
@@ -88,12 +100,56 @@ def crowding_distance(F: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
         f_prev = torch.cat([f_s[:1], f_s[:-1]])
         f_next = torch.cat([f_s[1:], f_s[-1:]])
         d = torch.where(prev_same & next_same,
-                        (f_next - f_prev) / span[r_s.long(), m],
+                        (f_next - f_prev) / span[order, m],
                         torch.full_like(f_s, big))
         dists.append(torch.empty_like(d).scatter_(0, order, d))
     dists = torch.stack(dists, 1)
-    d = torch.clamp(dists, max=big).sum(1) / M
+    clamped = torch.clamp(dists, max=big)
+    d = clamped[:, 0]
+    for m in range(1, M):
+        d = d + clamped[:, m]
+    # a tensor divisor: CUDA turns division by a Python number into a
+    # multiplication by its reciprocal, which rounds differently
+    d = d / torch.full_like(d, M)
     return torch.where((dists >= big).any(1), torch.full_like(d, float("inf")), d)
+
+
+def nsga2_rank_crowd_plain(F: torch.Tensor, valid: torch.Tensor | None = None):
+    """Plain version of kernel K5: the peeled rank and the crowding."""
+    rank = _rank_plain(F, valid)
+    return rank, crowding_distance(F, rank)
+
+
+def nsga2_rank_crowd(F: torch.Tensor, valid: torch.Tensor | None = None):
+    """(rank (P,) int32, crowding (P,) float32) of F (P, M): kernel K5 on a
+    CUDA tensor, one launch; ``nondominated_rank`` and ``crowding_distance``
+    on a CPU tensor.  ``valid`` (P,) bool marks the rows that take part."""
+    if F.device.type == "cpu":
+        return nsga2_rank_crowd_plain(F, valid)
+    native.require_cuda("nsga2_rank_crowd", F)
+    if F.dim() != 2:
+        raise ValueError(f"nsga2_rank_crowd: expected F (P, M), got {tuple(F.shape)}")
+    P, M = F.shape
+    words = -(-P // 32)
+    if 4 * (P * words + words + 3 * P * M + 3 * P + 2) > _SMEM_MAX:
+        raise ValueError(f"nsga2_rank_crowd: P = {P}, M = {M} needs more shared memory than one SM has")
+    if valid is not None:
+        if valid.device != F.device or valid.dtype != torch.bool or valid.shape != (P,):
+            raise ValueError("nsga2_rank_crowd: valid must be a (P,) bool tensor on F's device")
+        valid = valid.contiguous()
+    rank = torch.empty(P, dtype=torch.int32, device=F.device)
+    crowd = torch.empty(P, dtype=torch.float32, device=F.device)
+    lib = native.load("pareto")
+    err = native.call(lib.hebo_nsga2_rank_crowd, F.device, F.data_ptr(),
+                      None if valid is None else valid.data_ptr(), rank.data_ptr(),
+                      crowd.data_ptr(), P, M)
+    native.check(err, "nsga2_rank_crowd")
+    nsga2_rank_crowd.launches += 1
+    return rank, crowd
+
+
+nsga2_rank_crowd.launches = 0
+_SMEM_MAX = 232448  # dynamic shared memory one H100 CTA may use
 
 
 def nsga2_key(rank: torch.Tensor, crowd: torch.Tensor) -> torch.Tensor:

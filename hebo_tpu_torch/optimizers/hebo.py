@@ -9,28 +9,34 @@
 * dedupe against the history + random top-up, and the best-σ / best-μ
   elite overrides of the batch (host side).
 
-``_fused_suggest`` is the JAX package's one device program (hebo.py:214-397)
-as a sequence of device calls on ``device``: fit, posterior caches,
-incumbent, MACE + NSGA-II, population posterior.  The JAX package packs its
-inputs and outputs into one array for the TPU host link; here plain device
-tensors go in and one copy comes back.  Its random numbers come from one
-``torch.Generator`` on the device, seeded by the observation count.
+``_fused_suggest`` is the JAX package's one device program (hebo.py:214-397):
+fit, posterior caches, incumbent, MACE + NSGA-II, population posterior.  On
+CUDA it is one captured CUDA graph per bucket, replayed at every later
+suggest of that bucket; its inputs go in as one packed array and one copy
+comes back, as in the JAX package.  Every random number of a suggest is
+drawn before the program runs, from one ``torch.Generator`` on the device
+seeded by the observation count, so the graph, the eager path
+(``_use_graphs = False``, kept for comparison) and the CPU give the same
+suggestions from the same draws.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import pandas as pd
 import torch
 
-from ..acq_optimizers.evolution import _space_meta, evolve_raw
+from ..acq_optimizers.evolution import GenDraws, MetaTensors, _space_meta, evolve_raw, meta_tensors
 from ..acquisitions.acq import MACE, AcqParams
 from ..models import get_model
 from ..models.gp.gp import GPData, map_fit
+from ..ops.chol_kernel import chol_factor, chol_winv
+from ..ops.gram import matern32_gram, matern32_gram_vjp
+from ..ops.pareto import nsga2_rank_crowd
 from ..ops.transforms import fit_power_transform, power_transform_y
 from ..utils.device import resolve_device
 from ..utils.dtypes import pad_bucket
@@ -71,6 +77,8 @@ class HEBO(AbstractOptimizer):
         self._sobol_count = 0
         self.model = None
         self._acq = None
+        self._use_graphs = True  # False: the eager CUDA path, for comparison
+        self._graphs: dict = {}
 
     def quasi_sample(self, n: int, fix_input: Optional[dict] = None) -> pd.DataFrame:
         X = self.space.sobol_sample_opt(n, seed=self.scramble_seed + self._sobol_count)
@@ -136,57 +144,87 @@ class HEBO(AbstractOptimizer):
             df[k] = v
         return df
 
-    def _gp_data(self, Xv, yt, n_pad) -> GPData:
-        """Padded, standardized training data on the device (hebo.py:342-367)."""
-        D = self.space.num_cols
-        nd = list(self.model.core.numeric_dims)
-        Xv = np.asarray(Xv, np.float32)
-        yt = np.asarray(yt, np.float32).reshape(-1, 1)
-        n = len(Xv)
-        Xp = np.zeros((n_pad, D), np.float32)
-        yp = np.zeros((n_pad, 1), np.float32)
-        mask = np.zeros(n_pad, bool)
-        Xp[:n] = Xv
-        y_mean = float(yt.mean())
-        y_std = float(yt.std())
-        y_std = y_std if y_std > 1e-8 else 1.0
-        yp[:n, 0] = (yt[:, 0] - y_mean) / y_std
-        mask[:n] = True
-        lb = Xv[:, nd].min(axis=0) if nd else np.zeros(0, np.float32)
-        ub = Xv[:, nd].max(axis=0) if nd else np.zeros(0, np.float32)
-        span = np.where(ub - lb < 1e-8, 1.0, ub - lb)
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-        return GPData(X=t(Xp), y=t(yp), mask=torch.as_tensor(mask, device=self.device),
-                      x_lb=t(lb), x_span=t(span), y_mean=t(y_mean), y_std=t(y_std))
-
-    @torch.no_grad()
-    def _fused_suggest(self, Xv, yt, kappa, fix_input):
+    # ------------------------------------------------------- fused suggest
+    def _suggest_inputs(self, Xv, yt, kappa, fix_input):
+        """Host side of one suggest: the bucket, the column metadata and
+        every per-suggest input packed into one float32 array (the JAX
+        package's packing, hebo.py:342-367): [X (n_pad, D) | y (n_pad) |
+        mask (n_pad) | x_lb (nd) | x_span (nd) | y_mean | y_std | κ |
+        init_pop (pop, D)]."""
         space = self.space
         n_pad = pad_bucket(max(len(Xv), 2))
-        core = self.model.core
-        if n_pad > core.max_cholesky_size:
+        if n_pad > self.model.core.max_cholesky_size:
             raise NotImplementedError(
                 f"bucket {n_pad} is above max_cholesky_size: the large-N route "
                 "(subsampled fit + CG posterior) is ROADMAP slice 7 and not ported yet"
             )
         meta = _space_meta(space, fix_input)
-        acq = self._acq
-        dev = self.device
-
         init_pop = space.sobol_sample_opt(self.pop, seed=self.num_obs).astype(np.float32)
         for name, val in (fix_input or {}).items():
             p = space.params[name]
             c0 = space._col_of[name]
             tv = np.asarray(p.transform(np.asarray([val]))).ravel()
             init_pop[:, c0 : c0 + p.num_cols] = tv[None, :]
+        D = space.num_cols
+        nd = list(self.model.core.numeric_dims)
+        Xv = np.asarray(Xv, np.float32)
+        yt = np.asarray(yt, np.float32).reshape(-1, 1)
+        n = len(Xv)
+        Xp = np.zeros((n_pad, D), np.float32)
+        yp = np.zeros(n_pad, np.float32)
+        mask = np.zeros(n_pad, np.float32)
+        Xp[:n] = Xv
+        y_mean = float(yt.mean())
+        y_std = float(yt.std())
+        y_std = y_std if y_std > 1e-8 else 1.0
+        yp[:n] = (yt[:, 0] - y_mean) / y_std
+        mask[:n] = 1.0
+        lb = Xv[:, nd].min(axis=0) if nd else np.zeros(0, np.float32)
+        ub = Xv[:, nd].max(axis=0) if nd else np.zeros(0, np.float32)
+        span = np.where(ub - lb < 1e-8, 1.0, ub - lb)
+        host = np.concatenate([Xp.ravel(), yp, mask, lb, span,
+                               [y_mean, y_std, kappa], init_pop.ravel()]).astype(np.float32)
+        return n_pad, meta, host
 
-        t0 = time.time()
-        data = self._gp_data(Xv, yt, n_pad)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(self.num_obs % (1 << 30))
-        pf, samples = map_fit(core, data, self.model.n_restarts, gen)
+    def _draws(self, device) -> SuggestDraws:
+        """Empty buffers for every random number of one suggest."""
+        core = self.model.core
+        R, D = self.model.n_restarts, self.space.num_cols
+        n_normal = R * (core.total_cats * _emb_cols(core) + core.d_feat)
+        n_normal += core.n_steps * sum(math.prod(s) for s in _leaf_shapes(core, R)) + self.pop
+        return SuggestDraws(
+            normal=torch.empty(n_normal, device=device),
+            sel=torch.empty((self.iters, 2, self.pop), dtype=torch.int64, device=device),
+            uni=torch.empty((self.iters, 8, self.pop, D), device=device),
+        )
+
+    def _suggest_program(self, n_pad, mt, inputs, dr):
+        """The device part of one suggest (the JAX package's one program,
+        hebo.py:214-397): GP fit (stacked restarts, pSGLD), posterior
+        caches, incumbent, MACE + NSGA-II, the population's posterior.
+        Reads only ``inputs`` and the draws ``dr``, and returns the packed
+        [pop_X | pop_F | μ | σ²] and (data, params, samples, caches).  On
+        CUDA it holds no host sync, so it can be captured as a graph."""
+        core, model, acq = self.model.core, self.model, self._acq
+        R, D, P = self.model.n_restarts, self.space.num_cols, self.pop
+        nd = len(core.numeric_dims)
+        parts = torch.split(inputs, [n_pad * D, n_pad, n_pad, nd, nd, 3, P * D])
+        data = GPData(X=parts[0].view(n_pad, D), y=parts[1].view(n_pad, 1),
+                      mask=parts[2] > 0.5, x_lb=parts[3], x_span=parts[4],
+                      y_mean=parts[5][0], y_std=parts[5][1])
+        kappa = parts[5][2]
+
+        shapes = _leaf_shapes(core, R)
+        sizes = [R * core.total_cats * _emb_cols(core), R * core.d_feat,
+                 core.n_steps * sum(math.prod(s) for s in shapes), P]
+        z_emb, z_ls, psgld, z = torch.split(dr.normal, sizes)
+        steps = torch.split(psgld.view(core.n_steps, -1), [math.prod(s) for s in shapes], 1)
+        pf, samples = map_fit(
+            core, data, R,
+            init_draws=(z_emb.view(R, core.total_cats, _emb_cols(core)), z_ls.view(R, core.d_feat)),
+            noise=lambda i: [t[i].view(s) for t, s in zip(steps, shapes)],
+        )
         caches = core.posterior_cache_batched(samples, data)
-        model = self.model
         state = (samples, caches, data)
 
         # incumbent: the best observed point's posterior mean, model frame
@@ -194,23 +232,134 @@ class HEBO(AbstractOptimizer):
         xb = data.X.index_select(0, torch.argmin(y_masked).reshape(1))
         mu_b, _ = model.predict_pure(state, xb)
         noise_scale = torch.sqrt(torch.exp(pf.log_noise[0]) + core.noise_lb) * data.y_std
-        pr = AcqParams(
-            tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale,
-            z=torch.randn((self.pop, 1), generator=gen, device=dev),
-        )
-        init = torch.as_tensor(init_pop, device=dev)
+        pr = AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale, z=z.view(P, 1))
+        init = parts[6].view(P, D).clone()
         init[0] = xb[0]
         pop_X, pop_F = evolve_raw(
-            init, lambda Xc: acq.eval(model, state, pr, Xc), meta,
-            n_gens=self.iters, generator=gen,
+            init, lambda Xc: acq.eval(model, state, pr, Xc), None, n_gens=self.iters,
+            draws=lambda g: GenDraws(dr.sel[g], *dr.uni[g].unbind(0)), mt=mt,
         )
         mu_pop, var_pop = model.predict_pure(state, pop_X)
-        out = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1).cpu().numpy()
+        out = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1)
+        return out, (data, pf, samples, caches)
+
+    def _device_suggest(self, n_pad, meta, host):
+        """Inputs to the device, draws, the program; returns the packed
+        output on the device (not yet copied back) and the fitted state.
+
+        On CUDA (unless ``_use_graphs`` is False, the eager comparison
+        path) the program is one CUDA graph per (bucket, metadata),
+        captured at the bucket's first suggest and replayed after it: the
+        host copies the inputs through pinned memory, fills the draw
+        buffers from a generator seeded by the observation count, and
+        replays, with no host sync.  The CPU and the eager path run the
+        same program on the same draws."""
+        dev = self.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self.num_obs % (1 << 30))
+        if dev.type != "cuda" or not self._use_graphs:
+            dr = self._draws(dev)
+            _fill(dr, gen, self.pop)
+            inputs = torch.as_tensor(host, device=dev)
+            return self._suggest_program(n_pad, meta_tensors(meta, dev), inputs, dr)
+        g = self._graphs.get((n_pad, meta))
+        if g is None:
+            g = self._graphs[(n_pad, meta)] = self._capture(n_pad, meta, host, gen)
+        else:
+            g.staging.numpy()[:] = host
+            g.inputs.copy_(g.staging, non_blocking=True)
+            _fill(g.draws, gen, self.pop)
+        g.graph.replay()
+        for w, n in g.tally.items():
+            w.launches += n
+        return g.out, g.state
+
+    def _capture(self, n_pad, meta, host, gen) -> "_SuggestGraph":
+        """Static buffers for a bucket, one eager warm-up run of the
+        program on a side stream (the autograd engine's and the kernels'
+        one-time set-up: ``cudaFuncSetAttribute``, the SM count, cuBLAS
+        workspaces), then the capture.  The wrappers' launch counts of the
+        captured run are kept as the graph's tally, which each replay adds;
+        a capture that fails raises."""
+        dev = self.device
+        staging = torch.from_numpy(host.copy()).pin_memory()
+        inputs = torch.empty(len(host), device=dev)
+        inputs.copy_(staging, non_blocking=True)
+        dr = self._draws(dev)
+        _fill(dr, gen, self.pop)
+        mt = meta_tensors(meta, dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._suggest_program(n_pad, mt, inputs, dr)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = {w: w.launches for w in COUNTED}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out, state = self._suggest_program(n_pad, mt, inputs, dr)
+        tally = {w: w.launches - n for w, n in before.items()}
+        for w, n in before.items():
+            w.launches = n
+        return _SuggestGraph(graph, staging, inputs, dr, mt, out, state, tally)
+
+    @torch.no_grad()
+    def _fused_suggest(self, Xv, yt, kappa, fix_input):
+        n_pad, meta, host = self._suggest_inputs(Xv, yt, kappa, fix_input)
+        t0 = time.time()
+        out, (data, pf, samples, caches) = self._device_suggest(n_pad, meta, host)
+        out = out.cpu().numpy()
         dt = time.time() - t0
         self.fit_time.append(dt)
         self.acq_time.append(dt)
+        model = self.model
         model.data, model.params, model.samples, model.caches = data, pf, samples, caches
-        D = space.num_cols
-        n_obj = acq.num_out
-        return (space.round_opt(out[:, :D]), out[:, D : D + n_obj],
+        D = self.space.num_cols
+        n_obj = self._acq.num_out
+        return (self.space.round_opt(out[:, :D]), out[:, D : D + n_obj],
                 out[:, D + n_obj : D + n_obj + 1], out[:, D + n_obj + 1 : D + n_obj + 2])
+
+
+class SuggestDraws(NamedTuple):
+    """Every random number of one suggest, drawn before the program runs:
+    ``normal`` holds init_params' embedding and lengthscale normals, the
+    pSGLD normals of every step (one row per step, the ``GPParams`` leaves
+    in field order) and MACE's z; ``sel`` the tournaments' indices and
+    ``uni`` the eight uniforms of each generation (``GenDraws`` order)."""
+
+    normal: torch.Tensor  # (R·cats·E + R·D_feat + steps·Σ leaf + pop,)
+    sel: torch.Tensor  # (iters, 2, pop) int64
+    uni: torch.Tensor  # (iters, 8, pop, D)
+
+
+def _fill(dr: SuggestDraws, gen: torch.Generator, pop: int) -> None:
+    dr.normal.normal_(generator=gen)
+    dr.sel.random_(0, pop, generator=gen)
+    dr.uni.uniform_(generator=gen)
+
+
+def _emb_cols(core) -> int:
+    return core.emb_dim if core.total_cats else 0
+
+
+def _leaf_shapes(core, R: int):
+    """Shapes of the ``GPParams`` leaves of R stacked restarts."""
+    return [(R, core.d_feat), (R,), (R,), (R,), (R, core.total_cats, _emb_cols(core)),
+            (R, core.d_num), (R, core.d_num)]
+
+
+class _SuggestGraph(NamedTuple):
+    """One bucket's captured suggest: the graph, its static inputs (and
+    their pinned staging copy), draws and outputs, and its launch tally."""
+
+    graph: "torch.cuda.CUDAGraph"
+    staging: torch.Tensor
+    inputs: torch.Tensor
+    draws: SuggestDraws
+    mt: MetaTensors
+    out: torch.Tensor
+    state: tuple
+    tally: Dict[Callable, int]
+
+
+# the kernel wrappers of the suggest, whose ``.launches`` a replay advances
+COUNTED = (matern32_gram, matern32_gram_vjp, chol_factor, chol_winv, nsga2_rank_crowd)

@@ -11,7 +11,12 @@ diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
 Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
 version's (W by doubling vs forward substitution); SSK raw totals
 1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
-recursions vs dense D-matrix products), on both of K3's routes.
+recursions vs dense D-matrix products), on both of K3's routes.  K5 (rank
+and crowding) exactly: the same ranks and the same crowding bits as its plain
+version, NaN where NaN.  K1 with the ladder's jitter and skip: the same bits
+as the ladder that adds the jitter before K1 and decides on the host.  HEBO's
+suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
+at a seed, and a replay that makes no host sync.
 """
 
 import numpy as np
@@ -257,3 +262,164 @@ def test_chol_resident_api_on_card(cuda):
     torch.testing.assert_close(L.cpu(), L0, rtol=0, atol=1e-4)
     torch.testing.assert_close(L2.cpu(), L0, rtol=0, atol=1e-4)
     torch.testing.assert_close(W.cpu(), W0, rtol=0, atol=1e-3)
+
+
+def _pareto_inputs(P, edge, seed, device):
+    rng = np.random.default_rng(seed)
+    F = (rng.integers(0, 4 if edge else 1000, (P, 3)) / 4).astype(np.float32)
+    F[3] = F[4]
+    F[10] = F[11] = F[12]
+    if edge:
+        F[20, 1] = F[21, 1] = np.inf
+        F[22, 0] = -np.inf
+        F[23] = -np.inf
+        F[30, 2] = np.nan
+        F[31] = np.nan
+        F[40] = [np.inf, -np.inf, 0.5]
+    return torch.as_tensor(F, device=device)
+
+
+def _same_bits(a, b):
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan].view(torch.int32),
+                                                            b[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [100, 200])
+@pytest.mark.parametrize("edge", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_pareto_kernel_on_card(cuda, P, edge, masked):
+    """K5 against its plain version on the card and on the CPU: ties,
+    duplicate rows, ±inf and NaN objectives, invalid rows."""
+    from hebo_tpu_torch.ops import pareto
+
+    F = _pareto_inputs(P, edge, P + edge, cuda)
+    valid = None
+    if masked:
+        valid = torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25, device=cuda)
+    n0 = pareto.nsga2_rank_crowd.launches
+    rank, crowd = pareto.nsga2_rank_crowd(F, valid)
+    assert pareto.nsga2_rank_crowd.launches == n0 + 1
+    r0, c0 = pareto.nsga2_rank_crowd_plain(F, valid)
+    assert torch.equal(rank, r0) and _same_bits(crowd, c0)
+    r1, c1 = pareto.nsga2_rank_crowd(F.cpu(), None if valid is None else valid.cpu())
+    assert torch.equal(rank.cpu(), r1) and _same_bits(crowd, c1)
+    assert torch.equal(pareto.nsga2_key(rank, crowd), pareto.nsga2_key(r0, c0))
+    assert torch.equal(pareto.nondominated_rank(F, valid), rank)
+
+
+def _ladder_on_host(Kt, rungs, base=1e-6):
+    """The ladder as it was: K + jitter·I formed first, a retry only when
+    the host sees a failure."""
+    n = Kt.shape[-1]
+    eye = torch.eye(n, device=Kt.device)
+    scale = torch.clamp(torch.diagonal(Kt, dim1=-2, dim2=-1).mean(-1), min=1e-12)[:, None, None]
+    L, W = chol_inv((Kt + (base + rungs[0] * scale) * eye).contiguous())
+    ok = torch.isfinite(L).all(-1).all(-1)
+    for rung in rungs[1:]:
+        if bool(ok.all()):
+            break
+        L2, W2 = chol_inv((Kt + (base + rung * scale) * eye).contiguous())
+        ok2 = torch.isfinite(L2).all(-1).all(-1)
+        take = ((~ok) & ok2)[:, None, None]
+        L, W, ok = torch.where(take, L2, L), torch.where(take, W2, W), ok | ok2
+    return L, W, ok
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [40, 128, 300, 1024])
+def test_chol_ladder_skip_and_jitter_on_card(cuda, N):
+    """K1 with the ladder's jitter and skip (every rung launched) against
+    the host-decided ladder: a matrix that first factors at rung 2, one that
+    fails every rung, one at rung 0; and a batch where all factor at rung 0."""
+    from hebo_tpu_torch.ops import chol as tchol
+
+    rng = np.random.default_rng(N)
+    K = _spd(rng, 3, N)
+    Q, _ = np.linalg.qr(rng.standard_normal((N, N)))
+    d = rng.uniform(0.5, 1.0, N)
+    d[0] = -2e-5
+    K[0] = ((Q * d) @ Q.T).astype(np.float32)
+    K[2] = -1e3 * np.eye(N, dtype=np.float32)
+    for Kb, want in ((K, [True, True, False]), (_spd(rng, 2, N), [True, True])):
+        Kt = torch.as_tensor(Kb, device=cuda)
+        n0 = chol_kernel.chol_factor.launches
+        L, W, ok = tchol.batched_ladder_factor(Kt, tchol.LADDER)
+        assert chol_kernel.chol_factor.launches == n0 + len(tchol.LADDER)
+        L0, W0, ok0 = _ladder_on_host(Kt, tchol.LADDER)
+        assert ok.tolist() == ok0.tolist() == want
+        assert torch.equal(L[ok], L0[ok0]) and torch.equal(W[ok], W0[ok0])
+        for b in torch.nonzero(~ok).flatten().tolist():
+            assert not torch.isfinite(L[b]).all() and not torch.isfinite(W[b]).all()
+        Lc, Wc, okc = tchol.batched_ladder_factor(Kt.cpu(), tchol.LADDER)
+        assert okc.tolist() == want
+        torch.testing.assert_close(L[ok].cpu(), Lc[okc], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_chol_skip_keeps_out_on_card(cuda):
+    rng = np.random.default_rng(12)
+    K = torch.as_tensor(_spd(rng, 3, 200), device=cuda)
+    Np = chol_kernel.padded_size(200)
+    L = torch.full((3, Np, Np), 7.0, device=cuda)
+    Wd = torch.full((3, Np // 64, 64, 64), 7.0, device=cuda)
+    W = torch.full((3, Np, Np), 7.0, device=cuda)
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    jitter = torch.tensor([1e-3, 0.5, 0.25], device=cuda)
+    chol_kernel.chol_factor(K, jitter, skip, out=(L, Wd))
+    chol_kernel.chol_winv(L, Wd, skip, out=W)
+    assert (L[1] == 7).all() and (Wd[1] == 7).all() and (W[1] == 7).all()
+    for b in (0, 2):
+        L0, Wd0 = chol_kernel.chol_factor((K[b:b + 1] + jitter[b] * torch.eye(200, device=cuda)).contiguous())
+        assert torch.equal(L[b], L0[0]) and torch.equal(Wd[b], Wd0[0])
+        assert torch.equal(W[b], chol_kernel.chol_winv(L0, Wd0)[0])
+
+
+def _ackley(df):
+    X = df[[f"x{i}" for i in range(6)]].values.astype(float)
+    s1 = (X ** 2).mean(1) ** 0.5
+    s2 = np.cos(2 * np.pi * X).mean(1)
+    return (-20.0 * np.exp(-0.2 * s1) - np.exp(s2) + 20.0 + np.e).reshape(-1, 1)
+
+
+@pytest.mark.gpu
+def test_hebo_graph_suggest_equals_eager_and_never_syncs(cuda):
+    """HEBO at full defaults, bucket 128: the captured graph's suggestion
+    equals the eager CUDA path's at the same seed; its launch tally gives
+    50 K2 VJP launches a suggest; a replay (inputs, draws, graph) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import pandas as pd
+
+    from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.optimizers.hebo import COUNTED
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = HEBO(space, device="cuda")
+    warm = space.inverse_transform(space.sobol_sample_opt(112, seed=1))
+    opt.observe(warm, _ackley(warm))
+    rec_g = opt.suggest(8)  # captures bucket 128
+    assert list(opt._graphs) and list(opt._graphs)[0][0] == 128
+    alpha_g = opt.model.caches.alpha.clone()
+    n0 = gram.matern32_gram_vjp.launches
+    assert opt.suggest(8).equals(rec_g)  # a replay gives the same again
+    assert gram.matern32_gram_vjp.launches == n0 + 50
+    opt._use_graphs = False
+    rec_e = opt.suggest(8)
+    pd.testing.assert_frame_equal(rec_g, rec_e)
+    assert torch.equal(opt.model.caches.alpha, alpha_g)
+    opt._use_graphs = True
+
+    Xv = space.transform(opt.X).astype(np.float32)
+    n_pad, meta, host = opt._suggest_inputs(Xv, opt.y.astype(np.float32), 2.0, None)
+    counts = {w: w.launches for w in COUNTED}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = opt._device_suggest(n_pad, meta, host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out).all()
+    assert all(w.launches > counts[w] for w in COUNTED)

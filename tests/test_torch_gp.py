@@ -95,6 +95,74 @@ def test_ladder_matches_and_all_rungs_fail():
     np.testing.assert_allclose(rt.grad.numpy(), np.asarray(grj), rtol=1e-3, atol=1e-3)
 
 
+def _needs_rung(rng, n, lam_min):
+    """A symmetric (n, n) matrix with eigenvalues in [0.5, 1] but one at
+    ``lam_min`` (mean diagonal ≈ 0.75)."""
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    d = rng.uniform(0.5, 1.0, n)
+    d[0] = lam_min
+    return ((Q * d) @ Q.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["rung 2 and all fail", "all at rung 0"])
+def test_ladder_jitter_and_skip_through_plain_k1(case):
+    """The device-decided ladder (every rung launched, jitter inside K1,
+    the matrices of earlier rungs skipped) through K1's plain version
+    against hebo_tpu's lax.cond ladder: a matrix that first factors at
+    rung 2 (jitter 1e-6 + 1e-4·scale), one that fails every rung, and a
+    batch where every matrix factors at rung 0."""
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((3, 40, 40)).astype(np.float32)
+    K = A @ A.transpose(0, 2, 1) / 40 + 0.1 * np.eye(40, dtype=np.float32)
+    if case == "rung 2 and all fail":
+        K[0] = _needs_rung(rng, 40, -2e-5)
+        K[2] = -np.eye(40, dtype=np.float32) * 1e3
+    Lj, Wj, okj = (np.asarray(t) for t in jchol.batched_ladder_factor(jnp.asarray(K), jchol._LADDER))
+    L, W, ok = tchol.batched_ladder_factor(torch.as_tensor(K), tchol.LADDER)
+    np.testing.assert_array_equal(ok.numpy(), okj)
+    good = torch.as_tensor(okj)
+    assert good.tolist() == ([True, True, False] if case != "all at rung 0" else [True] * 3)
+    np.testing.assert_allclose(L[good].numpy(), Lj[okj], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(W[good].numpy(), Wj[okj], rtol=1e-4, atol=1e-4)
+    for b in np.flatnonzero(~okj):  # failed every rung: non-finite L and W
+        assert not torch.isfinite(L[b]).all() and not torch.isfinite(W[b]).all()
+    if case == "rung 2 and all fail":
+        # rung 2 is the first to factor K[0]: its L is K[0] + (1e-6 + 1e-4·scale) I's
+        jit = 1e-6 + 1e-4 * np.float32(np.diagonal(K[0]).mean())
+        L2 = np.linalg.cholesky(K[0].astype(np.float64) + jit * np.eye(40))
+        np.testing.assert_allclose(L[0].numpy(), L2, rtol=1e-3, atol=1e-3)
+
+
+def test_plain_k1_skip_keeps_out_and_adds_jitter():
+    """chol_factor / chol_winv with jitter, skip and out on the CPU: a
+    skipped matrix keeps what ``out`` held, the others are factored with the
+    jitter on their diagonal (exactly K + jitter·I, not the padding)."""
+    from hebo_tpu_torch.ops import chol_kernel as ck
+
+    rng = np.random.default_rng(8)
+    A = rng.standard_normal((3, 70, 70)).astype(np.float32)
+    K = torch.as_tensor(A @ A.transpose(0, 2, 1) / 70 + 0.5 * np.eye(70, dtype=np.float32))
+    jitter = torch.tensor([1e-3, 0.25, 2.0])
+    Np = ck.padded_size(70)
+    L = torch.full((3, Np, Np), 7.0)
+    Wd = torch.full((3, Np // ck.TILE, ck.TILE, ck.TILE), 7.0)
+    W = torch.full((3, Np, Np), 7.0)
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32)
+    ck.chol_factor(K, jitter, skip, out=(L, Wd))
+    ck.chol_winv(L, Wd, skip, out=W)
+    assert (L[1] == 7.0).all() and (Wd[1] == 7.0).all() and (W[1] == 7.0).all()
+    for b in (0, 2):
+        Kj = K[b:b + 1] + jitter[b] * torch.eye(70)
+        L0, Wd0 = ck.chol_factor(Kj)
+        assert torch.equal(L[b], L0[0]) and torch.equal(Wd[b], Wd0[0])
+        assert torch.equal(W[b], ck.chol_winv(L0, Wd0)[0])
+        assert torch.equal(L[b, 70:, 70:], torch.eye(Np - 70))  # padding without jitter
+    with pytest.raises(ValueError, match="out buffers"):
+        ck.chol_factor(K, jitter, skip)
+    ck.chol_factor(K, None, torch.ones(3, dtype=torch.int32), out=(L, Wd))  # all skipped
+    assert (L[1] == 7.0).all()
+
+
 def test_unbatched_masked_nll_and_safe_cholesky():
     rng = np.random.default_rng(3)
     A = rng.standard_normal((10, 10)).astype(np.float32)

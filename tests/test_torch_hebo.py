@@ -78,3 +78,87 @@ def test_gp_wrapper_fit_predict():
     assert np.abs(mu - y[:5]).mean() < y.std()
     with pytest.raises(NotImplementedError, match="slice 7"):
         gp.fit(rng.uniform(size=(2100, X.shape[1])), rng.standard_normal(2100))
+
+
+def test_predrawn_suggest_equals_step_by_step_draws():
+    """The suggest program (what the CUDA graph captures) reads every random
+    number from buffers filled before it runs.  On the CPU it must equal the
+    same suggest assembled step by step, as the eager path was: GPData from
+    the host arrays, κ as a Python float, the column metadata made inside
+    ``evolve_raw``, and each step's draws handed over as fresh tensors
+    through the hooks (``init_params(draws=)``, ``fit_from_batched(noise=)``,
+    MACE's z, ``evolve_raw(draws=)``)."""
+    import torch
+
+    from hebo_tpu_torch.acq_optimizers.evolution import GenDraws, _space_meta, evolve_raw
+    from hebo_tpu_torch.acquisitions.acq import AcqParams
+    from hebo_tpu_torch.models.gp.gp import GPData, GPParams, select
+    from hebo_tpu_torch.optimizers.hebo import _fill, _leaf_shapes
+    from hebo_tpu_torch.ops.transforms import fit_power_transform, power_transform_y
+
+    space = DesignSpace(SPECS)
+    opt = HEBO(space, device="cpu", **SMALL)
+    rec = opt.suggest(10)
+    opt.observe(rec, _f(rec))
+    opt.suggest(2)  # builds the model and the acquisition
+    Xv = space.transform(opt.X).astype(np.float32)
+    yt = power_transform_y(opt.y[:, 0], fit_power_transform(opt.y[:, 0])).reshape(-1, 1)
+    yt = yt.astype(np.float32)
+    kappa = 1.7
+    n_pad, meta, host = opt._suggest_inputs(Xv, yt, kappa, None)
+    dr = opt._draws(torch.device("cpu"))
+    _fill(dr, torch.Generator().manual_seed(3), opt.pop)
+    with torch.no_grad():
+        from hebo_tpu_torch.acq_optimizers.evolution import meta_tensors
+
+        out, _ = opt._suggest_program(n_pad, meta_tensors(meta, "cpu"), torch.as_tensor(host), dr)
+
+    # step by step
+    core, model, R, D, P = opt.model.core, opt.model, opt.model.n_restarts, space.num_cols, opt.pop
+    n = len(Xv)
+    y_mean, y_std = float(yt.mean()), float(yt.std())
+    nd = list(core.numeric_dims)
+    Xp = np.zeros((n_pad, D), np.float32)
+    Xp[:n] = Xv
+    yp = np.zeros((n_pad, 1), np.float32)
+    yp[:n, 0] = (yt[:, 0] - y_mean) / y_std
+    lb, ub = Xv[:, nd].min(0), Xv[:, nd].max(0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    data = GPData(X=t(Xp), y=t(yp), mask=torch.arange(n_pad) < n, x_lb=t(lb),
+                  x_span=t(np.where(ub - lb < 1e-8, 1.0, ub - lb)), y_mean=t(y_mean), y_std=t(y_std))
+    E = core.emb_dim if core.total_cats else 0
+    shapes = _leaf_shapes(core, R)
+    normal = dr.normal.clone()
+    z_emb, normal = normal[:R * core.total_cats * E].reshape(R, core.total_cats, E), normal[R * core.total_cats * E:]
+    z_ls, normal = normal[:R * core.d_feat].reshape(R, core.d_feat), normal[R * core.d_feat:]
+    steps = []
+    for _ in range(core.n_steps):
+        row = []
+        for s in shapes:
+            k = int(np.prod(s))
+            row.append(normal[:k].reshape(s).clone())
+            normal = normal[k:]
+        steps.append(row)
+    z = normal.reshape(P, 1).clone()
+    with torch.no_grad():
+        p0 = core.init_params(data, R, draws=(z_emb.clone(), z_ls.clone()))
+        pf, loss, samples = core.fit_from_batched(p0, data, noise=lambda i: steps[i])
+        best = torch.argmin(loss)
+        pf = GPParams(*(v.index_select(0, best.reshape(1)) for v in pf))
+        samples = select(samples, best, dim=1)
+        caches = core.posterior_cache_batched(samples, data)
+        state = (samples, caches, data)
+        ym = torch.where(data.mask, data.y[:, 0], torch.full_like(data.y[:, 0], float("inf")))
+        xb = data.X.index_select(0, torch.argmin(ym).reshape(1))
+        mu_b, _ = model.predict_pure(state, xb)
+        noise = torch.sqrt(torch.exp(pf.log_noise[0]) + core.noise_lb) * data.y_std
+        pr = AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise, z=z)
+        init = torch.as_tensor(host[-P * D:].reshape(P, D)).clone()
+        init[0] = xb[0]
+        gens = [GenDraws(dr.sel[g].clone(), *(u.clone() for u in dr.uni[g])) for g in range(opt.iters)]
+        pop_X, pop_F = evolve_raw(init, lambda Xc: opt._acq.eval(model, state, pr, Xc),
+                                  _space_meta(space), n_gens=opt.iters, draws=lambda g: gens[g])
+        mu_pop, var_pop = model.predict_pure(state, pop_X)
+    ref = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1)
+    assert torch.equal(out, ref)
+    assert torch.isfinite(out).all()
