@@ -58,7 +58,25 @@
        2 × suggest(2).
    Every suggestion must be 11 letters of the alphabet and every energy
    finite; fit and acquisition seconds are reported apart.
-5. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+5. Drives HEBO above ``max_cholesky_size`` (phase e, the generic route:
+   subsampled fit, pivoted-Cholesky-preconditioned CG posterior,
+   ``EvolutionOpt``), with the counts reset before it:
+   (e1) Ackley-6D at full defaults with 3000 Sobol observations: suggest(8),
+        observe, then 3 timed suggest(8) (3000-3024 points, bucket 3072;
+        the fit on a 2048-point subsample, bucket 2048).  Every batch must
+        be finite, in the box and new against the history; the cache
+        ``ok`` with a CG residual below 0.2; no fused graph used; and each
+        suggest must launch exactly 155 K2, 50 K2 VJP, 200 K5 and
+        103 + 103 K1 (51 NLL ladders of 2 rungs, and the CG cache's k×k
+        Woodbury factor);
+   (e2) CG against the dense K1 route on the card at N = 2048 (tests/test_cg.py's
+        setup: max_cholesky_size 1024, cg_rank 96, cg_iters 128, the same
+        fitted samples): posterior means within rtol / atol 2e-2 and
+        variances within rtol 5e-2 / atol 2e-2 at 100 query points;
+   (e3) the GP alone at N = 3600 and 7000 (buckets 3840 and 7168; the JAX
+        package's bench.py:155-181): fit and predict(512), each timed after
+        a warm call, the predictions finite.
+6. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -106,7 +124,9 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     buckets 1024 and 128."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
-                       (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6)]:
+                       (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
+                       (2, 2048, 2048, 6), (1, 3072, 3072, 6), (1, 3072, 100, 6),
+                       (1, 3072, 128, 6), (1, 7168, 7168, 6)]:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -131,11 +151,11 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
 
 def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
-    128, on random points and on a self-Gram with coincident rows (repeated
+    128 and the large-N route's subsample bucket 2048, on random points and on a self-Gram with coincident rows (repeated
     rows and the zero rows of a padded bucket); twice on the same inputs,
     which must give the same bits."""
     rows = []
-    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6)]:
+    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6)]:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -570,6 +590,113 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
     return a, b
 
 
+def large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails):
+    """Phase e: HEBO's generic route above max_cholesky_size, CG against
+    dense at N = 2048, the GP alone at buckets 3840 and 7168."""
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    # (e1) 3000 Sobol observations (bucket 3072), as the JAX package's bench.py:183-193
+    opt = HEBO(space, device="cuda")
+    warm = opt.quasi_sample(3000)
+    opt.observe(warm, ackley(warm))
+    steps = opt.model_config["num_epochs"]
+    # per suggest: the fit's 51 NLLs (2 K1 rungs each, a K2 forward; 50 VJPs),
+    # the CG cache's Gram and Woodbury factor (K1 at (1, 128)), the
+    # incumbent's predict, NSGA-II's 101 evaluations (2 K5 launches a
+    # generation) and the population's predict
+    expect = {"matern32_gram": (steps + 1) + 1 + 1 + (opt.iters + 1) + 1,
+              "matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
+              "chol_factor": (steps + 1) * 2 + 1, "chol_winv": (steps + 1) * 2 + 1}
+    walls, launches, res = [], [], []
+    for i in range(4):
+        before = {k: w.launches for k, w in wrappers.items()}
+        hist = {tuple(np.round(r, 6)) for r in space.transform(opt.X)}
+        t0 = time.time()
+        rec = opt.suggest(8)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        got = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+        launches.append(got)
+        check_batch(space, rec, f"phase e1 @ {opt.num_obs}", fails)
+        keys = [tuple(np.round(r, 6)) for r in space.transform(rec)]
+        if set(keys) & hist or len(set(keys[2:])) != len(keys[2:]):
+            fails.append(f"phase e1 @ {opt.num_obs}: a suggestion repeats the history or the batch")
+        cache, model = opt.model.caches, opt.model
+        res.append(float(cache.res.max()) if cache.res is not None else float("nan"))
+        if opt._graphs or cache.Kt is None or model.fit_data is model.data:
+            fails.append(f"phase e1 @ {opt.num_obs}: the generic route (subsampled fit, CG cache) "
+                         f"was not taken: graphs {sorted(opt._graphs)}")
+        if not (bool(cache.ok.all()) and res[-1] < 0.2):
+            fails.append(f"phase e1 @ {opt.num_obs}: CG cache ok {cache.ok.tolist()}, residual {res[-1]}")
+        if (model.fit_data.X.shape[0], model.data.X.shape[0]) != (2048, 3072):
+            fails.append(f"phase e1: fit bucket {model.fit_data.X.shape[0]}, cache bucket "
+                         f"{model.data.X.shape[0]}, expected 2048 and 3072")
+        for k, want in expect.items():
+            if got.get(k) != want:
+                fails.append(f"phase e1 @ {opt.num_obs}: {k} launched {got.get(k)} times in a "
+                             f"suggest, expected {want}")
+        opt.observe(rec, ackley(rec))
+    e1 = dict(n_obs=opt.num_obs, fit_bucket=int(opt.model.fit_data.X.shape[0]),
+              cache_bucket=int(opt.model.data.X.shape[0]), s_first=walls[0],
+              s_per_suggest=walls[1:], s_median=float(np.median(walls[1:])),
+              fit_s=opt.fit_time[-4:], acq_s=opt.acq_time[-4:],
+              fit_s_median=float(np.median(opt.fit_time[-3:])),
+              acq_s_median=float(np.median(opt.acq_time[-3:])),
+              cg_residual=res, launches_per_suggest=launches[-1], best=opt.best_y)
+    print("phase e1 (Ackley-6D b8, 3000 Sobol obs, generic route, fit bucket 2048, CG cache "
+          "bucket 3072):", json.dumps(e1), flush=True)
+
+    # (e2) CG against dense at N = 2048 (tests/test_cg.py:57-89)
+    sp4 = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -3.0, "ub": 3.0} for i in range(4)])
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-3, 3, (2048, 4)).astype(np.float32)
+    y = (np.sin(X[:, :1]) + 0.1 * X[:, 1:2] ** 2).astype(np.float32)
+    Xq = rng.uniform(-3, 3, (100, 4)).astype(np.float32)
+    kw = dict(num_epochs=15, n_restarts=1, seed=7)
+    dense = GP(sp4, device="cuda", **kw).fit(X, y)
+    cg = GP(sp4, device="cuda", max_cholesky_size=1024, cg_rank=96, cg_iters=128, **kw)
+    cg.data, cg.samples, cg.params = dense.data, dense.samples, dense.params
+    cg.caches = cg.core.posterior_cache_batched(dense.samples, dense.data)
+    mu_d, v_d = dense.predict(Xq)
+    mu_c, v_c = cg.predict(Xq)
+    e2 = dict(n=2048, routes=[dense.caches.Wf is not None, cg.caches.Kt is not None],
+              cg_residual=float(cg.caches.res.max()), cg_ok=bool(cg.caches.ok.all()),
+              mu_max_abs_err=float(np.abs(mu_c - mu_d).max()),
+              var_max_abs_err=float(np.abs(v_c - v_d).max()),
+              mu_ok=bool(np.allclose(mu_c, mu_d, rtol=2e-2, atol=2e-2)),
+              var_ok=bool(np.allclose(v_c, v_d, rtol=5e-2, atol=2e-2)))
+    print("phase e2 (GP N 2048, CG vs dense K1 posterior, 100 queries):", json.dumps(e2), flush=True)
+    if not (all(e2["routes"]) and e2["cg_ok"] and e2["mu_ok"] and e2["var_ok"]):
+        fails.append(f"phase e2: CG posterior disagrees with the dense one: {e2}")
+
+    # (e3) the GP alone at buckets 3840 and 7168 (bench.py:155-181)
+    e3 = {}
+    for n_obs in (3600, 7000):
+        rng = np.random.default_rng(0)
+        Xn = rng.uniform(-5, 5, (n_obs, 6))
+        yn = (np.sum(Xn ** 2, axis=1, keepdims=True) / 10).astype(np.float32)
+        Xv = space.transform(space.inverse_transform(Xn))
+        gp = GP(space, device="cuda", num_epochs=50)
+        for _ in range(2):  # a warm call, then the timed one
+            t0 = time.time()
+            gp.fit(Xv, yn)
+            torch.cuda.synchronize()
+            fit_s = time.time() - t0
+        for _ in range(2):
+            t0 = time.time()
+            mu, var = gp.predict(Xv[:512])
+            pred_s = time.time() - t0
+        row = dict(bucket=int(gp.data.X.shape[0]), fit_bucket=int(gp.fit_data.X.shape[0]),
+                   fit_s=fit_s, predict512_s=pred_s, cg_residual=float(gp.caches.res.max()),
+                   ok=bool(gp.caches.ok.all()), finite=bool(np.isfinite(mu).all() and np.isfinite(var).all()
+                                                        and (var > 0).all()))
+        e3[f"n{n_obs}"] = row
+        if not (row["finite"] and row["ok"]):
+            fails.append(f"phase e3 N {n_obs}: predictions finite {row['finite']}, cache ok {row['ok']}")
+    print("phase e3 (GP alone, Ackley-6D box, y = |x|^2 / 10):", json.dumps(e3), flush=True)
+    return e1, e2, e3
+
+
 def antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails):
     from hebo_tpu_torch.optimizers.antbo import AA_ALPHABET, check_cdr_constraints
 
@@ -645,6 +772,7 @@ def main() -> int:
     from hebo_tpu_torch import HEBO, DesignSpace
     from hebo_tpu_torch.bench.gram_probe import device_per_call
     from hebo_tpu_torch.bench.ssk_probe import device_us
+    from hebo_tpu_torch.models.gp.gp import GP
     from hebo_tpu_torch.ops import chol_kernel as ck
     from hebo_tpu_torch.ops import gram, native, pareto, ssk
     from hebo_tpu_torch.optimizers import AntBOOptimizer
@@ -689,6 +817,9 @@ def main() -> int:
                   "nsga2_rank_crowd")),
         "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
                   ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
+        "hebo_large_n": (lambda: large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails),
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                          "nsga2_rank_crowd")),
     }
     by_path = {}
     for path, (drive, its_kernels) in paths.items():

@@ -1,7 +1,7 @@
-from .evolution import EvolveSpaceMeta, GenDraws, evolve_raw
+from .evolution import EvolutionOpt, EvolveSpaceMeta, GenDraws, evolve_raw
 from .mcbo_opts import AcqOptimizerBase, LocalSearchAcqOptimizer, RandomSearchAcqOptimizer
 
 __all__ = [
-    "EvolveSpaceMeta", "GenDraws", "evolve_raw",
+    "EvolutionOpt", "EvolveSpaceMeta", "GenDraws", "evolve_raw",
     "AcqOptimizerBase", "LocalSearchAcqOptimizer", "RandomSearchAcqOptimizer",
 ]

@@ -13,18 +13,25 @@ Here they come from a ``torch.Generator`` on the device, or from a
 and a captured CUDA graph can read them from buffers filled before replay.
 On CUDA, each generation's rank and crowding are one launch of kernel K5
 (``ops/pareto.nsga2_rank_crowd``).
+
+``EvolutionOpt`` is the host-side wrapper with the reference API
+(evolution.py:191-276), which HEBO's generic route drives: a Sobol initial
+population, the incumbent injected, the ``fix_input`` columns written, and
+the loop run on the model's device.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..acquisitions.acq import AcqParams
 from ..ops.pareto import nsga2_key, nsga2_rank_crowd
 
-__all__ = ["EvolveSpaceMeta", "GenDraws", "MetaTensors", "evolve_raw", "draw_generation",
-           "meta_tensors"]
+__all__ = ["EvolveSpaceMeta", "EvolutionOpt", "GenDraws", "MetaTensors", "evolve_raw",
+           "draw_generation", "meta_tensors"]
 
 
 class EvolveSpaceMeta(NamedTuple):
@@ -183,3 +190,55 @@ def evolve_raw(
         order = torch.argsort(nsga2_key(*nsga2_rank_crowd(Fall)), stable=True)[:P]
         X, F = Xall[order], Fall[order]
     return _round_discrete(X, mt), F
+
+
+class EvolutionOpt:
+    """The reference ``EvolutionOpt`` API over ``evolve_raw``.
+
+    ``es`` ('nsga2' | 'ga') is accepted as in the JAX package, which infers
+    the mode from the acquisition's objective count: with one objective the
+    rank is constant and the tournament and survival order by crowding
+    alone.  The loop runs on the model's device."""
+
+    def __init__(self, space, acq, pop: int = 100, iters: int = 100, es: Optional[str] = None):
+        if es not in (None, "nsga2", "ga"):
+            raise ValueError(f"es {es!r}: expected 'nsga2' or 'ga'")
+        self.space = space
+        self.acq = acq
+        self.pop = pop
+        self.iters = iters
+        self.es = es if es is not None else ("nsga2" if acq.num_obj > 1 else "ga")
+
+    def optimize(self, model=None, acq_params: Optional[AcqParams] = None,
+                 initial_suggest: Optional[np.ndarray] = None, fix_input: Optional[dict] = None,
+                 return_pop: bool = False, seed: int = 0,
+                 draws: Optional[Callable[[int], GenDraws]] = None):
+        """Opt-frame best point (1, D), or with ``return_pop`` the rounded
+        population (P, D) and its objectives (P, n_obj).  The generations'
+        random numbers come from a ``torch.Generator`` seeded with ``seed``,
+        or from ``draws(gen) → GenDraws``."""
+        space = self.space
+        meta = _space_meta(space, fix_input)
+        X0 = space.sobol_sample_opt(self.pop, seed=seed)
+        if initial_suggest is not None:
+            k = min(len(initial_suggest), self.pop)
+            X0[:k] = np.asarray(initial_suggest)[:k]
+        for name, val in (fix_input or {}).items():
+            p = space.params[name]
+            c0 = space._col_of[name]
+            tv = np.asarray(p.transform(np.asarray([val]))).ravel()
+            X0[:, c0 : c0 + p.num_cols] = tv[None, :]
+        dev = torch.device(getattr(model, "device", "cuda"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        acq, pr = self.acq, acq_params if acq_params is not None else AcqParams()
+        state = model.state if model is not None else None
+        with torch.no_grad():
+            Xf, Ff = evolve_raw(torch.as_tensor(np.asarray(X0, np.float32), device=dev),
+                                lambda X: acq.eval(model, state, pr, X), meta,
+                                n_gens=self.iters, generator=gen, draws=draws)
+        Xf, Ff = Xf.cpu().numpy(), Ff.cpu().numpy()
+        if return_pop:
+            return space.round_opt(Xf), Ff
+        best = int(np.argmin(Ff[:, 0]))
+        return space.round_opt(Xf[best : best + 1])

@@ -2,6 +2,7 @@
 
     python3 -m hebo_tpu_torch.bench.profile_suggest [--obs 112 800] [--paths graph eager]
     python3 -m hebo_tpu_torch.bench.profile_suggest --antbo [--obs 28 200]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --large-n [--obs 3000]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -31,6 +32,13 @@ graph; its wall is reported as ``first_s``), then
   and of the VJP kernels, and the device launches and µs inside one Gram
   backward at the fit's shape (B 2, the bucket, D 6), timed apart after
   the suggest with ``bench/gram_probe.device_per_call``.
+With ``--large-n``, HEBO's generic route above ``max_cholesky_size``
+(default 3000 Sobol observations: the fit on a 2048-point subsample, the
+CG posterior at bucket 3072, ``EvolutionOpt``, all launched op by op): the
+warm-up suggest, ``--timed`` suggests with the optimizer's own fit and
+acquisition seconds, and one profiled suggest as above, plus the device
+time of the kernels launched inside ``pcg_solve`` (its share of the
+device time) and the number of PCG solves.
 Prints one JSON line per observation count.
 """
 
@@ -48,6 +56,7 @@ from .. import DesignSpace, HEBO
 from ..optimizers import hebo as hebo_mod
 from ..ops import chol as chol_mod
 from ..ops import chol_kernel, gram, pareto, ssk
+from ..models.gp import gp as gp_mod
 from ..optimizers.antbo import AntBOOptimizer
 from ..tasks import AbsolutTool
 from .gram_probe import device_per_call
@@ -172,6 +181,51 @@ def _k2_block(by_name, calls, bucket) -> dict:
     return block
 
 
+def profile_large_n(n_obs: int, n_timed: int = 3) -> dict:
+    """HEBO's generic route (subsampled fit, CG posterior) at ``n_obs``
+    Sobol observations of Ackley-6D."""
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = HEBO(space, device="cuda")
+    warm = opt.quasi_sample(n_obs)
+    opt.observe(warm, _ackley(warm))
+    t0 = time.perf_counter()
+    opt.suggest(8)  # warm-up: builds/loads kernels, cuBLAS handles
+    first_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(n_timed):
+        t0 = time.perf_counter()
+        opt.suggest(8)
+        walls.append(time.perf_counter() - t0)
+    saved, pcg_calls = gp_mod.pcg_solve, []
+
+    def pcg(*a, **k):
+        pcg_calls.append(1)
+        with torch.profiler.record_function("pcg_solve"):
+            return saved(*a, **k)
+
+    gp_mod.pcg_solve = pcg
+    calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+    try:
+        prof = _device_profile(lambda: opt.suggest(8))
+    finally:
+        gp_mod.pcg_solve = saved
+    by_name = prof.pop("by_name")
+    pcg_ms = prof.pop("range_device_ms").get("pcg_solve", 0.0)
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    model = opt.model
+    return {"n_obs": n_obs, "fit_bucket": int(model.fit_data.X.shape[0]),
+            "bucket": int(model.data.X.shape[0]), "path": "generic",
+            "device": torch.cuda.get_device_name(0), "first_s": first_s, "s_per_suggest": walls,
+            "s_median": float(np.median(walls)) if walls else None,
+            "fit_s": opt.fit_time[-n_timed - 1:-1], "acq_s": opt.acq_time[-n_timed - 1:-1],
+            "cg_residual": float(model.caches.res.max()), **prof,
+            "pcg_solves": len(pcg_calls), "pcg_device_ms": pcg_ms,
+            "pcg_share_of_device": pcg_ms * 1e-3 / max(prof["device_kernel_s"], 1e-12),
+            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "k2": _k2_block(by_name, calls, int(model.fit_data.X.shape[0]))}
+
+
 def profile_antbo(n_obs: int) -> dict:
     opt = AntBOOptimizer(seq_len=11, kernel="ssk", device="cuda")
     tool = AbsolutTool("1H0D_C", seq_len=11)
@@ -189,6 +243,9 @@ def profile_antbo(n_obs: int) -> dict:
             "device": torch.cuda.get_device_name(0), **phases, **prof}
 
 
+_RANGES = ("pcg_solve",)
+
+
 def _device_profile(suggest) -> dict:
     """One suggest under torch.profiler: wall, device time, busy share,
     launches and the top kernels by device time."""
@@ -202,7 +259,9 @@ def _device_profile(suggest) -> dict:
         wall = time.perf_counter() - t0
     k1_calls = chol_kernel.chol_factor.launches - k1_calls
     k3_calls = {k: getattr(ssk, k).launches - n for k, n in k3_calls.items()}
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the device side of the user ranges (record_function)
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in _RANGES]
     api = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(("cuda", "cu")):
@@ -224,6 +283,11 @@ def _device_profile(suggest) -> dict:
         k3[mode] = {"calls": calls, "n": n, "ms": ms, "us_per_launch": 1e3 * ms / max(n, 1)}
     library = sum(n for k, (n, _) in by_name.items()
                   if any(w in k.lower() for w in ("potrf", "trsm", "trsv", "cusolver")))
+    # user ranges (record_function): device time of the kernels launched inside
+    ranges = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in _RANGES:
+            ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total * 1e-3
     return {
         "profiled_wall_s": wall, "device_kernel_s": dev_s,
         "device_busy_share": dev_s / wall, "kernel_launches": len(kern),
@@ -233,13 +297,15 @@ def _device_profile(suggest) -> dict:
         "k1_calls": k1_calls, "k1_kernels": k1,
         "k1_device_ms": sum(v["ms"] for v in k1.values()),
         "k3_kernels": k3, "k3_device_ms": sum(v["ms"] for v in k3.values()),
-        "library_linalg_launches": library, "by_name": by_name,
+        "library_linalg_launches": library, "by_name": by_name, "range_device_ms": ranges,
     }
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--antbo", action="store_true", help="profile AntBO (SSK GP) instead of HEBO")
+    ap.add_argument("--large-n", action="store_true",
+                    help="profile HEBO's generic route above max_cholesky_size (default 3000 obs)")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
                     help="observation counts (default 112 800; with --antbo 28 200)")
     ap.add_argument("--paths", nargs="+", default=["graph", "eager"], choices=["graph", "eager"],
@@ -248,7 +314,10 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
-    for n in args.obs or ([28, 200] if args.antbo else [112, 800]):
+    for n in args.obs or ([28, 200] if args.antbo else [3000] if args.large_n else [112, 800]):
+        if args.large_n:
+            print(json.dumps(profile_large_n(n, args.timed)), flush=True)
+            continue
         if args.antbo:
             print(json.dumps(profile_antbo(n)), flush=True)
             continue

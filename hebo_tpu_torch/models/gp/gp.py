@@ -22,9 +22,14 @@ logits of the match and gap decays for SSK).
 
 On CUDA the Matérn-3/2 Gram goes through kernel K2 (``ops/gram.py``), the
 SSK Gram through kernel K3 (``ops/ssk.py``) and every factorization through
-kernel K1 (``ops/chol_kernel.py``).  Buckets
-above ``max_cholesky_size`` (2048) take the JAX package's CG route, which is
-not ported yet (ROADMAP slice 7): they raise ``NotImplementedError``.
+kernel K1 (``ops/chol_kernel.py``).
+
+Above ``max_cholesky_size`` (2048) the posterior keeps all the data through
+pivoted-Cholesky-preconditioned block CG (``ops/cg.py``, gp.py:713-733 and
+:773-785), and ``GP.fit`` infers the hyperparameters on a subsample of
+``max_cholesky_size`` points (gp.py:1076-1103).  The CG cache holds the
+train system ``Kt`` and the Woodbury factor, made once per fitted state,
+so an acquisition evaluation runs one Gram (N, P) and one PCG.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...ops.chol import LADDER, batched_ladder_factor, make_masked_nll_batched
+from ...ops.cg import pcg_solve, pivoted_cholesky, woodbury_factor, woodbury_precond_apply
+from ...ops.chol import LADDER, batched_ladder_factor, chol_solve, make_masked_nll_batched, safe_cholesky
 from ...ops.gram import matern32_gram
 from ...ops.ssk import ssk_gram
 from ...utils.device import resolve_device
@@ -72,22 +78,20 @@ class GPData(NamedTuple):
 
 
 class GPCache(NamedTuple):
-    """Posterior caches per ensemble sample: L, α and W = L⁻¹."""
+    """Posterior caches per ensemble sample: L, α and W = L⁻¹; on the CG
+    route L is the (N, k) pivoted-Cholesky preconditioner factor, with the
+    train system, the Woodbury factor and the solve's relative residual."""
 
-    L: torch.Tensor  # (S, Nmax, Nmax)
+    L: torch.Tensor  # (S, Nmax, Nmax), or (S, Nmax, cg_rank) on the CG route
     alpha: torch.Tensor  # (S, Nmax, 1)
     ok: torch.Tensor  # (S,) bool
     Wf: Optional[torch.Tensor] = None  # (S, Nmax, Nmax)
+    Kt: Optional[torch.Tensor] = None  # (S, Nmax, Nmax) CG: the train system
+    Q: Optional[torch.Tensor] = None  # (S, Nmax, cg_rank) CG: the Woodbury factor
+    res: Optional[torch.Tensor] = None  # (S,) CG: relative residual of α
 
 
 _CAT_KERNELS = ("embedding", "overlap", "transformed_overlap", "ssk")
-
-
-def _slice7(n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"bucket {n} is above max_cholesky_size: the large-N CG route is "
-        "ROADMAP slice 7 and not ported yet"
-    )
 
 
 class GPCore:
@@ -109,6 +113,8 @@ class GPCore:
         psgld_burnin_frac: float = 0.5,
         n_ensemble: int = 1,
         max_cholesky_size: int = 2048,
+        cg_rank: int = 128,
+        cg_iters: int = 96,
     ):
         if kernel != "matern32":
             raise NotImplementedError(f"kernel {kernel!r}: only matern32 is ported")
@@ -141,8 +147,14 @@ class GPCore:
         self.ssk_max_subseq = int(ssk_max_subseq)
         self.n_feat_dims = self.d_num + n_cat_feat
         self.d_feat = self.n_feat_dims + self.n_cat_param
+        # above max_cholesky_size: pivoted-Cholesky-preconditioned CG
         self.max_cholesky_size = int(max_cholesky_size)
+        self.cg_rank = int(cg_rank)
+        self.cg_iters = int(cg_iters)
         self._index = {}
+
+    def _use_cg(self, n: int) -> bool:
+        return n > self.max_cholesky_size
 
     def _columns(self, device: torch.device):
         """(numeric column indices, categorical column indices, embedding
@@ -220,9 +232,6 @@ class GPCore:
 
     # ------------------------------------------------------------------ nll
     def nll_batched(self, params: GPParams, data: GPData) -> torch.Tensor:
-        n = data.X.shape[0]
-        if n > self.max_cholesky_size:
-            raise _slice7(n)
         Kt, r = self._train_system(params, data)
         n_act = data.mask.to(Kt.dtype).sum().expand(Kt.shape[0])
         return make_masked_nll_batched((0.0, 1e-3))(Kt, r, n_act)
@@ -359,12 +368,35 @@ class GPCore:
 
     # ------------------------------------------------------------ posterior
     @torch.no_grad()
+    def posterior_cache(self, samples: GPParams, data: GPData) -> GPCache:
+        """The JAX package's per-sample cache (gp.py:671-733), over the
+        sample axis: above ``max_cholesky_size`` the CG route (L is the
+        rank-``cg_rank`` preconditioner factor, α from PCG, ``ok`` when α is
+        finite and its relative residual below 0.2, since float32 CG stalls
+        near 1e-2 on small-noise systems); otherwise the dense factor of
+        ``safe_cholesky`` and ``chol_solve``."""
+        Kt, r = self._train_system(samples, data)
+        if self._use_cg(Kt.shape[-1]):
+            P = pivoted_cholesky(Kt, self.cg_rank)
+            delta = self.noise_diag(samples)
+            Q = woodbury_factor(P, delta)
+            apply = woodbury_precond_apply(P, delta, Q)
+            alpha, res = pcg_solve(lambda X: Kt @ X, r, precond_apply=apply,
+                                   n_iters=self.cg_iters)
+            res = res[:, 0]
+            ok = torch.isfinite(alpha).all(-1).all(-1) & (res < 0.2)
+            return GPCache(L=P, alpha=alpha, ok=ok, Kt=Kt, Q=Q, res=res)
+        L, ok = safe_cholesky(Kt)
+        return GPCache(L=L, alpha=chol_solve(L, r), ok=ok)
+
+    @torch.no_grad()
     def posterior_cache_batched(self, samples: GPParams, data: GPData) -> GPCache:
         """L, α and W = L⁻¹ per ensemble sample from one batched full-ladder
-        factorization (gp.py:734-761)."""
+        factorization (gp.py:734-761); above bucket 2048 or on the CG route
+        the per-sample ``posterior_cache``, as in the JAX package."""
         n = data.X.shape[0]
-        if n > self.max_cholesky_size:
-            raise _slice7(n)
+        if self._use_cg(n) or n > 2048:
+            return self.posterior_cache(samples, data)
         Kt, r = self._train_system(samples, data)
         L, W, ok = batched_ladder_factor(Kt, LADDER)
         okb = ok[:, None, None]
@@ -382,11 +414,18 @@ class GPCore:
         Ks = Ks * data.mask.to(Ks.dtype)[:, None]
         mu = params.mean[:, None, None] + Ks.transpose(-1, -2) @ cache.alpha
         kss = torch.exp(params.log_sc)[:, None]
-        if cache.Wf is not None:
-            v = cache.Wf @ Ks
+        if self._use_cg(data.X.shape[0]):
+            # the explained variance kᵀ Kt⁻¹ k from a block PCG over the P
+            # columns; Kt and the Woodbury factor come from the cache
+            Kt = cache.Kt if cache.Kt is not None else self._train_system(params, data)[0]
+            apply = woodbury_precond_apply(cache.L, self.noise_diag(params), cache.Q)
+            vsol, _ = pcg_solve(lambda X: Kt @ X, Ks, precond_apply=apply, n_iters=self.cg_iters)
+            expl = (Ks * vsol).sum(-2)
         else:
-            v = torch.linalg.solve_triangular(cache.L, Ks, upper=False)
-        var = torch.clamp(kss - (v * v).sum(-2), min=1e-10)[..., None]
+            v = cache.Wf @ Ks if cache.Wf is not None else torch.linalg.solve_triangular(
+                cache.L, Ks, upper=False)
+            expl = (v * v).sum(-2)
+        var = torch.clamp(kss - expl, min=1e-10)[..., None]
         okb = cache.ok[:, None, None]
         mu = torch.where(okb, mu, torch.zeros_like(mu))
         var = torch.where(okb, var, torch.ones_like(var))
@@ -470,6 +509,9 @@ class GP(BaseModel):
         for opt in ("input_warp", "heteroscedastic"):
             if conf.get(opt):
                 raise NotImplementedError(f"{opt} is not ported yet")
+        if conf.get("mesh") is not None:
+            raise NotImplementedError("a device mesh (block-sharded large-N posterior) is "
+                                      "ROADMAP slice 9")
         self.core = GPCore(
             numeric_dims=tuple(space.numeric_dims) + tuple(space.perm_dims),
             cat_dims=tuple(space.cat_dims),
@@ -484,6 +526,8 @@ class GP(BaseModel):
             lr=conf.get("lr", 0.05),
             n_ensemble=conf.get("n_ensemble", 1),
             max_cholesky_size=conf.get("max_cholesky_size", 2048),
+            cg_rank=conf.get("cg_rank", 128),
+            cg_iters=conf.get("cg_iters", 96),
         )
         self.n_restarts = conf.get("n_restarts", 1)
         self._seed = conf.get("seed", 0)
@@ -491,16 +535,33 @@ class GP(BaseModel):
         self.samples: Optional[GPParams] = None
         self.caches: Optional[GPCache] = None
         self.data: Optional[GPData] = None
+        self.fit_data: Optional[GPData] = None  # what the hyperparameters were fitted on
 
     def fit(self, X, y):
+        """Fit the hyperparameters and build the posterior caches.  Above
+        ``max_cholesky_size`` (gp.py:1076-1103) the hyperparameters are
+        fitted on a random subsample of ``max_cholesky_size`` valid points,
+        in that subsample's own y and x normalization, and the CG cache is
+        built on all the data, in the full data's normalization, as in the
+        JAX package.  (The JAX package also builds a dense cache of the
+        subsample and drops it; that is not done here.)"""
         n_pad = pad_bucket(max(len(X), 2))
-        if n_pad > self.core.max_cholesky_size:
-            raise _slice7(n_pad)
-        self.data = make_data(X, y, self.core.numeric_dims, n_pad, self.device)
+        nd = self.core.numeric_dims
+        self.data = make_data(X, y, nd, n_pad, self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._seed)
         self._seed += 1
-        self.params, self.samples = map_fit(self.core, self.data, self.n_restarts, gen)
+        mcs = self.core.max_cholesky_size
+        self.fit_data = self.data
+        if n_pad > mcs:
+            Xa = np.asarray(X, np.float32)
+            ya = np.asarray(y, np.float32).reshape(len(X), -1)[:, :1]
+            ok = np.isfinite(ya[:, 0]) & np.all(np.isfinite(Xa), axis=1)
+            Xv, yv = Xa[ok], ya[ok]
+            ksub = min(len(Xv), mcs)
+            idx = np.random.default_rng(self._seed).choice(len(Xv), size=ksub, replace=False)
+            self.fit_data = make_data(Xv[idx], yv[idx], nd, pad_bucket(max(ksub, 2)), self.device)
+        self.params, self.samples = map_fit(self.core, self.fit_data, self.n_restarts, gen)
         self.caches = self.core.posterior_cache_batched(self.samples, self.data)
         return self
 

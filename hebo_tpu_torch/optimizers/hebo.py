@@ -18,6 +18,13 @@ drawn before the program runs, from one ``torch.Generator`` on the device
 seeded by the observation count, so the graph, the eager path
 (``_use_graphs = False``, kept for comparison) and the CPU give the same
 suggestions from the same draws.
+
+Every other suggest takes the generic route (hebo.py:126-173): a model
+other than a MAP GP, or a bucket above the GP's ``max_cholesky_size``,
+where ``GP.fit`` fits on a subsample and the posterior runs through CG.  It
+fits the model, takes the incumbent's posterior mean and runs
+``EvolutionOpt`` with MACE's z drawn from a generator seeded by the
+observation count, all launched op by op.
 """
 
 from __future__ import annotations
@@ -30,10 +37,11 @@ import numpy as np
 import pandas as pd
 import torch
 
-from ..acq_optimizers.evolution import GenDraws, MetaTensors, _space_meta, evolve_raw, meta_tensors
+from ..acq_optimizers.evolution import (EvolutionOpt, GenDraws, MetaTensors, _space_meta,
+                                        evolve_raw, meta_tensors)
 from ..acquisitions.acq import MACE, AcqParams
 from ..models import get_model
-from ..models.gp.gp import GPData, map_fit
+from ..models.gp.gp import GP, GPData, map_fit
 from ..ops.chol_kernel import chol_factor, chol_winv
 from ..ops.gram import matern32_gram, matern32_gram_vjp
 from ..ops.pareto import nsga2_rank_crowd
@@ -56,6 +64,7 @@ class HEBO(AbstractOptimizer):
         model_name: str = "gp",
         rand_sample: Optional[int] = None,
         acq_cls=MACE,
+        es: str = "nsga2",
         model_config: Optional[dict] = None,
         csv_save_path: Optional[str] = None,
         scramble_seed: int = 0,
@@ -65,18 +74,22 @@ class HEBO(AbstractOptimizer):
     ):
         super().__init__(space, csv_save_path)
         if model_name != "gp":
-            raise NotImplementedError(f"model {model_name!r}: only 'gp' is ported")
+            raise NotImplementedError(
+                f"model {model_name!r}: only 'gp' is ported (the other surrogates are ROADMAP slice 13)")
         self.device = resolve_device(device)
         self.model_name = model_name
         self.rand_sample = rand_sample if rand_sample is not None else 1 + space.num_cols
         self.acq_cls = acq_cls
-        self.model_config = {"num_epochs": 50, "n_restarts": 2, **(model_config or {})}
+        self.es = es
+        defaults = {"num_epochs": 50, "n_restarts": 2} if model_name == "gp" else {}
+        self.model_config = {**defaults, **(model_config or {})}
         self.scramble_seed = scramble_seed
         self.pop = pop
         self.iters = iters
         self._sobol_count = 0
         self.model = None
         self._acq = None
+        self._evo = None
         self._use_graphs = True  # False: the eager CUDA path, for comparison
         self._graphs: dict = {}
 
@@ -114,7 +127,12 @@ class HEBO(AbstractOptimizer):
             2.0 * upsi * ((2.0 + D / 2.0) * math.log(max(t, 1))
                           + math.log(3 * math.pi ** 2 / (3 * delta)))
         )
-        pop_X, pop_F, mu_pop, var_pop = self._fused_suggest(Xv, yt, kappa, fix_input)
+        use_fused = (isinstance(self.model, GP)
+                     and pad_bucket(max(len(Xv), 2)) <= self.model.core.max_cholesky_size)
+        if use_fused:
+            pop_X, pop_F, mu_pop, var_pop = self._fused_suggest(Xv, yt, kappa, fix_input)
+        else:
+            pop_X, pop_F, mu_pop, var_pop = self._generic_suggest(Xv, yt, kappa, fix_input)
 
         # dedupe vs history + within the population
         hist = {tuple(np.round(r, 6)) for r in X}
@@ -144,6 +162,34 @@ class HEBO(AbstractOptimizer):
             df[k] = v
         return df
 
+    def _generic_suggest(self, Xv, yt, kappa, fix_input):
+        """``model.fit``, the incumbent, ``EvolutionOpt`` and the
+        population's posterior, op by op (hebo.py:146-173)."""
+        model, dev = self.model, self.device
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        t0 = time.time()
+        model.fit(Xv, yt)
+        sync()
+        self.fit_time.append(time.time() - t0)
+        best_id = int(np.argmin(yt[:, 0]))
+        py, _ = model.predict(Xv[best_id : best_id + 1])
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(self.num_obs % (1 << 30))
+        z = torch.randn((self.pop, 1), generator=gen, device=dev)
+        params = AcqParams(tau=float(py[0, 0]), kappa=kappa, eps=1e-4,
+                           noise=float(np.sqrt(model.noise[0])), z=z)
+        t0 = time.time()
+        if self._evo is None:
+            self._evo = EvolutionOpt(self.space, self._acq, pop=self.pop, iters=self.iters,
+                                     es=self.es)
+        self._evo.acq = self._acq
+        pop_X, pop_F = self._evo.optimize(model=model, acq_params=params,
+                                          initial_suggest=Xv[best_id : best_id + 1],
+                                          fix_input=fix_input, return_pop=True, seed=self.num_obs)
+        self.acq_time.append(time.time() - t0)
+        mu_pop, var_pop = model.predict(pop_X)
+        return pop_X, pop_F, mu_pop, var_pop
+
     # ------------------------------------------------------- fused suggest
     def _suggest_inputs(self, Xv, yt, kappa, fix_input):
         """Host side of one suggest: the bucket, the column metadata and
@@ -153,11 +199,6 @@ class HEBO(AbstractOptimizer):
         init_pop (pop, D)]."""
         space = self.space
         n_pad = pad_bucket(max(len(Xv), 2))
-        if n_pad > self.model.core.max_cholesky_size:
-            raise NotImplementedError(
-                f"bucket {n_pad} is above max_cholesky_size: the large-N route "
-                "(subsampled fit + CG posterior) is ROADMAP slice 7 and not ported yet"
-            )
         meta = _space_meta(space, fix_input)
         init_pop = space.sobol_sample_opt(self.pop, seed=self.num_obs).astype(np.float32)
         for name, val in (fix_input or {}).items():

@@ -134,3 +134,49 @@ def test_nsga2_generations_with_fed_draws(fix):
             & (Xt <= torch.as_tensor(ts.opt_ub, dtype=torch.float32))).all()
     if fix:
         assert (Xt[:, 2] == 4.0).all()
+
+
+class _Bowl:
+    """A model whose posterior is a fixed function of X, in either package."""
+
+    device = "cpu"
+    state = None
+
+    def __init__(self, xp, D):
+        self.xp, self.w = xp, xp.ones((D, 1)) if xp is torch else jnp.ones((D, 1))
+
+    def predict_pure(self, state, X):
+        return ((X - 0.3) ** 2) @ self.w, 0.05 + 0.1 * X[:, :1] ** 2
+
+
+@pytest.mark.parametrize("fix", [None, {"k": 4}])
+def test_evolution_opt_with_fed_draws(fix):
+    """``EvolutionOpt.optimize`` (Sobol X0 at ``seed``, the incumbent in
+    row 0, the ``fix_input`` columns) with MACE on a fixed surrogate, the
+    JAX package's draws fed through ``draws=``: the same population and
+    objectives (1e-5), rounded by the space."""
+    from hebo_tpu.acq_optimizers.evolution import EvolutionOpt as JEvo
+    from hebo_tpu_torch.acq_optimizers import EvolutionOpt
+
+    js, ts = JSpace(SPACE), DesignSpace(SPACE)
+    P, D, iters, seed = 16, ts.num_cols, 3, 5
+    inc = ts.sobol_sample_opt(1, seed=9)
+    jx, jf = JEvo(js, jacq.MACE(), pop=P, iters=iters).optimize(
+        model=_Bowl(jnp, D), acq_params=jacq.AcqParams(tau=jnp.float32(0.5), kappa=jnp.float32(2.0)),
+        initial_suggest=inc, fix_input=fix, return_pop=True, seed=seed)
+    draws = _jax_draws(jax.random.PRNGKey(seed), iters, P, D)
+    evo = EvolutionOpt(ts, tacq.MACE(), pop=P, iters=iters)
+    assert evo.es == "nsga2" and EvolutionOpt(ts, tacq.LCB()).es == "ga"
+    tx, tf = evo.optimize(model=_Bowl(torch, D), acq_params=tacq.AcqParams(tau=0.5, kappa=2.0),
+                          initial_suggest=inc, fix_input=fix, return_pop=True, seed=seed,
+                          draws=lambda g: draws[g])
+    np.testing.assert_allclose(tx, jx, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tf, jf, rtol=1e-5, atol=1e-5)
+    assert np.array_equal(tx, ts.round_opt(tx))
+    if fix:
+        assert (tx[:, 2] == 4.0).all()
+    # the best point alone, from the generator seeded at ``seed``
+    best = evo.optimize(model=_Bowl(torch, D), initial_suggest=inc, seed=seed)
+    assert best.shape == (1, D) and np.isfinite(best).all()
+    with pytest.raises(ValueError, match="es"):
+        EvolutionOpt(ts, tacq.MACE(), es="cmaes")

@@ -16,7 +16,10 @@ and crowding) exactly: the same ranks and the same crowding bits as its plain
 version, NaN where NaN.  K1 with the ladder's jitter and skip: the same bits
 as the ladder that adds the jitter before K1 and decides on the host.  HEBO's
 suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
-at a seed, and a replay that makes no host sync.
+at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
+the CG posterior against the dense K1 posterior at N = 2048 with
+tests/test_cg.py's tolerances (μ 2e-2, σ² 5e-2 relative), a PCG solve and a
+CG predict that make no host sync, TF32 off, and a valid large-N suggest.
 """
 
 import numpy as np
@@ -423,3 +426,90 @@ def test_hebo_graph_suggest_equals_eager_and_never_syncs(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out).all()
     assert all(w.launches > counts[w] for w in COUNTED)
+
+
+def _gp_2048(cuda):
+    """tests/test_cg.py's setup at N = 2048: a dense GP fitted on the card,
+    and its samples' posterior rebuilt through CG (max_cholesky_size 1024)."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.models.gp.gp import GP
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -3.0, "ub": 3.0} for i in range(4)])
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-3, 3, (2048, 4)).astype(np.float32)
+    y = (np.sin(X[:, :1]) + 0.1 * X[:, 1:2] ** 2).astype(np.float32)
+    kw = dict(num_epochs=15, n_restarts=1, seed=7)
+    dense = GP(space, device="cuda", **kw).fit(X, y)
+    cg = GP(space, device="cuda", max_cholesky_size=1024, cg_rank=96, cg_iters=128, **kw)
+    cg.data, cg.samples, cg.params = dense.data, dense.samples, dense.params
+    cg.caches = cg.core.posterior_cache_batched(dense.samples, dense.data)
+    return dense, cg, rng.uniform(-3, 3, (100, 4)).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_cg_posterior_matches_dense_on_card(cuda):
+    """CG (pivoted-Cholesky preconditioner, block PCG) against the dense K1
+    posterior of the same samples at N = 2048, with tests/test_cg.py's
+    tolerances: μ rtol / atol 2e-2, σ² rtol 5e-2 / atol 2e-2."""
+    dense, cg, Xq = _gp_2048(cuda)
+    assert dense.caches.Wf is not None and cg.caches.Kt is not None
+    assert bool(cg.caches.ok.all()) and float(cg.caches.res.max()) < 0.2
+    mu_d, v_d = dense.predict(Xq)
+    mu_c, v_c = cg.predict(Xq)
+    np.testing.assert_allclose(mu_c, mu_d, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(v_c, v_d, rtol=5e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cg_path_never_syncs_and_runs_without_tf32(cuda):
+    """One ``pcg_solve`` and one CG ``predict_scaled`` under
+    ``set_sync_debug_mode("error")``: the fixed-count loop reads nothing on
+    the host.  TF32 is off on this path (the GP's device set it), and
+    ``pcg_solve`` refuses to run with it on."""
+    from hebo_tpu_torch.ops.cg import pcg_solve, woodbury_precond_apply
+
+    _, cg, Xq = _gp_2048(cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    core, data, samples, cache = cg.core, cg.data, cg.samples, cg.caches
+    Xs = torch.as_tensor(Xq, device=cuda)
+    B = torch.randn((1, 2048, 100), device=cuda)
+    apply = woodbury_precond_apply(cache.L, core.noise_diag(samples), cache.Q)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        X, res = pcg_solve(lambda V: cache.Kt @ V, B, precond_apply=apply, n_iters=32)
+        with torch.no_grad():
+            mu, var = core.predict_scaled(samples, cache, data, Xs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(X).all() and torch.isfinite(mu).all() and (var > 0).all()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            pcg_solve(lambda V: cache.Kt @ V, B, n_iters=1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+def test_hebo_large_n_suggest_on_card(cuda):
+    """HEBO at full defaults with 3000 Sobol observations: the generic route
+    (fit on a 2048-point subsample, CG posterior at bucket 3072, no fused
+    graph) gives a finite batch of 8 inside the box, new against the
+    history."""
+    from hebo_tpu_torch import HEBO, DesignSpace
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = HEBO(space, device="cuda")
+    warm = opt.quasi_sample(3000)
+    opt.observe(warm, _ackley(warm))
+    rec = opt.suggest(8)
+    X = space.transform(rec)
+    assert len(rec) == 8 and np.isfinite(X).all()
+    assert (X >= space.opt_lb).all() and (X <= space.opt_ub).all()
+    hist = {tuple(np.round(r, 6)) for r in space.transform(opt.X)}
+    assert not ({tuple(np.round(r, 6)) for r in X} & hist)
+    assert not opt._graphs and opt.model.caches.Kt is not None
+    assert opt.model.fit_data.X.shape[0] == 2048 and opt.model.data.X.shape[0] == 3072
+    assert bool(opt.model.caches.ok.all()) and float(opt.model.caches.res.max()) < 0.2

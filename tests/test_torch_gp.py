@@ -279,8 +279,35 @@ def test_posterior_cache_and_predict_ensemble():
 
 
 def test_large_bucket_names_the_cg_slice():
-    _, tcore = _cores()
-    td = make_data(np.zeros((3, 4)), np.zeros(3), (0, 1, 2), 2304, "cpu")
-    p = GPParams(*(torch.zeros((1,) + s) for s in [(3 + tcore.emb_dim,), (), (), (), (3, tcore.emb_dim), (3,), (3,)]))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tcore.posterior_cache_batched(p, td)
+    """Bucket 2304 is above the default max_cholesky_size (2048): the cache
+    takes the CG route (rank 128, 96 iterations), held against hebo_tpu.
+    40 real rows: the preconditioner takes them, then the padded identity
+    rows in index order (their diagonals tie at 1).  P and the pivots
+    within 1e-5 of the JAX package's factor of the same Kt; α and the
+    predictions, from a converged solve, rtol 1e-3 (tests/test_torch_cg.py)."""
+    from hebo_tpu.ops import cg as jcg
+
+    jcore, tcore = _cores()
+    rng = np.random.default_rng(8)
+    X = np.concatenate([rng.uniform(-1, 2, (40, 3)), rng.integers(0, 3, (40, 1))], 1)
+    y = (np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2).astype(np.float32)
+    jd = _make_data(X, y, (0, 1, 2), 2304)
+    td = make_data(X, y, (0, 1, 2), 2304, "cpu")
+    E = tcore.emb_dim
+    p = GPParams(*(torch.zeros((1,) + s) for s in [(3 + E,), (), (), (), (3, E), (3,), (3,)]))
+    pj = jax.tree.map(lambda t: jnp.asarray(t.numpy()), p)
+    cj = jax.jit(jax.vmap(lambda q: jcore.posterior_cache(q, jd)))(pj)
+    ct = tcore.posterior_cache_batched(p, td)
+    assert ct.L.shape == (1, 2304, 128) and ct.Kt.shape == (1, 2304, 2304)
+    assert bool(ct.ok.all()) and bool(np.asarray(cj.ok).all()) and float(ct.res[0]) <= 1e-4
+    Pj = np.asarray(jcg.pivoted_cholesky(jnp.asarray(ct.Kt[0].numpy()), 128))
+    np.testing.assert_allclose(ct.L[0].numpy(), Pj, rtol=0, atol=1e-5)
+    piv = np.argmax(np.abs(ct.L[0].numpy()), axis=0)  # each column's largest entry is its pivot
+    np.testing.assert_array_equal(np.sort(piv[:40]), np.arange(40))
+    np.testing.assert_array_equal(piv[40:], np.arange(40, 128))
+    rel = lambda a, b: np.abs(a - np.asarray(b)).max() / np.abs(np.asarray(b)).max()
+    assert rel(ct.alpha.numpy(), cj.alpha) <= 1e-3
+    Xs = np.concatenate([rng.uniform(-1, 2, (9, 3)), rng.integers(0, 3, (9, 1))], 1).astype(np.float32)
+    muj, varj = jax.jit(jcore.predict_ensemble)(pj, cj, jd, jnp.asarray(Xs))
+    mu, var = tcore.predict_ensemble(p, ct, td, torch.as_tensor(Xs))
+    assert rel(mu.numpy(), muj) <= 1e-3 and rel(var.numpy(), varj) <= 1e-3

@@ -9,7 +9,6 @@ de-duplicated against the history.
 
 import numpy as np
 import pandas as pd
-import pytest
 
 from hebo_tpu.design_space import DesignSpace as JSpace
 from hebo_tpu.optimizers.hebo import HEBO as JHEBO
@@ -66,7 +65,6 @@ def test_two_model_rounds_give_valid_batches():
 
 def test_gp_wrapper_fit_predict():
     space = DesignSpace(SPECS)
-    rng = np.random.default_rng(0)
     X = space.transform(space.sample(20, seed=1))
     y = _f(space.inverse_transform(X))
     gp = GP(space, device="cpu", num_epochs=8, n_restarts=2)
@@ -76,8 +74,24 @@ def test_gp_wrapper_fit_predict():
     assert np.isfinite(mu).all() and (var > 0).all()
     # interpolates its training data far better than the prior spread
     assert np.abs(mu - y[:5]).mean() < y.std()
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        gp.fit(rng.uniform(size=(2100, X.shape[1])), rng.standard_normal(2100))
+    # above max_cholesky_size (16): the hyperparameters are fitted on the
+    # same 16-row subsample as hebo_tpu's, the CG posterior keeps all 20 rows
+    from hebo_tpu.models.gp.gp import GP as JGP
+
+    conf = dict(num_epochs=8, n_restarts=2, max_cholesky_size=16, cg_rank=16, cg_iters=32)
+    jgp, seen = JGP(JSpace(SPECS), **conf), {}
+    big_fit = jgp._get_fit_fn_big
+    jgp._get_fit_fn_big = lambda kp: (
+        lambda key, fit, full: big_fit(kp)(key, seen.setdefault("fit", fit), full))
+    jgp.fit(X, y)
+    big = GP(space, device="cpu", **conf).fit(X, y)
+    assert big.fit_data.X.shape[0] == 16 and big.data.X.shape[0] == 32
+    for name in ("X", "y", "mask", "x_lb", "x_span"):
+        np.testing.assert_array_equal(getattr(big.fit_data, name).numpy(),
+                                      np.asarray(getattr(seen["fit"], name)))
+    mu, var = big.predict(X[:5])
+    assert np.isfinite(mu).all() and (var > 0).all() and big.caches.Kt is not None
+    assert np.abs(mu - y[:5]).mean() < y.std()
 
 
 def test_predrawn_suggest_equals_step_by_step_draws():
@@ -162,3 +176,28 @@ def test_predrawn_suggest_equals_step_by_step_draws():
     ref = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1)
     assert torch.equal(out, ref)
     assert torch.isfinite(out).all()
+
+
+def test_generic_route_above_max_cholesky_size():
+    """``max_cholesky_size`` 64 at 100 observations (bucket 128): HEBO takes
+    the generic route (no fused program: ``model.fit`` on a 64-row
+    subsample, the CG posterior on all the data, ``EvolutionOpt``), and
+    gives valid, de-duplicated batches over two rounds."""
+    space = DesignSpace(SPECS)
+    opt = HEBO(space, device="cpu", pop=16, iters=3,
+               model_config={"num_epochs": 8, "max_cholesky_size": 64, "cg_rank": 32, "cg_iters": 48})
+    warm = space.sample(100, seed=2)
+    opt.observe(warm, _f(warm))
+    for n in (8, 4):
+        rec = opt.suggest(n)
+        X = space.transform(rec)
+        assert len(rec) == n and np.isfinite(X).all()
+        assert (X >= space.opt_lb - 1e-9).all() and (X <= space.opt_ub + 1e-9).all()
+        hist = {tuple(np.round(r, 6)) for r in space.transform(opt.X)}
+        keys = [tuple(np.round(r, 6)) for r in X]
+        assert len(set(keys[2:])) == len(keys[2:]) and not (set(keys) & hist)
+        assert opt.model.fit_data.X.shape[0] == 64 and opt.model.data.X.shape[0] == 128
+        assert opt.model.caches.Kt is not None and bool(opt.model.caches.ok.all())
+        assert opt._evo is not None and opt._evo.es == "nsga2"
+        opt.observe(rec, _f(rec))
+    assert len(opt.fit_time) == len(opt.acq_time) == 2 and opt.num_obs == 112
