@@ -193,21 +193,16 @@ def evolve_raw(
 
 
 class EvolutionOpt:
-    """The reference ``EvolutionOpt`` API over ``evolve_raw``.
-
-    ``es`` ('nsga2' | 'ga') is accepted as in the JAX package, which infers
-    the mode from the acquisition's objective count: with one objective the
+    """The reference ``EvolutionOpt`` API over ``evolve_raw``.  ``es`` is
+    accepted and ignored, as in the JAX package: with one objective the
     rank is constant and the tournament and survival order by crowding
     alone.  The loop runs on the model's device."""
 
     def __init__(self, space, acq, pop: int = 100, iters: int = 100, es: Optional[str] = None):
-        if es not in (None, "nsga2", "ga"):
-            raise ValueError(f"es {es!r}: expected 'nsga2' or 'ga'")
         self.space = space
         self.acq = acq
         self.pop = pop
         self.iters = iters
-        self.es = es if es is not None else ("nsga2" if acq.num_obj > 1 else "ga")
 
     def optimize(self, model=None, acq_params: Optional[AcqParams] = None,
                  initial_suggest: Optional[np.ndarray] = None, fix_input: Optional[dict] = None,

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from ...ops.cg import pcg_solve, pivoted_cholesky, woodbury_factor, woodbury_precond_apply
-from ...ops.chol import LADDER, batched_ladder_factor, chol_solve, make_masked_nll_batched, safe_cholesky
+from ...ops.chol import LADDER, batched_ladder_factor, make_masked_nll_batched
 from ...ops.gram import matern32_gram
 from ...ops.ssk import ssk_gram
 from ...utils.device import resolve_device
@@ -369,33 +369,33 @@ class GPCore:
     # ------------------------------------------------------------ posterior
     @torch.no_grad()
     def posterior_cache(self, samples: GPParams, data: GPData) -> GPCache:
-        """The JAX package's per-sample cache (gp.py:671-733), over the
-        sample axis: above ``max_cholesky_size`` the CG route (L is the
-        rank-``cg_rank`` preconditioner factor, α from PCG, ``ok`` when α is
-        finite and its relative residual below 0.2, since float32 CG stalls
-        near 1e-2 on small-noise systems); otherwise the dense factor of
-        ``safe_cholesky`` and ``chol_solve``."""
+        """The JAX package's CG cache (gp.py:713-733), over the sample axis:
+        L is the rank-``cg_rank`` preconditioner factor, α comes from PCG,
+        and ``ok`` holds when α is finite and its relative residual is below
+        0.2, since float32 CG stalls near 1e-2 on small-noise systems.  The
+        cache keeps the train system Kt and the Woodbury factor Q for the
+        predictions."""
         Kt, r = self._train_system(samples, data)
-        if self._use_cg(Kt.shape[-1]):
-            P = pivoted_cholesky(Kt, self.cg_rank)
-            delta = self.noise_diag(samples)
-            Q = woodbury_factor(P, delta)
-            apply = woodbury_precond_apply(P, delta, Q)
-            alpha, res = pcg_solve(lambda X: Kt @ X, r, precond_apply=apply,
-                                   n_iters=self.cg_iters)
-            res = res[:, 0]
-            ok = torch.isfinite(alpha).all(-1).all(-1) & (res < 0.2)
-            return GPCache(L=P, alpha=alpha, ok=ok, Kt=Kt, Q=Q, res=res)
-        L, ok = safe_cholesky(Kt)
-        return GPCache(L=L, alpha=chol_solve(L, r), ok=ok)
+        P = pivoted_cholesky(Kt, self.cg_rank)
+        delta = self.noise_diag(samples)
+        Q = woodbury_factor(P, delta)
+        apply = woodbury_precond_apply(P, delta, Q)
+        alpha, res = pcg_solve(lambda X: Kt @ X, r, precond_apply=apply,
+                               n_iters=self.cg_iters)
+        res = res[:, 0]
+        ok = torch.isfinite(alpha).all(-1).all(-1) & (res < 0.2)
+        return GPCache(L=P, alpha=alpha, ok=ok, Kt=Kt, Q=Q, res=res)
 
     @torch.no_grad()
     def posterior_cache_batched(self, samples: GPParams, data: GPData) -> GPCache:
         """L, α and W = L⁻¹ per ensemble sample from one batched full-ladder
-        factorization (gp.py:734-761); above bucket 2048 or on the CG route
-        the per-sample ``posterior_cache``, as in the JAX package."""
+        factorization (gp.py:734-761); above ``max_cholesky_size`` the CG
+        ``posterior_cache``.  Between bucket 2048 and ``max_cholesky_size``
+        the JAX package factors each sample densely (gp.py:746), since its
+        slab kernel stops at 2048; kernel K1 takes any N, so every bucket up
+        to ``max_cholesky_size`` runs the same ladder here."""
         n = data.X.shape[0]
-        if self._use_cg(n) or n > 2048:
+        if self._use_cg(n):
             return self.posterior_cache(samples, data)
         Kt, r = self._train_system(samples, data)
         L, W, ok = batched_ladder_factor(Kt, LADDER)
@@ -417,9 +417,11 @@ class GPCore:
         if self._use_cg(data.X.shape[0]):
             # the explained variance kᵀ Kt⁻¹ k from a block PCG over the P
             # columns; Kt and the Woodbury factor come from the cache
-            Kt = cache.Kt if cache.Kt is not None else self._train_system(params, data)[0]
+            if cache.Kt is None or cache.Q is None:
+                raise ValueError("predict_scaled: a CG cache needs its Kt and Q (posterior_cache)")
             apply = woodbury_precond_apply(cache.L, self.noise_diag(params), cache.Q)
-            vsol, _ = pcg_solve(lambda X: Kt @ X, Ks, precond_apply=apply, n_iters=self.cg_iters)
+            vsol, _ = pcg_solve(lambda X: cache.Kt @ X, Ks, precond_apply=apply,
+                                n_iters=self.cg_iters)
             expl = (Ks * vsol).sum(-2)
         else:
             v = cache.Wf @ Ks if cache.Wf is not None else torch.linalg.solve_triangular(

@@ -73,12 +73,10 @@ def woodbury_factor(P: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return P @ W.transpose(-1, -2)
 
 
-def woodbury_precond_apply(P: torch.Tensor, delta: torch.Tensor,
-                           Q: Optional[torch.Tensor] = None):
+def woodbury_precond_apply(P: torch.Tensor, delta: torch.Tensor, Q: torch.Tensor):
     """``apply(B) = (P Pᵀ + δ I)⁻¹ B`` for B (S, N, R), per sample:
-    ``(B − P (δ I + PᵀP)⁻¹ Pᵀ B) / δ = (B − Q (Qᵀ B)) / δ`` (cg.py:63-76).
-    ``Q`` is ``woodbury_factor(P, delta)``, made here when not given."""
-    Q = woodbury_factor(P, delta) if Q is None else Q
+    ``(B − P (δ I + PᵀP)⁻¹ Pᵀ B) / δ = (B − Q (Qᵀ B)) / δ`` (cg.py:63-76),
+    with ``Q = woodbury_factor(P, delta)``."""
     Qt = Q.transpose(-1, -2)
     d = delta[:, None, None]
 

@@ -64,7 +64,7 @@ class HEBO(AbstractOptimizer):
         model_name: str = "gp",
         rand_sample: Optional[int] = None,
         acq_cls=MACE,
-        es: str = "nsga2",
+        es: str = "nsga2",  # accepted and ignored, as in the JAX package
         model_config: Optional[dict] = None,
         csv_save_path: Optional[str] = None,
         scramble_seed: int = 0,
@@ -80,7 +80,6 @@ class HEBO(AbstractOptimizer):
         self.model_name = model_name
         self.rand_sample = rand_sample if rand_sample is not None else 1 + space.num_cols
         self.acq_cls = acq_cls
-        self.es = es
         defaults = {"num_epochs": 50, "n_restarts": 2} if model_name == "gp" else {}
         self.model_config = {**defaults, **(model_config or {})}
         self.scramble_seed = scramble_seed
@@ -89,7 +88,6 @@ class HEBO(AbstractOptimizer):
         self._sobol_count = 0
         self.model = None
         self._acq = None
-        self._evo = None
         self._use_graphs = True  # False: the eager CUDA path, for comparison
         self._graphs: dict = {}
 
@@ -179,13 +177,10 @@ class HEBO(AbstractOptimizer):
         params = AcqParams(tau=float(py[0, 0]), kappa=kappa, eps=1e-4,
                            noise=float(np.sqrt(model.noise[0])), z=z)
         t0 = time.time()
-        if self._evo is None:
-            self._evo = EvolutionOpt(self.space, self._acq, pop=self.pop, iters=self.iters,
-                                     es=self.es)
-        self._evo.acq = self._acq
-        pop_X, pop_F = self._evo.optimize(model=model, acq_params=params,
-                                          initial_suggest=Xv[best_id : best_id + 1],
-                                          fix_input=fix_input, return_pop=True, seed=self.num_obs)
+        evo = EvolutionOpt(self.space, self._acq, pop=self.pop, iters=self.iters)
+        pop_X, pop_F = evo.optimize(model=model, acq_params=params,
+                                    initial_suggest=Xv[best_id : best_id + 1],
+                                    fix_input=fix_input, return_pop=True, seed=self.num_obs)
         self.acq_time.append(time.time() - t0)
         mu_pop, var_pop = model.predict(pop_X)
         return pop_X, pop_F, mu_pop, var_pop

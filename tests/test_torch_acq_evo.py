@@ -166,7 +166,6 @@ def test_evolution_opt_with_fed_draws(fix):
         initial_suggest=inc, fix_input=fix, return_pop=True, seed=seed)
     draws = _jax_draws(jax.random.PRNGKey(seed), iters, P, D)
     evo = EvolutionOpt(ts, tacq.MACE(), pop=P, iters=iters)
-    assert evo.es == "nsga2" and EvolutionOpt(ts, tacq.LCB()).es == "ga"
     tx, tf = evo.optimize(model=_Bowl(torch, D), acq_params=tacq.AcqParams(tau=0.5, kappa=2.0),
                           initial_suggest=inc, fix_input=fix, return_pop=True, seed=seed,
                           draws=lambda g: draws[g])
@@ -178,5 +177,3 @@ def test_evolution_opt_with_fed_draws(fix):
     # the best point alone, from the generator seeded at ``seed``
     best = evo.optimize(model=_Bowl(torch, D), initial_suggest=inc, seed=seed)
     assert best.shape == (1, D) and np.isfinite(best).all()
-    with pytest.raises(ValueError, match="es"):
-        EvolutionOpt(ts, tacq.MACE(), es="cmaes")

@@ -144,7 +144,7 @@ def test_gram_tile_rows_at_the_edges(cuda, rows, edge):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N", [(2, 128), (2, 1024), (1, 1024), (2, 2048), (2, 40), (1, 384),
-                                 (1, 32), (1, 256), (1, 1000), (3, 384)])
+                                 (1, 32), (1, 256), (1, 1000), (3, 384), (2, 2304), (2, 3072)])
 def test_chol_kernel_on_card(cuda, B, N):
     rng = np.random.default_rng(6)
     K = torch.as_tensor(_spd(rng, B, N), device=cuda)
@@ -458,6 +458,54 @@ def test_cg_posterior_matches_dense_on_card(cuda):
     mu_c, v_c = cg.predict(Xq)
     np.testing.assert_allclose(mu_c, mu_d, rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(v_c, v_d, rtol=5e-2, atol=2e-2)
+    # that atol is the size of σ² itself here: the converged solve also
+    # within 1e-3 of the largest |μ| and 1e-2 of the largest σ²
+    assert np.abs(mu_c - mu_d).max() <= 1e-3 * np.abs(mu_d).max()
+    assert np.abs(v_c - v_d).max() <= 1e-2 * v_d.max()
+
+
+@pytest.mark.gpu
+def test_posterior_ladder_above_bucket_2048_on_card(cuda):
+    """max_cholesky_size 4096 at N = 2300 (bucket 2304): the fit and the
+    posterior run the K1 ladder.  α, μ and σ² of the card's cache and of
+    the plain version's cache on the CPU (the same samples and data) are
+    held against float64 solves of the same system: the card's error
+    within 10× the plain version's (α and μ relative to their largest
+    value, σ² to the prior variance)."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.models.gp.gp import GP
+    from hebo_tpu_torch.ops import chol_kernel as ck
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -3.0, "ub": 3.0} for i in range(4)])
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-3, 3, (2300, 4)).astype(np.float32)
+    y = (np.sin(X[:, :1]) + 0.1 * X[:, 1:2] ** 2 + 0.05 * rng.standard_normal((2300, 1))).astype(np.float32)
+    Xq = torch.as_tensor(rng.uniform(-3, 3, (50, 4)).astype(np.float32))
+    before = ck.chol_factor.launches
+    gp = GP(space, device="cuda", max_cholesky_size=4096, num_epochs=5, n_restarts=1, seed=2).fit(X, y)
+    assert ck.chol_factor.launches > before and gp.data.X.shape[0] == 2304 and gp.fit_data is gp.data
+    core, cache = gp.core, gp.caches
+    assert cache.Kt is None and cache.Wf is not None and bool(cache.ok.all())
+    cpu = lambda t: type(t)(*[None if v is None else v.cpu() for v in t])
+    samples, data = cpu(gp.samples), cpu(gp.data)
+    ref = core.posterior_cache_batched(samples, data)
+    np.testing.assert_array_equal(cache.ok.cpu().numpy(), ref.ok.numpy())
+    with torch.no_grad():
+        mu, var = core.predict_scaled(gp.samples, cache, gp.data, Xq.to(cuda))
+        mu0, var0 = core.predict_scaled(samples, ref, data, Xq)
+        Kt, r = core._train_system(samples, data)
+        Ks = (core.gram_points(samples, data.X, Xq, data) * data.mask.to(Kt.dtype)[:, None]).double()
+    K64 = Kt.double()
+    a64 = torch.linalg.solve(K64, r.double())
+    kss = torch.exp(samples.log_sc.double())
+    mu64 = samples.mean.double()[:, None, None] + Ks.transpose(-1, -2) @ a64
+    var64 = (kss[:, None] - (Ks * torch.linalg.solve(K64, Ks)).sum(-2))[..., None]
+    err = lambda x, want, scale: float((x.cpu().double() - want).abs().max() / scale)
+    for name, card, plain, want, scale in (
+            ("alpha", cache.alpha, ref.alpha, a64, a64.abs().max()),
+            ("mu", mu, mu0, mu64, mu64.abs().max()), ("var", var, var0, var64, kss.max())):
+        e, e0 = err(card, want, scale), err(plain, want, scale)
+        assert e <= 10 * e0 + 1e-6, f"{name}: card error {e:.3g}, plain version's {e0:.3g}"
 
 
 @pytest.mark.gpu

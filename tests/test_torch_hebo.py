@@ -198,6 +198,5 @@ def test_generic_route_above_max_cholesky_size():
         assert len(set(keys[2:])) == len(keys[2:]) and not (set(keys) & hist)
         assert opt.model.fit_data.X.shape[0] == 64 and opt.model.data.X.shape[0] == 128
         assert opt.model.caches.Kt is not None and bool(opt.model.caches.ok.all())
-        assert opt._evo is not None and opt._evo.es == "nsga2"
         opt.observe(rec, _f(rec))
     assert len(opt.fit_time) == len(opt.acq_time) == 2 and opt.num_obs == 112
