@@ -80,7 +80,25 @@
    (e4) max_cholesky_size 4096 at 3000 observations: two suggest(8) on the
         fused graph at bucket 3072, whose posterior is the K1 ladder, with
         valid batches and α's float64 residual below 0.2.
-6. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+6. Drives the GP's options and hyperparameter inference through HEBO on
+   Ackley-6D, batch 8, with the counts reset before each phase:
+   (f) 800 warm Sobol observations (bucket 1024) with
+       ``model_config={"input_warp": True, "heteroscedastic": True}``: the
+       capture, 3 suggests on the fused graph and 3 eager, each with exactly
+       phase b's launches (and 155 K2), the graph's suggestion equal to the
+       eager one; then ``gpy_wgp`` and ``gpy_mlp`` at the same data, 2
+       suggests each, on the generic route;
+   (g) ``inference="hmc"`` at 120 and 800 observations, ``"smc"`` and
+       ``"svi"`` at 800 (the generic route), 2 suggests each, and
+       ``optimizer="slice"`` at 120 (the fused graph: the capture and one
+       replay): walls, fit and acquisition seconds, launches per
+       suggest, K1's calls by batch size (on the graph: those of the
+       capture), HMC's acceptance rate;
+   (h) ``GP.sample_f`` at bucket 1024 with 512 queries: the joint factor
+       through K1's ladder at (1, 512), K1 against its plain version on that
+       covariance (1e-4), and the mean of 256 draws within 4σ/√256 of
+       ``predict`` at every query.
+7. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -125,12 +143,17 @@ def bound(flops, nbytes):
 def check_gram(torch, gram, device_per_call, dev, gen, fails):
     """K2 at HEBO's shapes: the fit (2, bucket, bucket, 6), the cache
     (1, bucket, bucket, 6) and NSGA-II's predict (1, bucket, 100, 6) at
-    buckets 1024 and 128."""
+    buckets 1024 and 128; the large-N route's; the samplers' (4 HMC chains,
+    SVI draws or gpy_wgp restarts at buckets 128 and 1024, 32 SMC
+    particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
+    Gram (1, 512, 512, 6)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
                        (2, 2048, 2048, 6), (1, 3072, 3072, 6), (1, 3072, 100, 6),
-                       (1, 3072, 128, 6), (1, 7168, 7168, 6)]:
+                       (1, 3072, 128, 6), (1, 7168, 7168, 6),
+                       (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
+                       (4, 128, 128, 6), (1, 1024, 512, 6)]:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -155,11 +178,14 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
 
 def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
-    128 and the large-N route's subsample bucket 2048, on random points and on a self-Gram with coincident rows (repeated
+    128 and the large-N route's subsample bucket 2048, and the samplers' (4
+    and 32 at bucket 1024, 4 at 128), on random points and on a self-Gram with coincident rows (repeated
     rows and the zero rows of a padded bucket); twice on the same inputs,
     which must give the same bits."""
     rows = []
-    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6)]:
+    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
+                       (4, 1024, 1024, 6), (32, 1024, 1024, 6),
+                       (4, 128, 128, 6)]:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -200,7 +226,8 @@ def check_chol(torch, ck, dev, gen, fails):
     small shapes, for the kernels and the library call alike, so those get
     more calls per timing."""
     fac, winv = [], []
-    for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (2, 2048)]:
+    for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (2, 2048),
+                 (4, 1024), (32, 1024), (1, 512), (4, 128)]:
         A = torch.randn((B, N, N), generator=gen, device=dev)
         K = (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
         L, Wd = ck.chol_factor(K)
@@ -743,6 +770,181 @@ def large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails):
     return e1, e2, e3, e4
 
 
+def timed_suggests(torch, opt, space, n, what, wrappers, fails, k1=None):
+    """``n`` suggest(8) + observe; walls, the optimizer's fit / acquisition
+    seconds and the launches of each suggest (and K1's calls by batch)."""
+    walls, launches, batches = [], [], []
+    for _ in range(n):
+        before = {k: w.launches for k, w in wrappers.items()}
+        if k1 is not None:
+            k1.take()
+        t0 = time.time()
+        rec = opt.suggest(8)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        launches.append({k: w.launches - before[k] for k, w in wrappers.items()
+                         if w.launches > before[k]})
+        if k1 is not None:
+            batches.append(k1.take())
+        check_batch(space, rec, f"{what} @ {opt.num_obs}", fails)
+        opt.observe(rec, ackley(rec))
+    if not bool(opt.model.caches.ok.all()):
+        fails.append(f"{what}: posterior factorization failed")
+    return dict(s_per_suggest=walls, fit_s=opt.fit_time[-n:], acq_s=opt.acq_time[-n:],
+                launches_per_suggest=launches, **({"k1_calls_by_batch": batches} if k1 else {}))
+
+
+def warm_hebo(HEBO, space, n_obs, **kw):
+    opt = HEBO(space, device="cuda", **kw)
+    warm = space.inverse_transform(space.sobol_sample_opt(n_obs, seed=1))
+    opt.observe(warm, ackley(warm))
+    routes = []
+    for name in ("_fused_suggest", "_generic_suggest"):
+        orig = getattr(opt, name)
+        setattr(opt, name, lambda *a, _o=orig, _n=name, **k: (routes.append(_n[1:-8]), _o(*a, **k))[1])
+    return opt, routes
+
+
+def options_phase(torch, HEBO, DesignSpace, wrappers, fails):
+    """Phase f: the GP's options on the fused graph at bucket 1024 (input
+    warp and heteroscedastic noise), then gpy_wgp and gpy_mlp on the generic
+    route, all at 800 warm Sobol observations of Ackley-6D."""
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt, routes = warm_hebo(HEBO, space, 800,
+                            model_config={"input_warp": True, "heteroscedastic": True})
+    steps = opt.model_config["num_epochs"]
+    # as phase b: 51 NLLs of 2 rungs and the cache's 5; K2 forward 51 + 1 +
+    # 1 + 101 + 1 (fit, cache, incumbent, NSGA-II, population)
+    expect = {"matern32_gram": (steps + 1) + 1 + 1 + (opt.iters + 1) + 1,
+              "matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
+              "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5}
+    f = {}
+    for path, use_graphs, n in (("graph", True, 4), ("eager", False, 3)):
+        opt._use_graphs = use_graphs
+        f[path] = timed_suggests(torch, opt, space, n, f"phase f {path}", wrappers, fails)
+        if use_graphs:
+            f["s_capture"] = f[path]["s_per_suggest"].pop(0)
+            f[path]["launches_per_suggest"].pop(0)
+        for got in f[path]["launches_per_suggest"]:
+            for k, want in expect.items():
+                if got.get(k) != want:
+                    fails.append(f"phase f {path}: {k} launched {got.get(k)} times in a suggest, "
+                                 f"expected {want}")
+        f[path]["s_median"] = float(np.median(f[path]["s_per_suggest"]))
+    opt._use_graphs = True
+    p = opt.model.params
+    f.update(routes=routes, graphs=sorted(k[0] for k in opt._graphs),
+             noise_w_shape=list(p.noise_w.shape), log_wa=p.log_wa[0].tolist())
+    if set(routes) != {"fused"} or f["graphs"] != [1024] or p.noise_w is None:
+        fails.append(f"phase f: warp + heteroscedastic did not run on the fused graph at 1024: {f}")
+    graph_vs_eager(torch, opt, "phase f", fails)
+    for name in ("gpy_wgp", "gpy_mlp"):
+        o, r = warm_hebo(HEBO, space, 800, model_name=name)
+        row = timed_suggests(torch, o, space, 2, f"phase f {name}", wrappers, fails)
+        row.update(routes=r, n_restarts=o.model.n_restarts, kernel=o.model.core.kernel_name,
+                   input_warp=o.model.core.input_warp, best=o.best_y)
+        if set(r) != {"generic"} or o._graphs:
+            fails.append(f"phase f {name}: not on the generic route: {r}")
+        f[name] = row
+    print("phase f (Ackley-6D b8, 800 warm obs, bucket 1024: warp + heteroscedastic on the graph, "
+          "gpy_wgp and gpy_mlp on the generic route):", json.dumps(f), flush=True)
+    return f
+
+
+def inference_phase(torch, HEBO, DesignSpace, wrappers, fails):
+    """Phase g: hyperparameter inference on the generic route (HMC at 120
+    and 800 observations, SMC and SVI at 800) and the slice optimizer on the
+    fused graph at 120, Ackley-6D, batch 8."""
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    g = {}
+    from hebo_tpu_torch.bench.profile_suggest import K1Batches
+
+    k1 = K1Batches()
+    try:
+        for name, conf, n_obs, n in (("hmc_120", {"inference": "hmc"}, 120, 2),
+                                     ("hmc_800", {"inference": "hmc"}, 800, 2),
+                                     ("smc_800", {"inference": "smc"}, 800, 2),
+                                     ("svi_800", {"inference": "svi"}, 800, 2),
+                                     # the capture, then one replay (a third suggest
+                                     # would pass 128 observations: a new bucket)
+                                     ("slice_120", {"optimizer": "slice"}, 120, 2)):
+            opt, routes = warm_hebo(HEBO, space, n_obs, model_config=conf)
+            row = timed_suggests(torch, opt, space, n, f"phase g {name}", wrappers, fails, k1)
+            m = opt.model
+            row.update(routes=routes, bucket=int(m.data.X.shape[0]),
+                       s_median=float(np.median(row["s_per_suggest"][1:] or row["s_per_suggest"])),
+                       samples=list(m.samples.log_sc.shape), best=opt.best_y)
+            if m.accept_rate is not None:
+                row["accept_rate"] = m.accept_rate.tolist()
+            want = "fused" if "inference" not in conf else "generic"
+            if set(routes) != {want}:
+                fails.append(f"phase g {name}: routes {routes}, expected {want}")
+            if not all(r.get("chol_factor", 0) > 0 for r in row["launches_per_suggest"]):
+                fails.append(f"phase g {name}: a suggest launched no K1")
+            g[name] = row
+    finally:
+        k1.close()
+    print("phase g (Ackley-6D b8: HMC at 120 and 800 obs, SMC and SVI at 800 on the generic route, "
+          "slice at 120 on the fused graph):", json.dumps(g), flush=True)
+    return g
+
+
+def thompson_phase(torch, DesignSpace, GP, ck, wrappers, fails):
+    """Phase h: GP.sample_f at bucket 1024 (800 Ackley-6D observations) with
+    512 queries: K1's joint factor against its plain version, and the mean
+    of 256 draws within 4σ/√256 of predict (σ² with the factor's 1e-5
+    jitter)."""
+    from hebo_tpu_torch.models.gp import gp as gp_mod
+    from hebo_tpu_torch.ops import chol as tchol
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    X = space.sobol_sample_opt(800, seed=1)
+    y = ackley(space.inverse_transform(X))
+    Xq = space.sobol_sample_opt(512, seed=2)
+    gp = GP(space, device="cuda", num_epochs=50, n_restarts=2).fit(X, y)
+    seen, saved = [], gp_mod.batched_ladder_factor
+
+    def ladder(K, *a, **k):
+        seen.append((K.clone(), a, k))
+        return saved(K, *a, **k)
+
+    gp_mod.batched_ladder_factor = ladder
+    try:
+        f = gp.sample_f(n_samples=256, seed=0)
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        draws = f(Xq)
+        wall = time.time() - t0
+        launches = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+    finally:
+        gp_mod.batched_ladder_factor = saved
+    cov = seen[-1][0]
+    mu, var = gp.predict(Xq)
+    jit_raw = 1e-5 * float(gp.data.y_std) ** 2
+    dev_ = np.abs(draws.mean(0) - mu)
+    bound_ = 4 * np.sqrt(var + jit_raw) / math.sqrt(256)
+    # K1 on the joint covariance against its plain version, at the first
+    # rung's jitter (1e-5 + 0·scale)
+    Kj = (cov + 1e-5 * torch.eye(cov.shape[-1], device=cov.device)).contiguous()
+    L, Wd = ck.chol_factor(Kj)
+    L0, Wd0 = ck.chol_factor_plain(Kj)
+    err = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
+    h = dict(bucket=int(gp.data.X.shape[0]), queries=512, draws=256, cov_shape=list(cov.shape),
+             s_sample=wall, launches=launches, k1_vs_plain_max_abs_err=err,
+             max_mean_dev_over_bound=float((dev_ / bound_).max()), finite=bool(np.isfinite(draws).all()))
+    print("phase h (GP.sample_f, 800 Ackley-6D obs, bucket 1024, 512 queries, 256 draws):",
+          json.dumps(h), flush=True)
+    if list(cov.shape) != [1, 512, 512] or launches.get("chol_factor") != len(tchol.LADDER):
+        fails.append(f"phase h: the joint factor did not run K1's ladder at (1, 512): {h}")
+    if not (h["finite"] and h["max_mean_dev_over_bound"] <= 1.0 and err <= L_TOL):
+        fails.append(f"phase h: Thompson draws off: {h}")
+    return h
+
+
 def antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails):
     from hebo_tpu_torch.optimizers.antbo import AA_ALPHABET, check_cdr_constraints
 
@@ -866,6 +1068,14 @@ def main() -> int:
         "hebo_large_n": (lambda: large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails),
                          ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                           "nsga2_rank_crowd")),
+        "hebo_options": (lambda: options_phase(torch, HEBO, DesignSpace, wrappers, fails),
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                          "nsga2_rank_crowd")),
+        "hebo_inference": (lambda: inference_phase(torch, HEBO, DesignSpace, wrappers, fails),
+                           ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                            "nsga2_rank_crowd")),
+        "gp_thompson": (lambda: thompson_phase(torch, DesignSpace, GP, ck, wrappers, fails),
+                        ("matern32_gram", "chol_factor", "chol_winv")),
     }
     by_path = {}
     for path, (drive, its_kernels) in paths.items():

@@ -3,6 +3,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest [--obs 112 800] [--paths graph eager]
     python3 -m hebo_tpu_torch.bench.profile_suggest --antbo [--obs 28 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --large-n [--obs 3000]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -38,7 +39,12 @@ CG posterior at bucket 3072, ``EvolutionOpt``, all launched op by op): the
 warm-up suggest, ``--timed`` suggests with the optimizer's own fit and
 acquisition seconds, and one profiled suggest as above, plus the device
 time of the kernels launched inside ``pcg_solve`` (its share of the
-device time) and the number of PCG solves.
+device time) and the number of PCG solves.  With ``--hmc``, the same for
+HEBO with ``model_config={"inference": "hmc"}`` (default 800 observations,
+bucket 1024; the generic route, eager): the MAP fit, then 4 HMC chains of
+64 warm-up transitions and one kept, each transition up to 8 leapfrog
+steps, every step one batched NLL at (4, bucket); with K1's calls by
+batch size and the chains' acceptance rate.
 Prints one JSON line per observation count.
 """
 
@@ -111,6 +117,30 @@ class _RungLog:
                 "k1_skipped_rung_launches": launches}
 
 
+class K1Batches:
+    """Counts K1 factor calls by (batch x size) while it is open (the
+    wrapper's own ``launches`` still counts every launch): wraps the module
+    global that the jitter ladder calls."""
+
+    def __init__(self):
+        self.saved, self.by_batch = chol_mod.chol_factor, {}
+
+        def factor(K, *a, **k):
+            key = f"{K.shape[0]}x{K.shape[-1]}"
+            self.by_batch[key] = self.by_batch.get(key, 0) + 1
+            return self.saved(K, *a, **k)
+
+        chol_mod.chol_factor = factor
+
+    def take(self) -> dict:
+        """The counts since the last ``take``, and a fresh start."""
+        out, self.by_batch = self.by_batch, {}
+        return out
+
+    def close(self):
+        chol_mod.chol_factor = self.saved
+
+
 def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
@@ -181,12 +211,13 @@ def _k2_block(by_name, calls, bucket) -> dict:
     return block
 
 
-def profile_large_n(n_obs: int, n_timed: int = 3) -> dict:
-    """HEBO's generic route (subsampled fit, CG posterior) at ``n_obs``
-    Sobol observations of Ackley-6D."""
+def profile_generic(n_obs: int, n_timed: int = 3, model_config=None) -> dict:
+    """HEBO's generic route at ``n_obs`` Sobol observations of Ackley-6D:
+    above max_cholesky_size (subsampled fit, CG posterior), or a GP with a
+    hyperparameter sampler (``model_config``)."""
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
-    opt = HEBO(space, device="cuda")
+    opt = HEBO(space, device="cuda", model_config=model_config)
     warm = opt.quasi_sample(n_obs)
     opt.observe(warm, _ackley(warm))
     t0 = time.perf_counter()
@@ -206,10 +237,12 @@ def profile_large_n(n_obs: int, n_timed: int = 3) -> dict:
 
     gp_mod.pcg_solve = pcg
     calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+    k1 = K1Batches()
     try:
         prof = _device_profile(lambda: opt.suggest(8))
     finally:
         gp_mod.pcg_solve = saved
+        k1.close()
     by_name = prof.pop("by_name")
     pcg_ms = prof.pop("range_device_ms").get("pcg_solve", 0.0)
     k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
@@ -219,7 +252,10 @@ def profile_large_n(n_obs: int, n_timed: int = 3) -> dict:
             "device": torch.cuda.get_device_name(0), "first_s": first_s, "s_per_suggest": walls,
             "s_median": float(np.median(walls)) if walls else None,
             "fit_s": opt.fit_time[-n_timed - 1:-1], "acq_s": opt.acq_time[-n_timed - 1:-1],
-            "cg_residual": float(model.caches.res.max()), **prof,
+            "cg_residual": None if model.caches.res is None else float(model.caches.res.max()),
+            "inference": model.inference, "k1_calls_by_batch": k1.take(),
+            "accept_rate": None if model.accept_rate is None else model.accept_rate.tolist(),
+            **prof,
             "pcg_solves": len(pcg_calls), "pcg_device_ms": pcg_ms,
             "pcg_share_of_device": pcg_ms * 1e-3 / max(prof["device_kernel_s"], 1e-12),
             "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
@@ -306,6 +342,8 @@ def main():
     ap.add_argument("--antbo", action="store_true", help="profile AntBO (SSK GP) instead of HEBO")
     ap.add_argument("--large-n", action="store_true",
                     help="profile HEBO's generic route above max_cholesky_size (default 3000 obs)")
+    ap.add_argument("--hmc", action="store_true",
+                    help="profile HEBO with the GP's HMC posterior (default 800 obs)")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
                     help="observation counts (default 112 800; with --antbo 28 200)")
     ap.add_argument("--paths", nargs="+", default=["graph", "eager"], choices=["graph", "eager"],
@@ -314,9 +352,11 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
-    for n in args.obs or ([28, 200] if args.antbo else [3000] if args.large_n else [112, 800]):
-        if args.large_n:
-            print(json.dumps(profile_large_n(n, args.timed)), flush=True)
+    default = [28, 200] if args.antbo else [3000] if args.large_n else [800] if args.hmc else [112, 800]
+    for n in args.obs or default:
+        if args.large_n or args.hmc:
+            conf = {"inference": "hmc"} if args.hmc else None
+            print(json.dumps(profile_generic(n, args.timed, conf)), flush=True)
             continue
         if args.antbo:
             print(json.dumps(profile_antbo(n)), flush=True)

@@ -19,13 +19,18 @@ __all__ = ["params_from_jax", "data_from_jax", "cache_from_jax"]
 
 def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
     """``GPParams`` fields (``log_ls``, ``log_sc``, ``log_noise``, ``mean``,
-    ``emb``, ``log_wa``, ``log_wb``) → the port's batched ``GPParams``.
+    ``emb``, ``log_wa``, ``log_wb`` and, with heteroscedastic noise,
+    ``noise_w``) → the port's batched ``GPParams``; a missing or ``None``
+    ``noise_w`` stays ``None``.
 
     A stacked set (leading restart/sample axis, ``log_sc`` 1-D) keeps its
     axis; a single set (``log_sc`` 0-d) gets a batch axis of 1."""
     single = np.ndim(d["log_sc"]) == 0
     leaves = []
     for f in GPParams._fields:
+        if f == "noise_w" and d.get(f) is None:
+            leaves.append(None)
+            continue
         a = np.array(d[f], dtype=np.float32)
         leaves.append(torch.as_tensor(a[None] if single else a, device=device))
     return GPParams(*leaves)

@@ -1,10 +1,18 @@
-"""Exact GP surrogate — HEBO's model, MAP path (port of ``hebo_tpu/models/gp/gp.py``).
+"""Exact GP surrogate — HEBO's model (port of ``hebo_tpu/models/gp/gp.py``).
 
-ARD Matérn-3/2 over the min-max scaled numerics × learned categorical
+ARD Matérn-3/2 (or Matérn-1/2, -5/2, RBF, the arc-sine MLP kernel:
+``kernel=``) over the min-max scaled numerics × learned categorical
 embeddings, Gamma(0.5, 0.5) prior on the outputscale, LogNormal prior on
 the noise with a noise floor, y standardization, median-distance
-lengthscale init, and pSGLD (default) or Adam hyperparameter fitting with
-the jitter-ladder NLL.
+lengthscale init, and pSGLD (default), Adam or slice-sampled
+hyperparameters with the jitter-ladder NLL.  Options: the Kumaraswamy input
+warp of the numerics (``input_warp``, gp.py:221-227) and heteroscedastic
+noise σ²(x) = exp(log_noise + 2·tanh(w·φ(x) + b)) (``heteroscedastic``,
+gp.py:333-345, the ``noise_w`` leaf).  ``GP(inference=...)`` puts a
+posterior over the hyperparameters after the MAP fit: HMC, SVI or SMC
+(``inference.py``), each log-density evaluation one batched NLL over the
+chains, draws or particles.  ``gpy_wgp`` (input warp, 4 restarts) and
+``gpy_mlp`` (the MLP kernel) are GPs with other defaults.
 
 The JAX package's ``vmap`` over restarts and ensemble samples is a leading
 batch axis here: every ``GPParams`` leaf carries it, and every ``GPCore``
@@ -47,9 +55,12 @@ from ...ops.ssk import ssk_gram
 from ...utils.device import resolve_device
 from ...utils.dtypes import pad_bucket
 from ..base import BaseModel, register_model
-from .kernels import embed_categorical, overlap, sq_dist, transformed_overlap
+from .inference import hmc_sample, slice_sample, smc_sample, svi_fit
+from .tree import adam_step, tree_leaves, tree_map, tree_unflatten
+from .kernels import MATERN_FNS, embed_categorical, overlap, sq_dist, transformed_overlap
 
-__all__ = ["GPParams", "GPData", "GPCache", "GPCore", "GP", "make_data", "map_fit"]
+__all__ = ["GPParams", "GPData", "GPCache", "GPCore", "GP", "WarpedGP", "MLPKernelGP",
+           "make_data", "map_fit"]
 
 
 class GPParams(NamedTuple):
@@ -61,8 +72,11 @@ class GPParams(NamedTuple):
     log_noise: torch.Tensor  # (B,)
     mean: torch.Tensor  # (B,)
     emb: torch.Tensor  # (B, total_cats, E), or (B, 0, 0) without categoricals
-    log_wa: torch.Tensor  # (B, D_num) input-warp leaves (unused on this path)
-    log_wb: torch.Tensor  # (B, D_num)
+    log_wa: torch.Tensor  # (B, D_num) Kumaraswamy warp a (log), used with input_warp
+    log_wb: torch.Tensor  # (B, D_num) Kumaraswamy warp b (log)
+    # (B, n_feat_dims + 1) heteroscedastic noise weights and bias; None
+    # otherwise, and then no leaf (JAX's pytree flattening skips None)
+    noise_w: Optional[torch.Tensor] = None
 
 
 class GPData(NamedTuple):
@@ -92,6 +106,14 @@ class GPCache(NamedTuple):
 
 
 _CAT_KERNELS = ("embedding", "overlap", "transformed_overlap", "ssk")
+_OPTIMIZERS = ("psgld", "adam", "slice")
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: maximum then minimum, whose gradients at a tie are
+    halved as JAX's."""
+    full = lambda v: torch.full((), v, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, full(lo)), full(hi))
 
 
 class GPCore:
@@ -112,22 +134,28 @@ class GPCore:
         lr: float = 0.05,
         psgld_burnin_frac: float = 0.5,
         n_ensemble: int = 1,
+        input_warp: bool = False,
+        heteroscedastic: bool = False,
         max_cholesky_size: int = 2048,
         cg_rank: int = 128,
         cg_iters: int = 96,
     ):
-        if kernel != "matern32":
-            raise NotImplementedError(f"kernel {kernel!r}: only matern32 is ported")
+        if kernel not in MATERN_FNS:
+            raise ValueError(f"unknown kernel {kernel!r}; known: {sorted(MATERN_FNS)}")
         if cat_dims and cat_kernel not in _CAT_KERNELS:
             raise NotImplementedError(
                 f"cat_kernel {cat_kernel!r}: only {', '.join(_CAT_KERNELS)} are ported "
                 "(the others are ROADMAP slice 11)"
             )
-        if optimizer not in ("psgld", "adam"):
-            raise NotImplementedError(f"optimizer {optimizer!r}: only psgld and adam are ported")
+        if optimizer not in _OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {optimizer!r}; known: {', '.join(_OPTIMIZERS)}")
         self.numeric_dims = tuple(numeric_dims)
         self.cat_dims = tuple(cat_dims)
         self.num_categories = tuple(num_categories)
+        self.kernel_name = kernel
+        self.kfn = MATERN_FNS[kernel]
+        self.input_warp = bool(input_warp)
+        self.heteroscedastic = bool(heteroscedastic)
         self.noise_lb = noise_lb
         self.optimizer = optimizer
         self.n_steps = n_steps
@@ -171,15 +199,21 @@ class GPCore:
 
     # ------------------------------------------------------------- features
     def features(self, params: GPParams, X: torch.Tensor, data: GPData) -> torch.Tensor:
-        """(B, N, n_feat_dims): scaled numerics in [-1, 1] ++ embeddings;
-        zero-width for a purely pairwise categorical kernel."""
+        """(B, N, n_feat_dims): scaled numerics in [-1, 1] (through the
+        Kumaraswamy CDF u → 1 − (1 − uᵃ)ᵇ with ``input_warp``) ++
+        embeddings; zero-width for a purely pairwise categorical kernel."""
         B = params.log_sc.shape[0]
         num_idx, cat_idx, offs = self._columns(X.device)
         parts = []
         if self.d_num:
             xn = X.index_select(1, num_idx)
-            u = torch.clamp((xn - data.x_lb) / data.x_span, 0.0, 1.0)
-            parts.append((2.0 * u - 1.0).expand(B, -1, -1))
+            u = torch.clamp((xn - data.x_lb) / data.x_span, 0.0, 1.0).expand(B, -1, -1)
+            if self.input_warp:
+                a = torch.exp(params.log_wa)[:, None, :]
+                b = torch.exp(params.log_wb)[:, None, :]
+                ua = torch.pow(_clip(u, 1e-6, 1.0 - 1e-6), a)
+                u = 1.0 - torch.pow(_clip(1.0 - ua, 1e-6, 1.0), b)
+            parts.append(2.0 * u - 1.0)
         if self.cat_dims and self.cat_kernel == "embedding":
             parts.append(embed_categorical(X.index_select(1, cat_idx), params.emb, offs))
         if not parts:
@@ -201,22 +235,41 @@ class GPCore:
 
     def gram_points(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor,
                     data: GPData) -> torch.Tensor:
-        """(B, N, M) outputscale × Matérn-3/2 over the features (kernel K2)
-        × the pairwise categorical kernel, where there is one."""
+        """(B, N, M) outputscale × the stationary kernel over the features
+        (Matérn-3/2: kernel K2) × the pairwise categorical kernel, where
+        there is one."""
         sc = torch.exp(params.log_sc)
-        if self.n_feat_dims:
+        if self.n_feat_dims and self.kernel_name == "matern32":
             ls = torch.exp(params.log_ls[:, : self.n_feat_dims])[:, None, :]
             a = (self.features(params, X1, data) / ls).contiguous()
             b = (self.features(params, X2, data) / ls).contiguous()
             K = matern32_gram(a, b, sc.contiguous())
+        elif self.n_feat_dims:
+            ls = torch.exp(params.log_ls[:, : self.n_feat_dims])
+            f1, f2 = self.features(params, X1, data), self.features(params, X2, data)
+            K = sc[:, None, None] * self.kfn(f1, f2, ls)
         else:
             K = sc[:, None, None]
         if self.cat_kernel != "embedding":
             K = K * self.cat_gram(params, X1, X2)
         return K
 
-    def noise_diag(self, params: GPParams) -> torch.Tensor:
+    def noise_base(self, params: GPParams) -> torch.Tensor:
+        """(B,) the homoscedastic noise variance; the CG routes'
+        preconditioner keeps it with heteroscedastic noise too, as the JAX
+        package does (gp.py:719, :779, :832)."""
         return torch.exp(params.log_noise) + self.noise_lb
+
+    def noise_diag(self, params: GPParams, X: torch.Tensor, data: GPData) -> torch.Tensor:
+        """(B, N) observation-noise variance at the points X: the base, or
+        with ``heteroscedastic`` exp(log_noise + 2·tanh(w·φ(x) + b)) + the
+        floor (gp.py:333-345)."""
+        if not self.heteroscedastic or params.noise_w is None:
+            return self.noise_base(params)[:, None].expand(-1, X.shape[0])
+        f = self.features(params, X, data)
+        w = params.noise_w
+        mod = torch.tanh((f @ w[:, :-1, None])[..., 0] + w[:, -1:])
+        return torch.exp(params.log_noise[:, None] + 2.0 * mod) + self.noise_lb
 
     def _train_system(self, params: GPParams, data: GPData):
         """(Kt, r): masked train Gram + noise with identity padded rows, and
@@ -226,7 +279,8 @@ class GPCore:
         eye = torch.eye(n, dtype=K.dtype, device=K.device)
         m = data.mask.to(K.dtype)
         m2 = m[:, None] * m[None, :]
-        Kt = m2 * (K + self.noise_diag(params)[:, None, None] * eye) + eye * (1.0 - m)
+        noise = self.noise_diag(params, data.X, data)
+        Kt = m2 * (K + noise[:, :, None] * eye) + eye * (1.0 - m)
         r = (data.y - params.mean[:, None, None]) * m[:, None]
         return Kt, r
 
@@ -243,6 +297,11 @@ class GPCore:
         lp = lp + (-0.5 * (params.log_ls / 3.0) ** 2).sum(-1) * 0.1
         if params.emb.numel():
             lp = lp - 0.5 * (params.emb ** 2).sum((-2, -1)) / 10.0
+        if self.input_warp:
+            lp = lp - 0.5 * ((params.log_wa / 0.75) ** 2).sum(-1)
+            lp = lp - 0.5 * ((params.log_wb / 0.75) ** 2).sum(-1)
+        if self.heteroscedastic and params.noise_w is not None:
+            lp = lp - 0.5 * (params.noise_w ** 2).sum(-1)
         return lp
 
     def loss_batched(self, params: GPParams, data: GPData) -> torch.Tensor:
@@ -271,6 +330,8 @@ class GPCore:
             emb=0.5 * z_emb,
             log_wa=torch.zeros((n, self.d_num), **f32),
             log_wb=torch.zeros((n, self.d_num), **f32),
+            noise_w=(torch.zeros((n, self.n_feat_dims + 1), **f32)
+                     if self.heteroscedastic else None),
         )
         if self.n_feat_dims:
             f = self.features(p0, data.X, data)
@@ -294,19 +355,35 @@ class GPCore:
         self, params0: GPParams, data: GPData,
         generator: Optional[torch.Generator] = None,
         noise: Optional[Callable[[int], Sequence[torch.Tensor]]] = None,
+        uniforms: Optional[torch.Tensor] = None,
+        loop: Optional[Callable] = None,
     ):
         """Run the optimizer on the stacked restarts (gp.py:561-651).
 
         Returns ``(final_params (R,...), final_loss (R,), samples (S,R,...))``.
         ``noise(step)`` gives pSGLD's standard normals for a step, one tensor
-        per ``GPParams`` leaf in field order; by default they come from
-        ``generator``."""
+        per ``GPParams`` leaf in leaf order (``noise_w`` only when it is
+        there); by default they come from ``generator``.  ``slice`` runs
+        ``inference.slice_sample`` on the restarts as one batch (20 burn-in
+        sweeps, then every second; the JAX package maps the per-restart
+        sampler, gp.py:575-580); ``uniforms`` replaces its draws and
+        ``loop`` runs its coordinate steps (``slice_sample``)."""
         n = self.n_steps
         lr = self.lr
         burn = int(n * self.psgld_burnin_frac)
         S = self.n_ensemble
         sample_steps = [burn + (k * max(n - burn, 1)) // S for k in range(S)]
-        p = [t.detach().clone() for t in params0]
+        wrap = lambda ls: tree_unflatten(params0, ls)
+
+        if self.optimizer == "slice":
+            with torch.no_grad():
+                samples = slice_sample(lambda q: -self.loss_batched(q, data), params0, generator,
+                                       n_samples=S, n_burnin=20, thinning=2, uniforms=uniforms,
+                                       loop=loop)
+                pf = tree_map(lambda t: t[-1], samples)
+                return pf, self.loss_batched(pf, data), samples
+
+        p = [t.detach().clone() for t in tree_leaves(params0)]
         # the samples are copied out at their steps, into buffers made here
         # (a captured graph may not keep references to its step tensors)
         samples = [t.new_empty((S,) + t.shape) for t in p]
@@ -314,7 +391,7 @@ class GPCore:
         def grad(p):
             leaves = [t.detach().requires_grad_(True) for t in p]
             with torch.enable_grad():
-                total = self.loss_batched(GPParams(*leaves), data).sum()
+                total = self.loss_batched(wrap(leaves), data).sum()
                 gs = torch.autograd.grad(total, leaves, allow_unused=True)
             return [
                 torch.nan_to_num(torch.clamp(g, -1e3, 1e3)) if g is not None
@@ -323,21 +400,14 @@ class GPCore:
             ]
 
         if self.optimizer == "adam":
-            # optax.adam(lr): b1 0.9, b2 0.999, eps 1e-8, bias-corrected
-            b1, b2, eps = 0.9, 0.999, 1e-8
             mu = [torch.zeros_like(t) for t in p]
             nu = [torch.zeros_like(t) for t in p]
             for i in range(n):
                 g = grad(p)
-                c = i + 1
                 for j in range(len(p)):
-                    mu[j] = b1 * mu[j] + (1 - b1) * g[j]
-                    nu[j] = b2 * nu[j] + (1 - b2) * g[j] ** 2
-                    mhat = mu[j] / (1 - b1 ** c)
-                    vhat = nu[j] / (1 - b2 ** c)
-                    p[j] = p[j] + (-lr * mhat / (torch.sqrt(vhat) + eps))
-            pf = GPParams(*p)
-            samples = GPParams(*(t.expand((S,) + t.shape) for t in p))
+                    p[j], mu[j], nu[j] = adam_step(p[j], g[j], mu[j], nu[j], i + 1, lr)
+            pf = wrap(p)
+            samples = wrap([t.expand((S,) + t.shape) for t in p])
             with torch.no_grad():
                 return pf, self.loss_batched(pf, data), samples
 
@@ -361,8 +431,8 @@ class GPCore:
                 if s == i:
                     for buf, t in zip(samples, p):
                         buf[k].copy_(t)
-        pf = GPParams(*p)
-        samples = GPParams(*samples)
+        pf = wrap(p)
+        samples = wrap(samples)
         with torch.no_grad():
             return pf, self.loss_batched(pf, data), samples
 
@@ -377,7 +447,7 @@ class GPCore:
         predictions."""
         Kt, r = self._train_system(samples, data)
         P = pivoted_cholesky(Kt, self.cg_rank)
-        delta = self.noise_diag(samples)
+        delta = self.noise_base(samples)
         Q = woodbury_factor(P, delta)
         apply = woodbury_precond_apply(P, delta, Q)
         alpha, res = pcg_solve(lambda X: Kt @ X, r, precond_apply=apply,
@@ -419,7 +489,7 @@ class GPCore:
             # columns; Kt and the Woodbury factor come from the cache
             if cache.Kt is None or cache.Q is None:
                 raise ValueError("predict_scaled: a CG cache needs its Kt and Q (posterior_cache)")
-            apply = woodbury_precond_apply(cache.L, self.noise_diag(params), cache.Q)
+            apply = woodbury_precond_apply(cache.L, self.noise_base(params), cache.Q)
             vsol, _ = pcg_solve(lambda X: cache.Kt @ X, Ks, precond_apply=apply,
                                 n_iters=self.cg_iters)
             expl = (Ks * vsol).sum(-2)
@@ -441,24 +511,62 @@ class GPCore:
         var = (vars_ + mus ** 2).mean(0) - mu ** 2
         return mu, torch.clamp(var, min=1e-10)
 
+    @torch.no_grad()
+    def joint_sample_scaled(self, params: GPParams, cache: GPCache, data: GPData,
+                            Xs: torch.Tensor, n_samples: int,
+                            generator: Optional[torch.Generator] = None,
+                            z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Joint posterior draws at Xs (P, D) for Thompson sampling
+        (gp.py:811-844), from one sample (``params``' and ``cache``'s
+        leading axis 1): (n_samples, P) in the standardized-y frame.  The
+        explained covariance is (W Ks)ᵀ(W Ks) with the cached W = L⁻¹, or a
+        block PCG on the CG route; the P×P covariance is factored by K1's
+        ladder at base jitter 1e-5 (``safe_cholesky(cov, base_jitter=1e-5)``
+        in the JAX package).  ``z`` (n_samples, P) replaces the generator's
+        normals."""
+        Ks = self.gram_points(params, data.X, Xs, data)
+        Ks = Ks * data.mask.to(Ks.dtype)[:, None]
+        Kss = self.gram_points(params, Xs, Xs, data)
+        mu = (params.mean[:, None, None] + Ks.transpose(-1, -2) @ cache.alpha)[0, :, 0]
+        if self._use_cg(data.X.shape[0]):
+            if cache.Kt is None or cache.Q is None:
+                raise ValueError("joint_sample_scaled: a CG cache needs its Kt and Q")
+            apply = woodbury_precond_apply(cache.L, self.noise_base(params), cache.Q)
+            vsol, _ = pcg_solve(lambda X: cache.Kt @ X, Ks, precond_apply=apply,
+                                n_iters=self.cg_iters)
+            cov = Kss - Ks.transpose(-1, -2) @ vsol
+        else:
+            if cache.Wf is None:
+                raise ValueError("joint_sample_scaled: a dense cache needs its Wf = L⁻¹")
+            v = cache.Wf @ Ks
+            cov = Kss - v.transpose(-1, -2) @ v
+        Lc, _, _ = batched_ladder_factor(cov, LADDER, base_jitter=1e-5)
+        if z is None:
+            z = torch.randn((n_samples, Xs.shape[0]), generator=generator, dtype=mu.dtype,
+                            device=mu.device)
+        return mu[None, :] + torch.as_tensor(z, device=mu.device) @ Lc[0].transpose(0, 1)
+
 
 def select(params: GPParams, idx: torch.Tensor, dim: int = 0) -> GPParams:
     """Leaf-wise ``t.index_select(dim, idx).squeeze(dim)`` (no host sync)."""
-    return GPParams(*(t.index_select(dim, idx.reshape(1)).squeeze(dim) for t in params))
+    return tree_map(lambda t: t.index_select(dim, idx.reshape(1)).squeeze(dim), params)
 
 
 def map_fit(core: GPCore, data: GPData, n_restarts: int,
             generator: Optional[torch.Generator] = None,
             init_draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            noise: Optional[Callable[[int], Sequence[torch.Tensor]]] = None):
+            noise: Optional[Callable[[int], Sequence[torch.Tensor]]] = None,
+            uniforms: Optional[torch.Tensor] = None, loop: Optional[Callable] = None):
     """Init ``n_restarts`` stacked restarts, fit them, keep the best:
     returns (params (1,...) of the best restart, its samples (S,...)).
-    ``init_draws`` and ``noise`` replace the generator's draws, as in
-    ``init_params`` and ``fit_from_batched``."""
+    ``init_draws``, ``noise`` and ``uniforms`` replace the generator's
+    draws, as in ``init_params`` and ``fit_from_batched``; ``loop`` as
+    there."""
     p0 = core.init_params(data, n_restarts, generator, draws=init_draws)
-    pf, loss, samples = core.fit_from_batched(p0, data, generator, noise=noise)
+    pf, loss, samples = core.fit_from_batched(p0, data, generator, noise=noise, uniforms=uniforms,
+                                              loop=loop)
     best = torch.argmin(loss)
-    pf = GPParams(*(t.index_select(0, best.reshape(1)) for t in pf))
+    pf = tree_map(lambda t: t.index_select(0, best.reshape(1)), pf)
     return pf, select(samples, best, dim=1)
 
 
@@ -494,10 +602,26 @@ def make_data(X: np.ndarray, y: np.ndarray, numeric_dims, n_pad: int,
                   x_lb=t(lb), x_span=t(span), y_mean=t(y_mean), y_std=t(y_std))
 
 
+_INFERENCE = ("map", "hmc", "svi", "smc")
+
+
+def _take(n: int, S: int) -> np.ndarray:
+    """``jnp.linspace(0, n - 1, S).astype(int32)``: S indices spread over n."""
+    return np.linspace(0, n - 1, S).astype(np.float32).astype(np.int64)
+
+
 @register_model("gp")
 class GP(BaseModel):
-    """Host-side wrapper: pads to buckets and keeps the fitted state."""
+    """Host-side wrapper: pads to buckets and keeps the fitted state.
 
+    ``inference`` is ``map`` (the MAP fit's pSGLD / Adam / slice samples)
+    or a sampler run after the MAP fit on the fitted data (gp.py:998-1048):
+    ``hmc`` (``n_chains`` chains started at the MAP point jittered by
+    0.05, ``n_warmup`` warm-up transitions, ``n_ensemble`` spread over the
+    draws), ``svi`` (a mean-field Gaussian at the MAP point) or ``smc``
+    (``n_particles`` prior-initialised particles)."""
+
+    support_ts = True
     support_grad = True
     support_warm_start = True
 
@@ -506,11 +630,9 @@ class GP(BaseModel):
         if num_out != 1:
             raise ValueError("GP is single-output")
         self.device = resolve_device(device)
-        if conf.get("inference", "map") != "map":
-            raise NotImplementedError("only inference='map' is ported (ROADMAP slice 8)")
-        for opt in ("input_warp", "heteroscedastic"):
-            if conf.get(opt):
-                raise NotImplementedError(f"{opt} is not ported yet")
+        self.inference = conf.get("inference", "map")
+        if self.inference not in _INFERENCE:
+            raise ValueError(f"unknown inference {self.inference!r}; known: {', '.join(_INFERENCE)}")
         if conf.get("mesh") is not None:
             raise NotImplementedError("a device mesh (block-sharded large-N posterior) is "
                                       "ROADMAP slice 9")
@@ -527,26 +649,33 @@ class GP(BaseModel):
             n_steps=conf.get("num_epochs", 100),
             lr=conf.get("lr", 0.05),
             n_ensemble=conf.get("n_ensemble", 1),
+            input_warp=conf.get("input_warp", False),
+            heteroscedastic=conf.get("heteroscedastic", False),
             max_cholesky_size=conf.get("max_cholesky_size", 2048),
             cg_rank=conf.get("cg_rank", 128),
             cg_iters=conf.get("cg_iters", 96),
         )
         self.n_restarts = conf.get("n_restarts", 1)
+        self.n_chains = conf.get("n_chains", 4)
+        self.n_warmup = conf.get("n_warmup", 64)
+        self.n_particles = conf.get("n_particles", 32)
         self._seed = conf.get("seed", 0)
         self.params: Optional[GPParams] = None
         self.samples: Optional[GPParams] = None
         self.caches: Optional[GPCache] = None
         self.data: Optional[GPData] = None
         self.fit_data: Optional[GPData] = None  # what the hyperparameters were fitted on
+        self.accept_rate: Optional[torch.Tensor] = None  # HMC's, per chain
 
     def fit(self, X, y):
         """Fit the hyperparameters and build the posterior caches.  Above
         ``max_cholesky_size`` (gp.py:1076-1103) the hyperparameters are
-        fitted on a random subsample of ``max_cholesky_size`` valid points,
-        in that subsample's own y and x normalization, and the CG cache is
-        built on all the data, in the full data's normalization, as in the
-        JAX package.  (The JAX package also builds a dense cache of the
-        subsample and drops it; that is not done here.)"""
+        fitted (and sampled) on a random subsample of ``max_cholesky_size``
+        valid points, in that subsample's own y and x normalization, and the
+        CG cache is built on all the data, in the full data's
+        normalization, as in the JAX package.  (The JAX package also builds
+        a dense cache of the subsample and drops it; that is not done
+        here.)"""
         n_pad = pad_bucket(max(len(X), 2))
         nd = self.core.numeric_dims
         self.data = make_data(X, y, nd, n_pad, self.device)
@@ -564,8 +693,33 @@ class GP(BaseModel):
             idx = np.random.default_rng(self._seed).choice(len(Xv), size=ksub, replace=False)
             self.fit_data = make_data(Xv[idx], yv[idx], nd, pad_bucket(max(ksub, 2)), self.device)
         self.params, self.samples = map_fit(self.core, self.fit_data, self.n_restarts, gen)
+        if self.inference != "map":
+            self.samples = self._sample(self.params, self.fit_data, gen)
         self.caches = self.core.posterior_cache_batched(self.samples, self.data)
         return self
+
+    def _sample(self, pf: GPParams, data: GPData, gen: torch.Generator) -> GPParams:
+        """The hyperparameter posterior's ``n_ensemble`` samples after the
+        MAP point ``pf`` (gp.py:1000-1048); every log-density evaluation is
+        one batched NLL (K1 on CUDA) over the chains, draws or particles."""
+        core, S = self.core, self.core.n_ensemble
+        logp = lambda p: -core.loss_batched(p, data)
+        if self.inference == "hmc":
+            C = self.n_chains
+            chain0 = tree_map(lambda t: t.expand((C,) + t.shape[1:]) + 0.05 * torch.randn(
+                (C,) + t.shape[1:], generator=gen, dtype=t.dtype, device=t.device), pf)
+            n_per = max(1, S)
+            draws, self.accept_rate = hmc_sample(logp, chain0, gen, n_chains=C,
+                                                 n_warmup=self.n_warmup, n_samples=n_per)
+            take = torch.as_tensor(_take(n_per * C, S), device=pf.log_sc.device)
+            return tree_map(lambda t: t.reshape((n_per * C,) + t.shape[2:]).index_select(0, take),
+                            draws)
+        if self.inference == "svi":
+            return svi_fit(logp, pf, gen, n_samples=S)[0]
+        parts0 = core.init_params(data, self.n_particles, gen)
+        parts, _ = smc_sample(core.log_prior, lambda p: -core.nll_batched(p, data), parts0, gen)
+        take = torch.as_tensor(_take(self.n_particles, S), device=pf.log_sc.device)
+        return tree_map(lambda t: t.index_select(0, take), parts)
 
     @property
     def state(self):
@@ -588,6 +742,37 @@ class GP(BaseModel):
         mu, var = self.predict_pure(self.state, torch.as_tensor(Xp, device=self.device))
         return mu.cpu().numpy()[:p], var.cpu().numpy()[:p]
 
+    def sample_f(self, n_samples: int = 1, seed: int = 0):
+        """f(Xq) → (n_samples, n, 1) joint posterior draws at Xq (n, D) in
+        the raw-y frame, from the first hyperparameter sample
+        (gp.py:1134-1150); each call draws from a generator seeded by
+        ``seed``."""
+        if self.data is None:
+            raise RuntimeError("fit first")
+
+        def f(Xq: np.ndarray) -> np.ndarray:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+            p0, c0 = (tree_map(lambda t: t[:1], x) for x in (self.samples, self.caches))
+            Xs = torch.as_tensor(np.asarray(Xq, np.float32), device=self.device)
+            draws = self.core.joint_sample_scaled(p0, c0, self.data, Xs, n_samples, gen)
+            d = self.data
+            return (draws[:, :, None] * d.y_std + d.y_mean).cpu().numpy()
+
+        return f
+
+    @torch.no_grad()
+    def joint_sample_pure(self, state, generator: torch.Generator, Xs: torch.Tensor):
+        """One joint posterior draw f(Xs) → (P, 1) in the raw-y frame, from
+        a hyperparameter sample picked uniformly (gp.py:1163-1180), with no
+        host read."""
+        samples, caches, data = state
+        S = samples.log_sc.shape[0]
+        i = torch.randint(0, S, (1,), generator=generator, device=data.X.device)
+        p, c = (tree_map(lambda t: t.index_select(0, i), x) for x in (samples, caches))
+        draw = self.core.joint_sample_scaled(p, c, data, Xs, 1, generator)
+        return draw[0][:, None] * data.y_std + data.y_mean
+
     @property
     def noise(self):
         if self.params is None:
@@ -596,3 +781,23 @@ class GP(BaseModel):
         return np.asarray(
             [float(torch.exp(self.params.log_noise[0]) + self.core.noise_lb) * ys ** 2]
         )
+
+
+@register_model("gpy_wgp")
+class WarpedGP(GP):
+    """Input-warped GP: the Kumaraswamy warp of the numerics fitted with the
+    other hyperparameters, over 4 restarts (gp.py:1191-1204)."""
+
+    def __init__(self, space, num_out: int = 1, device="cuda", **conf):
+        conf.setdefault("input_warp", True)
+        conf.setdefault("n_restarts", 4)
+        super().__init__(space, num_out=num_out, device=device, **conf)
+
+
+@register_model("gpy_mlp")
+class MLPKernelGP(GP):
+    """GP with the arc-sine MLP kernel (gp.py:1206-1216)."""
+
+    def __init__(self, space, num_out: int = 1, device="cuda", **conf):
+        conf.setdefault("kernel", "mlp")
+        super().__init__(space, num_out=num_out, device=device, **conf)

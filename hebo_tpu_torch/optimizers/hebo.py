@@ -11,7 +11,9 @@
 
 ``_fused_suggest`` is the JAX package's one device program (hebo.py:214-397):
 fit, posterior caches, incumbent, MACE + NSGA-II, population posterior.  On
-CUDA it is one captured CUDA graph per bucket, replayed at every later
+CUDA it is one captured CUDA graph per bucket (with the slice optimizer,
+three: the slice sampler's coordinate step is one graph, replayed once per
+step), replayed at every later
 suggest of that bucket; its inputs go in as one packed array and one copy
 comes back, as in the JAX package.  Every random number of a suggest is
 drawn before the program runs, from one ``torch.Generator`` on the device
@@ -19,12 +21,17 @@ seeded by the observation count, so the graph, the eager path
 (``_use_graphs = False``, kept for comparison) and the CPU give the same
 suggestions from the same draws.
 
-Every other suggest takes the generic route (hebo.py:126-173): a model
-other than a MAP GP, or a bucket above the GP's ``max_cholesky_size``,
-where ``GP.fit`` fits on a subsample and the posterior runs through CG.  It
-fits the model, takes the incumbent's posterior mean and runs
-``EvolutionOpt`` with MACE's z drawn from a generator seeded by the
-observation count, all launched op by op.
+The fused program serves a plain ``GP`` (``type(model).__name__ ==
+"GP"``) with ``inference="map"`` up to its ``max_cholesky_size``, as in the
+JAX package (hebo.py:132-140), whatever its kernel, input warp,
+heteroscedastic noise or optimizer (pSGLD, Adam, slice).  Every other
+suggest takes the generic route (hebo.py:126-173): the ``gpy_wgp`` and
+``gpy_mlp`` subclasses, a GP with a sampler over its hyperparameters
+(HMC, SVI, SMC), or a bucket above ``max_cholesky_size``, where ``GP.fit``
+fits on a subsample and the posterior runs through CG.  It fits the model,
+takes the incumbent's posterior mean and runs ``EvolutionOpt`` with MACE's
+z drawn from a generator seeded by the observation count, all launched op
+by op.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from ..acq_optimizers.evolution import (EvolutionOpt, GenDraws, MetaTensors, _sp
                                         evolve_raw, meta_tensors)
 from ..acquisitions.acq import MACE, AcqParams
 from ..models import get_model
-from ..models.gp.gp import GP, GPData, map_fit
+from ..models.gp.gp import GPData, map_fit
 from ..ops.chol_kernel import chol_factor, chol_winv
 from ..ops.gram import matern32_gram, matern32_gram_vjp
 from ..ops.pareto import nsga2_rank_crowd
@@ -73,9 +80,10 @@ class HEBO(AbstractOptimizer):
         device="cuda",
     ):
         super().__init__(space, csv_save_path)
-        if model_name != "gp":
+        if model_name not in _MODELS:
             raise NotImplementedError(
-                f"model {model_name!r}: only 'gp' is ported (the other surrogates are ROADMAP slice 13)")
+                f"model {model_name!r}: only {', '.join(_MODELS)} are ported (the other "
+                "surrogates are ROADMAP slice 13)")
         self.device = resolve_device(device)
         self.model_name = model_name
         self.rand_sample = rand_sample if rand_sample is not None else 1 + space.num_cols
@@ -125,7 +133,8 @@ class HEBO(AbstractOptimizer):
             2.0 * upsi * ((2.0 + D / 2.0) * math.log(max(t, 1))
                           + math.log(3 * math.pi ** 2 / (3 * delta)))
         )
-        use_fused = (isinstance(self.model, GP)
+        use_fused = (type(self.model).__name__ == "GP"
+                     and getattr(self.model, "inference", "map") == "map"
                      and pad_bucket(max(len(Xv), 2)) <= self.model.core.max_cholesky_size)
         if use_fused:
             pop_X, pop_F, mu_pop, var_pop = self._fused_suggest(Xv, yt, kappa, fix_input)
@@ -232,15 +241,18 @@ class HEBO(AbstractOptimizer):
             normal=torch.empty(n_normal, device=device),
             sel=torch.empty((self.iters, 2, self.pop), dtype=torch.int64, device=device),
             uni=torch.empty((self.iters, 8, self.pop, D), device=device),
+            fit_uni=torch.empty(_slice_shape(core, R), device=device),
         )
 
-    def _suggest_program(self, n_pad, mt, inputs, dr):
+    def _suggest_program(self, n_pad, mt, inputs, dr, loop=None):
         """The device part of one suggest (the JAX package's one program,
         hebo.py:214-397): GP fit (stacked restarts, pSGLD), posterior
         caches, incumbent, MACE + NSGA-II, the population's posterior.
         Reads only ``inputs`` and the draws ``dr``, and returns the packed
         [pop_X | pop_F | μ | σ²] and (data, params, samples, caches).  On
-        CUDA it holds no host sync, so it can be captured as a graph."""
+        CUDA it holds no host sync, so it can be captured as a graph.
+        ``loop(step, n)`` runs the slice optimizer's coordinate step n
+        times (``inference.slice_sample``)."""
         core, model, acq = self.model.core, self.model, self._acq
         R, D, P = self.model.n_restarts, self.space.num_cols, self.pop
         nd = len(core.numeric_dims)
@@ -259,6 +271,7 @@ class HEBO(AbstractOptimizer):
             core, data, R,
             init_draws=(z_emb.view(R, core.total_cats, _emb_cols(core)), z_ls.view(R, core.d_feat)),
             noise=lambda i: [t[i].view(s) for t, s in zip(steps, shapes)],
+            uniforms=dr.fit_uni, loop=loop,
         )
         caches = core.posterior_cache_batched(samples, data)
         state = (samples, caches, data)
@@ -284,8 +297,9 @@ class HEBO(AbstractOptimizer):
         output on the device (not yet copied back) and the fitted state.
 
         On CUDA (unless ``_use_graphs`` is False, the eager comparison
-        path) the program is one CUDA graph per (bucket, metadata),
-        captured at the bucket's first suggest and replayed after it: the
+        path) the program is one CUDA graph per (bucket, metadata) (three
+        with the slice optimizer, ``_Segments``), captured at the bucket's
+        first suggest and replayed after it: the
         host copies the inputs through pinned memory, fills the draw
         buffers from a generator seeded by the observation count, and
         replays, with no host sync.  The CPU and the eager path run the
@@ -305,8 +319,8 @@ class HEBO(AbstractOptimizer):
             g.staging.numpy()[:] = host
             g.inputs.copy_(g.staging, non_blocking=True)
             _fill(g.draws, gen, self.pop)
-        g.graph.replay()
-        for w, n in g.tally.items():
+        g.graphs.replay()
+        for w, n in g.graphs.tally.items():
             w.launches += n
         return g.out, g.state
 
@@ -314,9 +328,11 @@ class HEBO(AbstractOptimizer):
         """Static buffers for a bucket, one eager warm-up run of the
         program on a side stream (the autograd engine's and the kernels'
         one-time set-up: ``cudaFuncSetAttribute``, the SM count, cuBLAS
-        workspaces), then the capture.  The wrappers' launch counts of the
-        captured run are kept as the graph's tally, which each replay adds;
-        a capture that fails raises."""
+        workspaces; a loop runs its step once), then the capture
+        (``_Segments``: one graph, or three around the slice optimizer's
+        coordinate step).  The wrappers' launch counts of the captured run
+        are kept as its tally, which each replay adds; a capture that
+        fails raises."""
         dev = self.device
         staging = torch.from_numpy(host.copy()).pin_memory()
         inputs = torch.empty(len(host), device=dev)
@@ -327,16 +343,17 @@ class HEBO(AbstractOptimizer):
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._suggest_program(n_pad, mt, inputs, dr)
+            self._suggest_program(n_pad, mt, inputs, dr, loop=lambda step, n: step())
+        torch.cuda.synchronize(dev)
+        graphs = _Segments()
+        with torch.cuda.stream(side):
+            graphs.begin()
+            try:
+                out, state = self._suggest_program(n_pad, mt, inputs, dr, loop=graphs.loop)
+            finally:
+                graphs.end()  # ends the open capture, also when the program raised
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = {w: w.launches for w in COUNTED}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out, state = self._suggest_program(n_pad, mt, inputs, dr)
-        tally = {w: w.launches - n for w, n in before.items()}
-        for w, n in before.items():
-            w.launches = n
-        return _SuggestGraph(graph, staging, inputs, dr, mt, out, state, tally)
+        return _SuggestGraph(graphs, staging, inputs, dr, mt, out, state)
 
     @torch.no_grad()
     def _fused_suggest(self, Xv, yt, kappa, fix_input):
@@ -359,18 +376,23 @@ class SuggestDraws(NamedTuple):
     """Every random number of one suggest, drawn before the program runs:
     ``normal`` holds init_params' embedding and lengthscale normals, the
     pSGLD normals of every step (one row per step, the ``GPParams`` leaves
-    in field order) and MACE's z; ``sel`` the tournaments' indices and
-    ``uni`` the eight uniforms of each generation (``GenDraws`` order)."""
+    in leaf order) and MACE's z; ``sel`` the tournaments' indices, ``uni``
+    the eight uniforms of each generation (``GenDraws`` order) and
+    ``fit_uni`` the slice sampler's uniforms (empty unless the GP's
+    optimizer is ``slice``)."""
 
     normal: torch.Tensor  # (R·cats·E + R·D_feat + steps·Σ leaf + pop,)
     sel: torch.Tensor  # (iters, 2, pop) int64
     uni: torch.Tensor  # (iters, 8, pop, D)
+    fit_uni: torch.Tensor  # (sweeps, dim, 18, R), or (0,)
 
 
 def _fill(dr: SuggestDraws, gen: torch.Generator, pop: int) -> None:
     dr.normal.normal_(generator=gen)
     dr.sel.random_(0, pop, generator=gen)
     dr.uni.uniform_(generator=gen)
+    if dr.fit_uni.numel():
+        dr.fit_uni.uniform_(generator=gen)
 
 
 def _emb_cols(core) -> int:
@@ -378,23 +400,75 @@ def _emb_cols(core) -> int:
 
 
 def _leaf_shapes(core, R: int):
-    """Shapes of the ``GPParams`` leaves of R stacked restarts."""
-    return [(R, core.d_feat), (R,), (R,), (R,), (R, core.total_cats, _emb_cols(core)),
-            (R, core.d_num), (R, core.d_num)]
+    """Shapes of the ``GPParams`` leaves of R stacked restarts, in leaf
+    order (``noise_w`` only with heteroscedastic noise)."""
+    shapes = [(R, core.d_feat), (R,), (R,), (R,), (R, core.total_cats, _emb_cols(core)),
+              (R, core.d_num), (R, core.d_num)]
+    return shapes + ([(R, core.n_feat_dims + 1)] if core.heteroscedastic else [])
+
+
+def _slice_shape(core, R: int):
+    """The slice sampler's uniforms for R restarts (``GPCore.fit_from_batched``:
+    20 burn-in sweeps, then ``n_ensemble`` kept every second sweep), or none."""
+    if core.optimizer != "slice":
+        return (0,)
+    dim = sum(math.prod(s[1:]) for s in _leaf_shapes(core, R))
+    return (20 + 2 * core.n_ensemble, dim, 18, R)
+
+
+# the GP models the JAX package's HEBO takes (``gp`` on the fused program)
+_MODELS = ("gp", "gpy_wgp", "gpy_mlp")
+
+
+class _Segments:
+    """A program captured as a chain of CUDA graphs in one memory pool: one
+    graph, or, where the program calls ``loop(step, n)``, the part before
+    the loop, the step (captured once, replayed n times) and the part after
+    it.  Replays run in capture order, so a block that a later graph reuses
+    is dead by then.  ``tally``: each wrapper's launches per replay of the
+    chain."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.parts = []  # (graph, replays)
+        self.tally: Dict[Callable, int] = {}
+
+    def begin(self):
+        self._graph = torch.cuda.CUDAGraph()
+        self._before = {w: w.launches for w in COUNTED}
+        self._graph.capture_begin(pool=self.pool)
+
+    def end(self, replays: int = 1):
+        self._graph.capture_end()
+        for w, n in self._before.items():
+            self.tally[w] = self.tally.get(w, 0) + (w.launches - n) * replays
+            w.launches = n
+        self.parts.append((self._graph, replays))
+
+    def loop(self, step: Callable, n: int):
+        self.end()
+        self.begin()
+        step()
+        self.end(n)
+        self.begin()
+
+    def replay(self):
+        for graph, replays in self.parts:
+            for _ in range(replays):
+                graph.replay()
 
 
 class _SuggestGraph(NamedTuple):
-    """One bucket's captured suggest: the graph, its static inputs (and
-    their pinned staging copy), draws and outputs, and its launch tally."""
+    """One bucket's captured suggest: its graphs (with their launch tally),
+    static inputs (and their pinned staging copy), draws and outputs."""
 
-    graph: "torch.cuda.CUDAGraph"
+    graphs: _Segments
     staging: torch.Tensor
     inputs: torch.Tensor
     draws: SuggestDraws
     mt: MetaTensors
     out: torch.Tensor
     state: tuple
-    tally: Dict[Callable, int]
 
 
 # the kernel wrappers of the suggest, whose ``.launches`` a replay advances

@@ -82,12 +82,13 @@ def test_gpcore_loss_and_gradient(cat_kernel, n_num):
     jd, td = _data(n_num)
     p0j, _ = _jax_p0(jcore, jd)
     lj, gj = jax.value_and_grad(lambda P: jnp.sum(jcore.loss_batched(P, jd)))(p0j)
-    leaves = [t.requires_grad_(True) for t in params_from_jax(_np(p0j))]
+    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(_np(p0j))]
     loss = tcore.loss_batched(GPParams(*leaves), td)
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jcore.loss_batched(p0j, jd)),
                                rtol=1e-4, atol=1e-4)
-    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-    for name, g in zip(GPParams._fields, grads):
+    live = [(f, t) for f, t in zip(GPParams._fields, leaves) if t is not None]  # noise_w: None
+    grads = torch.autograd.grad(loss.sum(), [t for _, t in live], allow_unused=True)
+    for (name, _), g in zip(live, grads):
         want = np.asarray(getattr(gj, name))
         got = np.zeros_like(want) if g is None else g.numpy()
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3, err_msg=name)

@@ -192,7 +192,7 @@ def test_cg_posterior_cache_and_predict_ensemble():
     muj, varj = jax.jit(jcore.predict_ensemble)(sj, cj, jd, jnp.asarray(Xs))
     from_jax = cache_from_jax({k: np.asarray(v) for k, v in cj._asdict().items() if v is not None})
     from_jax = from_jax._replace(Kt=tcore._train_system(st, td)[0],
-                                 Q=tcg.woodbury_factor(from_jax.L, tcore.noise_diag(st)))
+                                 Q=tcg.woodbury_factor(from_jax.L, tcore.noise_base(st)))
     for cache in (ct, from_jax):
         mu, var = tcore.predict_ensemble(st, cache, td, torch.as_tensor(Xs))
         _close(mu.numpy(), muj)

@@ -521,7 +521,7 @@ def test_cg_path_never_syncs_and_runs_without_tf32(cuda):
     core, data, samples, cache = cg.core, cg.data, cg.samples, cg.caches
     Xs = torch.as_tensor(Xq, device=cuda)
     B = torch.randn((1, 2048, 100), device=cuda)
-    apply = woodbury_precond_apply(cache.L, core.noise_diag(samples), cache.Q)
+    apply = woodbury_precond_apply(cache.L, core.noise_base(samples), cache.Q)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -561,3 +561,132 @@ def test_hebo_large_n_suggest_on_card(cuda):
     assert not opt._graphs and opt.model.caches.Kt is not None
     assert opt.model.fit_data.X.shape[0] == 2048 and opt.model.data.X.shape[0] == 3072
     assert bool(opt.model.caches.ok.all()) and float(opt.model.caches.res.max()) < 0.2
+
+
+def _gp_cuda(n=100, seed=0, **conf):
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.models.gp.gp import GP
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    X = space.sobol_sample_opt(n, seed=seed)
+    y = _ackley(space.inverse_transform(X))
+    return space, GP(space, device="cuda", **conf), X, y
+
+
+@pytest.mark.gpu
+def test_sampler_nll_runs_k1_on_card(cuda):
+    """HMC on the GP's batched loss at bucket 128, 4 chains: every
+    log-density evaluation is one K1 ladder of 2 rungs at (4, 128) and one
+    VJP launch (1 + 5 transitions × 2 leapfrog steps = 11 evaluations), and
+    no library factorization or triangular solve runs."""
+    from hebo_tpu_torch.models.gp.inference import hmc_sample
+    from hebo_tpu_torch.models.gp.gp import make_data
+
+    space, gp, X, y = _gp_cuda(num_epochs=10, n_restarts=2)
+    data = make_data(X, y, gp.core.numeric_dims, 128, cuda)
+    p0 = gp.core.init_params(data, 4, torch.Generator(device=cuda).manual_seed(0))
+    n0 = (chol_kernel.chol_factor.launches, chol_kernel.chol_winv.launches,
+          gram.matern32_gram_vjp.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        samples, acc = hmc_sample(lambda p: -gp.core.loss_batched(p, data), p0,
+                                  torch.Generator(device=cuda).manual_seed(1), n_chains=4,
+                                  n_warmup=4, n_samples=1, n_leapfrog=2)
+        torch.cuda.synchronize()
+    assert chol_kernel.chol_factor.launches - n0[0] == 22
+    assert chol_kernel.chol_winv.launches - n0[1] == 22
+    assert gram.matern32_gram_vjp.launches - n0[2] == 11
+    names = [e.name.lower() for e in prof.events()]
+    assert not any(w in n for n in names for w in ("potrf", "trsm", "cusolver", "trsv"))
+    assert torch.isfinite(samples.log_ls).all() and acc.shape == (4,)
+
+
+@pytest.mark.gpu
+def test_thompson_joint_factor_runs_k1_on_card(cuda):
+    """GP.sample_f at bucket 128 with 64 queries: the joint factor is K1's
+    5-rung ladder at (1, 64), and the mean of 512 draws lies within
+    4σ/√512 of predict (σ² with the factor's 1e-5 jitter)."""
+    space, gp, X, y = _gp_cuda(num_epochs=20, n_restarts=2)
+    gp.fit(X, y)
+    Xq = space.sobol_sample_opt(64, seed=3)
+    n0 = chol_kernel.chol_factor.launches
+    draws = gp.sample_f(n_samples=512, seed=0)(Xq)
+    assert chol_kernel.chol_factor.launches - n0 == 5
+    mu, var = gp.predict(Xq)
+    sd = np.sqrt(var + 1e-5 * float(gp.data.y_std) ** 2)
+    assert draws.shape == (512, 64, 1) and np.isfinite(draws).all()
+    assert (np.abs(draws.mean(0) - mu) <= 4 * sd / np.sqrt(512)).all()
+
+
+@pytest.mark.gpu
+def test_hebo_graph_with_warp_and_heteroscedastic_equals_eager(cuda):
+    """HEBO with ``{"input_warp": True, "heteroscedastic": True}`` at bucket
+    128 stays on the fused graph (noise_w among the draws' leaves) and gives
+    the eager CUDA path's suggestion at the same seed."""
+    import pandas as pd
+
+    from hebo_tpu_torch import HEBO, DesignSpace
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = HEBO(space, device="cuda", model_config={"input_warp": True, "heteroscedastic": True})
+    warm = space.inverse_transform(space.sobol_sample_opt(112, seed=1))
+    opt.observe(warm, _ackley(warm))
+    rec_g = opt.suggest(8)
+    assert [k[0] for k in opt._graphs] == [128]
+    assert opt.model.params.noise_w.shape == (1, 7)
+    rec_g = opt.suggest(8)  # a replay
+    alpha_g = opt.model.caches.alpha.clone()
+    opt._use_graphs = False
+    try:
+        rec_e = opt.suggest(8)
+    finally:
+        opt._use_graphs = True
+    pd.testing.assert_frame_equal(rec_g, rec_e)
+    assert torch.equal(opt.model.caches.alpha, alpha_g)
+
+
+@pytest.mark.gpu
+def test_hebo_slice_graph_replays_its_coordinate_step(cuda):
+    """``optimizer="slice"`` on the fused graph: three graphs in one pool
+    (before the slice sampler, its coordinate step replayed once per step,
+    after it); a replay gives the eager CUDA path's suggestion, caches and
+    kernel launches at the same seed, and makes no host sync."""
+    import pandas as pd
+
+    from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.optimizers.hebo import COUNTED
+
+    space = DesignSpace([{"name": "x0", "type": "num", "lb": -2, "ub": 2}])
+    opt = HEBO(space, device="cuda", pop=20, iters=5, model_config={"optimizer": "slice"})
+    warm = space.inverse_transform(space.sobol_sample_opt(12, seed=1))
+    opt.observe(warm, warm[["x0"]].values ** 2)
+    opt.suggest(2)  # captures bucket 16
+    (key, g), = opt._graphs.items()
+    # 22 sweeps over log_ls, sc, noise, mean, wa, wb
+    assert key[0] == 16 and [n for _, n in g.graphs.parts] == [1, 22 * 6, 1]
+    counts = {w: w.launches for w in COUNTED}
+    rec_g = opt.suggest(2)  # a replay
+    launches_g = {w.__name__: w.launches - counts[w] for w in COUNTED}
+    alpha_g = opt.model.caches.alpha.clone()
+    opt._use_graphs = False
+    counts = {w: w.launches for w in COUNTED}
+    try:
+        rec_e = opt.suggest(2)
+    finally:
+        opt._use_graphs = True
+    launches_e = {w.__name__: w.launches - counts[w] for w in COUNTED}
+    pd.testing.assert_frame_equal(rec_g, rec_e)
+    assert torch.equal(opt.model.caches.alpha, alpha_g)
+    assert launches_g == launches_e and launches_g["chol_factor"] > 22 * 6 * 33
+
+    Xv = space.transform(opt.X).astype(np.float32)
+    n_pad, meta, host = opt._suggest_inputs(Xv, opt.y.astype(np.float32), 2.0, None)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = opt._device_suggest(n_pad, meta, host)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(out).all()

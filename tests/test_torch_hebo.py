@@ -106,7 +106,8 @@ def test_predrawn_suggest_equals_step_by_step_draws():
 
     from hebo_tpu_torch.acq_optimizers.evolution import GenDraws, _space_meta, evolve_raw
     from hebo_tpu_torch.acquisitions.acq import AcqParams
-    from hebo_tpu_torch.models.gp.gp import GPData, GPParams, select
+    from hebo_tpu_torch.models.gp.gp import GPData, select
+    from hebo_tpu_torch.models.gp.tree import tree_map
     from hebo_tpu_torch.optimizers.hebo import _fill, _leaf_shapes
     from hebo_tpu_torch.ops.transforms import fit_power_transform, power_transform_y
 
@@ -158,7 +159,7 @@ def test_predrawn_suggest_equals_step_by_step_draws():
         p0 = core.init_params(data, R, draws=(z_emb.clone(), z_ls.clone()))
         pf, loss, samples = core.fit_from_batched(p0, data, noise=lambda i: steps[i])
         best = torch.argmin(loss)
-        pf = GPParams(*(v.index_select(0, best.reshape(1)) for v in pf))
+        pf = tree_map(lambda v: v.index_select(0, best.reshape(1)), pf)
         samples = select(samples, best, dim=1)
         caches = core.posterior_cache_batched(samples, data)
         state = (samples, caches, data)
