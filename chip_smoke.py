@@ -24,8 +24,8 @@
    matrix that keeps its outputs) against its plain version, the ladder
    (every rung launched) against the host-decided ladder at the fit's
    shape, bit for bit, and the time of a rung that every matrix skips.
-   K5 (nondominated rank + crowding) at NSGA-II's (100, 3) and (200, 3),
-   with ties, duplicate rows, ±inf and NaN objectives and invalid rows:
+   K5 (nondominated rank + crowding) at NSGA-II's (100, 3) and (200, 3)
+   and the MCBO GA's single objective (64, 1) and (128, 1), with ties, duplicate rows, ±inf and NaN objectives and invalid rows:
    the same ranks and crowding bits as its plain version, with device µs.
    K3 runs at every AntBO shape and one beyond its register budget, with
    its route and device µs per launch (torch.profiler) beside ms per call.
@@ -98,7 +98,32 @@
        through K1's ladder at (1, 512), K1 against its plain version on that
        covariance (1e-4), and the mean of 256 draws within 4σ/√256 of
        ``predict`` at every query.
-7. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+7. Drives MCBO's named presets (``BO_ALGOS``) through
+   ``BoBuilder.build_bo(space, device="cuda")`` at their default settings
+   (50 fit epochs, batch 1), each warm-started with 200 random observations
+   (bucket 256), then 2 timed ``suggest(1)`` + observe (phase i):
+   (i1) pest control at its published size, 25 stations × 5 choices
+        (COMBO: the diffusion GP + local search; BOCS: the horseshoe linear
+        model, 300 Gibbs sweeps each factoring at (1, 5051) through K1, SA
+        over Thompson samples; BOSS: the SSK GP at L = 25 + the GA, K5;
+        BOiLS: the SSK GP + the interleaved search);
+   (i2) Ackley-53, 50 binary categoricals + 3 numerics in [−1, 1]
+        (Casmopolitan and CoCaBO: the transformed-overlap GP, K2 at D = 3,
+        with the interleaved search's and the bandit's gradient steps
+        through K2's VJP in the query points; BODi: the HED GP, K2 at
+        D = 19).
+   Every suggestion must lie in the space, be new against the history and
+   score finite; walls, fit and acquisition seconds, launches per suggest
+   and K1's calls by (batch × N) per preset.  K1, K2, its VJP, K3 and K5
+   must each launch on the path, and BOCS must factor at (1, 5051).  Every
+   distinct shape at which the path launched any kernel (``ShapeLog``: K1a,
+   K1b, K2, its VJP, K3 and K5) is then held against its plain version
+   (after the path's counts are read; K5 bit for bit on tied inputs, which
+   at the GA's single objective put several points in one front); the timed kernel
+   rows above include the path's shapes (K2 and its VJP at D 3 and 19 and
+   the descents' query shapes, K3 at L 25 on its shared-memory route, K1 at
+   (1, 5051)).
+8. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -119,6 +144,16 @@ FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet, 700 
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
 GRAM_TOL, VJP_TOL, L_TOL, W_TOL = 1e-5, 1e-4, 1e-4, 1e-3
 SSK_RAW_TOL, SSK_TAN_TOL, SSK_K_TOL = 1e-5, 1e-4, 1e-5
+# phase i's shapes, timed with the others: K2 and its VJP at the fits
+# (bucket 256; D 3 for the transformed-overlap GP on Ackley-53, 19 for the
+# HED GP) and the descents' query sets (8 interleaved starts, 16 bandit
+# candidates), K3 at pest control's L = 25 (fit, one-flip neighbours, GA
+# population; cross (N, M) with self sets of N)
+MCBO_GRAM_SHAPES = [(1, 256, 256, 3), (1, 256, 256, 19), (1, 256, 8, 3), (1, 256, 8, 19),
+                    (1, 256, 16, 3)]
+MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
+                  (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
+                  (1, 64, 64, 25, 3, [(0.6, 0.7)])]
 
 
 def cuda_ms(torch, fn, reps):
@@ -146,14 +181,14 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     buckets 1024 and 128; the large-N route's; the samplers' (4 HMC chains,
     SVI draws or gpy_wgp restarts at buckets 128 and 1024, 32 SMC
     particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
-    Gram (1, 512, 512, 6)."""
+    Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
                        (2, 2048, 2048, 6), (1, 3072, 3072, 6), (1, 3072, 100, 6),
                        (1, 3072, 128, 6), (1, 7168, 7168, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
-                       (4, 128, 128, 6), (1, 1024, 512, 6)]:
+                       (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -179,13 +214,15 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
 def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
     128 and the large-N route's subsample bucket 2048, and the samplers' (4
-    and 32 at bucket 1024, 4 at 128), on random points and on a self-Gram with coincident rows (repeated
-    rows and the zero rows of a padded bucket); twice on the same inputs,
-    which must give the same bits."""
+    and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
+    D 3 and 19, and the descents' query shapes), on random points and on a
+    self-Gram with coincident rows (repeated rows and the zero rows of a
+    padded bucket); twice on the same inputs, which must give the same
+    bits."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6),
-                       (4, 128, 128, 6)]:
+                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -193,7 +230,8 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
         x = a.clone()
         x[:, N // 2: N // 2 + 8] = x[:, :8]
         x[:, -16:] = 0.0
-        for what, (p, q) in (("random points", (a, b)), ("self-Gram, coincident rows", (x, x))):
+        pairs = [("random points", (a, b))] + ([("self-Gram, coincident rows", (x, x))] if N == M else [])
+        for what, (p, q) in pairs:
             got, want = gram.matern32_gram_vjp(p, q, sc, g), gram.matern32_gram_vjp_plain(p, q, sc, g)
             errs = [((u - v).abs().max() / v.abs().max()).item() for u, v in zip(got, want)]
             same_bits = all(torch.equal(u, v) for u, v in zip(got, gram.matern32_gram_vjp(p, q, sc, g)))
@@ -219,17 +257,22 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     return rows
 
 
+def spd(torch, B, N, dev, gen):
+    """B random SPD matrices N × N, eigenvalues ≥ 0.5."""
+    A = torch.randn((B, N, N), generator=gen, device=dev)
+    return (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
+
+
 def check_chol(torch, ck, dev, gen, fails):
     """K1a and K1b at the main paths' shapes: AntBO's fit and cache (1, 32)
     and (1, 256), HEBO's cache (1, 128) and (1, 1024), HEBO's fit (2, 128)
-    and (2, 1024), and (2, 2048).  Host dispatch is part of the time at the
+    and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051).  Host dispatch is part of the time at the
     small shapes, for the kernels and the library call alike, so those get
     more calls per timing."""
     fac, winv = [], []
-    for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (2, 2048),
+    for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128)]:
-        A = torch.randn((B, N, N), generator=gen, device=dev)
-        K = (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
+        K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
         err_f = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
@@ -307,18 +350,22 @@ def ssk_flops(s1, s2, B, P, self_mode):
 def check_ssk(torch, ssk, device_us, dev, fails):
     """K3 at the AntBO paths' shapes: the fit and cache at buckets 256 and
     32 (B = 1; B = 2 for two restarts), the local search's one-flip
-    neighbours against the bucket (209 × bucket), M = 1, (6, 2), and one
-    shape just beyond the register budget (L = 12, the smem route)."""
+    neighbours against the bucket (209 × bucket), M = 1, (6, 2), one
+    shape just beyond the register budget (L = 12, the smem route), and
+    phase i's pest control at L = 25 over 5 letters (the smem route): the
+    fit at bucket 256, the interleaved search's one-flip neighbours (101)
+    and the GA's population (64)."""
     cross_rows, self_rows = [], []
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
     cases = [(1, 256, 256, 11, 3, [(0.6, 0.7)]), (2, 256, 256, 11, 3, [(0.6, 0.7), (0.35, 0.9)]),
              (1, 209, 256, 11, 3, [(0.7, 0.6)]), (1, 209, 32, 11, 3, [(0.7, 0.6)]),
              (1, 32, 32, 11, 3, [(0.55, 0.8)]), (1, 256, 1, 11, 3, [(0.5, 0.5)]),
              (1, 13, 5, 6, 2, [(0.8, 0.3)]), (1, 256, 256, 12, 3, [(0.6, 0.7)])]
+    cases = [c + (20,) for c in cases] + [c + (5,) for c in MCBO_SSK_CASES]
     rng = np.random.default_rng(0)
-    for B, N, M, L, P, decays in cases:
-        s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=dev)
-        s2 = torch.as_tensor(rng.integers(0, 20, (M, L)), dtype=torch.int32, device=dev)
+    for B, N, M, L, P, decays, letters in cases:
+        s1 = torch.as_tensor(rng.integers(0, letters, (N, L)), dtype=torch.int32, device=dev)
+        s2 = torch.as_tensor(rng.integers(0, letters, (M, L)), dtype=torch.int32, device=dev)
         md = torch.tensor([d[0] for d in decays], device=dev)
         gd = torch.tensor([d[1] for d in decays], device=dev)
         lam2 = md * md
@@ -358,19 +405,36 @@ def check_ssk(torch, ssk, device_us, dev, fails):
     return cross_rows, self_rows
 
 
-def pareto_inputs(torch, P, edge, dev, seed):
+def pareto_inputs(torch, P, M, edge, dev, seed):
+    """F (P, M) on a coarse grid (ties in every objective), with duplicate
+    rows and, with ``edge``, ±inf and NaN entries."""
     rng = np.random.default_rng(seed)
-    F = (rng.integers(0, 4 if edge else 1000, (P, 3)) / 4).astype(np.float32)
+    F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
     F[3] = F[4]
     F[10] = F[11] = F[12]
     if edge:
-        F[20, 1] = F[21, 1] = np.inf
+        F[20, 1 % M] = F[21, 1 % M] = np.inf
         F[22, 0] = -np.inf
         F[23] = -np.inf
-        F[30, 2] = np.nan
+        F[30, 2 % M] = np.nan
         F[31] = np.nan
-        F[40] = [np.inf, -np.inf, 0.5]
+        F[40] = [np.inf, -np.inf, 0.5][:M] if M <= 3 else np.inf
     return torch.as_tensor(F, device=dev)
+
+
+def pareto_agrees(torch, pareto, P, M, dev, fails, what):
+    """K5 at (P, M) against its plain version bit for bit, on tied inputs
+    with and without the edge values, with and without a valid mask."""
+    for edge in (False, True) if P > 40 else (False,):
+        F = pareto_inputs(torch, P, M, edge, dev, P + edge)
+        for valid in (None, torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25,
+                                            device=dev)):
+            r, c = pareto.nsga2_rank_crowd(F, valid)
+            r0, c0 = pareto.nsga2_rank_crowd_plain(F, valid)
+            if not (torch.equal(r, r0) and same_bits(torch, c, c0)):
+                fails.append(f"nsga2_rank_crowd {(P, M)}{what} edge={edge} masked={valid is not None}: "
+                             f"ranks equal {torch.equal(r, r0)}, crowding bits equal "
+                             f"{same_bits(torch, c, c0)}")
 
 
 def same_bits(torch, a, b):
@@ -380,31 +444,22 @@ def same_bits(torch, a, b):
 
 
 def check_pareto(torch, pareto, device_us, dev, fails):
-    """K5 at NSGA-II's shapes: the tournament's (100, 3) and survival's
-    (200, 3), on inputs with ties, duplicate rows, ±inf and NaN, with and
-    without a valid mask: the same ranks and crowding bits as the plain
-    version.  Timed on standard-normal objectives."""
+    """K5 at NSGA-II's shapes, the tournament's (100, 3) and survival's
+    (200, 3), and at the MCBO GA's single objective, (64, 1) and (128, 1):
+    the same ranks and crowding bits as the plain version
+    (``pareto_agrees``).  Timed on standard-normal objectives."""
     rows = []
-    for P in (100, 200):
-        for edge in (False, True):
-            F = pareto_inputs(torch, P, edge, dev, P + edge)
-            for valid in (None, torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25,
-                                                device=dev)):
-                r, c = pareto.nsga2_rank_crowd(F, valid)
-                r0, c0 = pareto.nsga2_rank_crowd_plain(F, valid)
-                if not (torch.equal(r, r0) and same_bits(torch, c, c0)):
-                    fails.append(f"nsga2_rank_crowd {(P, 3)} edge={edge} masked={valid is not None}: "
-                                 f"ranks equal {torch.equal(r, r0)}, crowding bits equal "
-                                 f"{same_bits(torch, c, c0)}")
-        F = torch.randn((P, 3), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
+    for P, M in ((100, 3), (200, 3), (64, 1), (128, 1)):
+        pareto_agrees(torch, pareto, P, M, dev, fails, "")
+        F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
         fn = lambda: pareto.nsga2_rank_crowd(F)
         # operations: the domination compares (<=, <) and the crowding
         # scans' (neighbour, span) over every pair and objective
-        bms, by = bound(4 * P * P * 3, 4 * (P * 3 + 2 * P))
+        bms, by = bound(4 * P * P * M, 4 * (P * M + 2 * P))
         r, c = fn()
         r0, c0 = pareto.nsga2_rank_crowd_plain(F)
         rows.append(dict(
-            shape=[P, 3], fronts=int(r.max().item()) + 1,
+            shape=[P, M], fronts=int(r.max().item()) + 1,
             max_abs_err=float((c - c0).abs().nan_to_num(0.0).max().item()),
             ms=cuda_ms(torch, fn, 1000), device_us=device_us(torch, fn, 200, "nsga2_rank_crowd")[0],
             plain_ms=cuda_ms(torch, lambda: pareto.nsga2_rank_crowd_plain(F), 50),
@@ -1007,6 +1062,193 @@ def antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails):
     return c, d
 
 
+def ackley53_space(DesignSpace):
+    """Casmopolitan's Ackley-53 (Wan et al. 2021, §5): 50 binary
+    categoricals and 3 numerics in [−1, 1]."""
+    return DesignSpace([{"name": f"b{i}", "type": "cat", "categories": ["0", "1"]} for i in range(50)]
+                       + [{"name": f"x{i}", "type": "num", "lb": -1.0, "ub": 1.0} for i in range(3)])
+
+
+def ackley53(df):
+    """Ackley over the 53 inputs, the binary ones as 0 / 1."""
+    Z = np.concatenate([df[[f"b{i}" for i in range(50)]].values.astype(float),
+                        df[[f"x{i}" for i in range(3)]].values.astype(float)], 1)
+    s1 = (Z ** 2).mean(1) ** 0.5
+    s2 = np.cos(2 * math.pi * Z).mean(1)
+    return (-20.0 * np.exp(-0.2 * s1) - np.exp(s2) + 20.0 + math.e).reshape(-1, 1)
+
+
+class ShapeLog:
+    """Records the shapes at which every kernel is launched while it is
+    open, by wrapping ``native.call``, through which every wrapper launches
+    (the dims are its trailing arguments; each wrapper still counts its own
+    launches): K2 and its VJP (B, N, M, D), K3 cross (B, N, M, L, P) and
+    self (B, N, L, P), K1a (B, n), K1b (B, padded n) and K5 (P, M)."""
+
+    DIMS = {"hebo_matern32_gram": ("matern32_gram", -4, None),
+            "hebo_matern32_gram_vjp": ("matern32_gram_vjp", -4, None),
+            "hebo_ssk_cross": ("ssk_cross", -5, None), "hebo_ssk_self": ("ssk_self", -4, None),
+            "hebo_chol_factor": ("chol_factor", -3, -1), "hebo_chol_winv": ("chol_winv", -2, None),
+            "hebo_nsga2_rank_crowd": ("nsga2_rank_crowd", -2, None)}
+
+    def __init__(self):
+        from hebo_tpu_torch.ops import native
+
+        self.seen = {name: set() for name, _, _ in self.DIMS.values()}
+        self._native, self._saved = native, native.call
+
+        def call(fn, device, *args):
+            hit = self.DIMS.get(getattr(fn, "__name__", ""))
+            if hit is not None:
+                self.seen[hit[0]].add(tuple(int(a) for a in args[hit[1]:hit[2]]))
+            return self._saved(fn, device, *args)
+
+        native.call = call
+
+    def close(self):
+        self._native.call = self._saved
+
+
+def mcbo_problems(DesignSpace, PestControlTask):
+    """Phase i's problems, {name: (space, objective)}: pest control at its
+    published size (25 stations × 5 choices) and Ackley-53."""
+    pest = PestControlTask(n_stations=25)
+    return {"pest": (pest.space, pest), "ackley53": (ackley53_space(DesignSpace), ackley53)}
+
+
+MCBO_PRESETS = (("COMBO", "pest"), ("BOCS", "pest"), ("BOSS", "pest"), ("BOiLS", "pest"),
+                ("Casmopolitan", "ackley53"), ("BODi", "ackley53"), ("CoCaBO", "ackley53"))
+
+
+def mcbo_phase(torch, DesignSpace, wrappers, fails):
+    """Phase i: every ``BO_ALGOS`` preset but RDUCB through
+    ``build_bo(space, device="cuda")`` at its defaults, 200 random warm
+    observations, then 2 × suggest(1); returns the per-preset rows and the
+    shapes the kernels were called at."""
+    from hebo_tpu_torch.bench.profile_suggest import K1Batches
+    from hebo_tpu_torch.optimizers.bo_builder import BO_ALGOS
+    from hebo_tpu_torch.tasks import PestControlTask
+
+    problems = mcbo_problems(DesignSpace, PestControlTask)
+    rows = {}
+    k1, shapes = K1Batches(), ShapeLog()
+    try:
+        for name, prob in MCBO_PRESETS:
+            space, f = problems[prob]
+            opt = BO_ALGOS[name].build_bo(space, n_init=10, seed=0, device="cuda")
+            warm = space.sample(200, seed=1)
+            opt.observe(warm, f(warm))
+            k1.take()
+            walls, launches, batches = [], [], []
+            for _ in range(2):
+                before = {k: w.launches for k, w in wrappers.items()}
+                seen = {tuple(np.round(r, 6)) for r in space.transform(opt.X)}
+                t0 = time.time()
+                rec = opt.suggest(1)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+                launches.append({k: w.launches - before[k] for k, w in wrappers.items()
+                                 if w.launches > before[k]})
+                batches.append(k1.take())
+                X = space.transform(rec)
+                y = f(rec)
+                what = f"phase i {name} @ {opt.num_obs}"
+                if not (len(rec) == 1 and np.isfinite(X).all() and (X >= space.opt_lb).all()
+                        and (X <= space.opt_ub).all() and np.array_equal(X, space.round_opt(X))):
+                    fails.append(f"{what}: suggestion not in the space: {rec.values.tolist()}")
+                if tuple(np.round(X[0], 6)) in seen:
+                    fails.append(f"{what}: suggestion repeats an observation")
+                if not np.isfinite(y).all():
+                    fails.append(f"{what}: objective not finite")
+                opt.observe(rec, y)
+            model = opt.model
+            rows[name] = dict(
+                problem=prob, model=BO_ALGOS[name].model_id, acq_opt=BO_ALGOS[name].acq_opt_id,
+                acq=BO_ALGOS[name].acq_func_id, n_obs=opt.num_obs,
+                bucket=int(model.data.X.shape[0]) if hasattr(model, "data") else None,
+                s_per_suggest=walls, fit_s=opt.fit_time[-2:], acq_s=opt.acq_time[-2:],
+                launches_per_suggest=launches, k1_calls_by_batch=batches, best=opt.best_y)
+            print(f"phase i {name} ({prob}):", json.dumps(rows[name]), flush=True)
+    finally:
+        k1.close()
+        shapes.close()
+    bocs = rows["BOCS"]["k1_calls_by_batch"]
+    if not all(b.get("1x5051", 0) >= 300 for b in bocs):
+        fails.append(f"phase i BOCS: K1 did not factor at (1, 5051) in every Gibbs sweep: {bocs}")
+    for name, kernels in (("BOSS", ("ssk_cross", "ssk_self", "nsga2_rank_crowd")),
+                          ("BOiLS", ("ssk_cross", "ssk_self")),
+                          ("Casmopolitan", ("matern32_gram", "matern32_gram_vjp")),
+                          ("BODi", ("matern32_gram", "matern32_gram_vjp")),
+                          ("CoCaBO", ("matern32_gram", "matern32_gram_vjp"))):
+        for k in kernels + ("chol_factor", "chol_winv"):
+            if not all(r.get(k, 0) > 0 for r in rows[name]["launches_per_suggest"]):
+                fails.append(f"phase i {name}: a suggest launched no {k}")
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    print("phase i shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
+def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
+    """Every distinct shape at which a path launched a kernel, on random
+    inputs, against the plain version at the tolerances of the timed
+    checks: K2 and its VJP, K1a and K1b on SPD matrices, K5 bit for bit on
+    tied inputs (``pareto_agrees``), K3 on codes over 5 letters."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {}
+    for B, N, M, D in shapes["matern32_gram"]:
+        a, b = (torch.randn((B, n, D), generator=gen, device=dev) for n in (N, M))
+        sc = torch.rand((B,), generator=gen, device=dev) + 0.5
+        e = (gram.matern32_gram(a, b, sc) - gram.matern32_gram_plain(a, b, sc)).abs().max().item()
+        errs[f"matern32_gram {(B, N, M, D)}"] = e
+        if not e <= GRAM_TOL:
+            fails.append(f"matern32_gram at the path's {(B, N, M, D)}: max abs err {e}")
+    for B, N, M, D in shapes["matern32_gram_vjp"]:
+        a, b = (torch.randn((B, n, D), generator=gen, device=dev) for n in (N, M))
+        sc = torch.rand((B,), generator=gen, device=dev) + 0.5
+        g = torch.randn((B, N, M), generator=gen, device=dev)
+        got, want = gram.matern32_gram_vjp(a, b, sc, g), gram.matern32_gram_vjp_plain(a, b, sc, g)
+        e = max(((u - v).abs().max() / v.abs().max()).item() for u, v in zip(got, want))
+        errs[f"matern32_gram_vjp {(B, N, M, D)}"] = e
+        if not e <= VJP_TOL:
+            fails.append(f"matern32_gram_vjp at the path's {(B, N, M, D)}: error over max {e}")
+    # K1b's dims are the padded size, which pads to itself
+    for name, (B, N) in [("chol_factor", sh) for sh in shapes["chol_factor"]] + \
+            [("chol_winv", sh) for sh in shapes["chol_winv"]]:
+        K = spd(torch, B, N, dev, gen)
+        L, Wd = ck.chol_factor(K)
+        if name == "chol_factor":
+            L0, Wd0 = ck.chol_factor_plain(K)
+            e, tol = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item()), L_TOL
+        else:
+            e, tol = (ck.chol_winv(L, Wd) - ck.chol_winv_plain(L, Wd)).abs().max().item(), W_TOL
+        errs[f"{name} {(B, N)}"] = e
+        if not e <= tol:
+            fails.append(f"{name} at the path's {(B, N)}: max abs err {e}")
+    for P, M in shapes["nsga2_rank_crowd"]:
+        n = len(fails)
+        pareto_agrees(torch, pareto, P, M, dev, fails, " at the path's shape")
+        errs[f"nsga2_rank_crowd {(P, M)}"] = "same bits" if len(fails) == n else "differ"
+    rel = lambda x, y: ((x - y).abs() / y.abs().clamp(min=1e-6)).max().item()
+    rng = np.random.default_rng(7)
+    cases = [(B, N, M, L, P, True) for B, N, M, L, P in shapes["ssk_cross"]]
+    cases += [(B, N, 0, L, P, False) for B, N, L, P in shapes["ssk_self"]]
+    for B, N, M, L, P, cross in cases:
+        s1 = torch.as_tensor(rng.integers(0, 5, (N, L)), dtype=torch.int32, device=dev)
+        s2 = torch.as_tensor(rng.integers(0, 5, (max(M, 1), L)), dtype=torch.int32, device=dev)
+        lam2 = torch.as_tensor(rng.uniform(0.2, 0.8, B), dtype=torch.float32, device=dev)
+        gap = torch.as_tensor(rng.uniform(0.2, 0.9, B), dtype=torch.float32, device=dev)
+        got = ssk.ssk_cross(s1, s2, lam2, gap, P) if cross else ssk.ssk_self(s1, lam2, gap, P)
+        want = (ssk.ssk_cross_plain(s1, s2, lam2, gap, P) if cross
+                else ssk.ssk_self_plain(s1, lam2, gap, P))
+        e = [rel(x, y) for x, y in zip(got, want)]
+        key = f"ssk_{'cross' if cross else 'self'} {(B, N, M, L, P) if cross else (B, N, L, P)}"
+        errs[key] = max(e)
+        if not (e[0] <= SSK_RAW_TOL and max(e[1:]) <= SSK_TAN_TOL):
+            fails.append(f"{key} at the path's shape ({ssk.route(L, P)} route): max rel errs {e}")
+    print(f"path shapes against their plain versions ({len(errs)} shapes):", json.dumps(errs), flush=True)
+    return errs
+
+
 def main() -> int:
     import torch
 
@@ -1076,7 +1318,11 @@ def main() -> int:
                             "nsga2_rank_crowd")),
         "gp_thompson": (lambda: thompson_phase(torch, DesignSpace, GP, ck, wrappers, fails),
                         ("matern32_gram", "chol_factor", "chol_winv")),
+        "mcbo_presets": (lambda: mcbo.update(mcbo_phase(torch, DesignSpace, wrappers, fails)),
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                          "ssk_cross", "ssk_self", "nsga2_rank_crowd")),
     }
+    mcbo = {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -1089,6 +1335,7 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
+    check_path_shapes(torch, gram, ssk, ck, pareto, mcbo["shapes"], dev, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
                   "chol_factor": [2, 1024], "chol_winv": [2, 1024],

@@ -1,3 +1,5 @@
-from .acq import EI, LCB, MACE, PI, UCB, AcqParams, Acquisition, log_ei, log_pi
+from .acq import (CEI, EI, LCB, MACE, PI, UCB, AcqParams, Acquisition, Mean, Sigma,
+                  ThompsonSampling, log_ei, log_pi)
 
-__all__ = ["AcqParams", "Acquisition", "LCB", "UCB", "EI", "PI", "MACE", "log_ei", "log_pi"]
+__all__ = ["AcqParams", "Acquisition", "LCB", "UCB", "Mean", "Sigma", "EI", "PI", "MACE",
+           "ThompsonSampling", "CEI", "log_ei", "log_pi"]

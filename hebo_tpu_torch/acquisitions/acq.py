@@ -1,4 +1,4 @@
-"""Acquisition functions (port of ``hebo_tpu/acquisitions/acq.py``, :48-179).
+"""Acquisition functions (port of ``hebo_tpu/acquisitions/acq.py``, :48-245).
 
 Minimization convention: ``eval(model, state, params, X)`` returns
 (P, num_obj + num_constr).  ``model.predict_pure(state, X)`` gives the
@@ -13,6 +13,13 @@ log EI is kept.  ``_ndtr`` is ½·erfc(−z/√2), as JAX's ``norm.cdf``:
 MACE's noise-perturbed mean takes its standard normals in ``AcqParams.z``
 (the JAX package draws them from a fixed key, so every evaluation of one
 suggest sees the same draws).
+
+``ThompsonSampling`` keeps the JAX package's key semantics: every
+evaluation within one suggest draws from a generator on the model's device
+seeded afresh with ``AcqParams.seed`` (the JAX package's
+``PRNGKey(num_obs)``), so a whole acquisition search optimises one
+posterior function draw.  ``AddLCB`` (slice 12), ``MOMeanSigmaLCB`` and
+``GeneralAcq`` (slice 10) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ from typing import NamedTuple, Optional
 import torch
 
 __all__ = [
-    "AcqParams", "Acquisition", "LCB", "EI", "PI", "UCB", "MACE", "log_ei", "log_pi",
+    "AcqParams", "Acquisition", "LCB", "Mean", "Sigma", "EI", "PI", "UCB", "MACE",
+    "ThompsonSampling", "CEI", "log_ei", "log_pi",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -37,6 +45,7 @@ class AcqParams(NamedTuple):
     eps: object = 1e-4  # EI/PI improvement slack
     noise: object = 0.0  # obs-noise scale of the perturbed mean
     z: Optional[torch.Tensor] = None  # (P, 1) standard normals, or None
+    seed: Optional[int] = None  # Thompson sampling's draw (None: 0, as PRNGKey(0))
 
 
 def _ndtr(z: torch.Tensor) -> torch.Tensor:
@@ -87,6 +96,18 @@ class LCB(Acquisition):
 UCB = LCB
 
 
+class Mean(Acquisition):
+    def eval(self, model, state, params, X):
+        return _predict(model, state, X)[0]
+
+
+class Sigma(Acquisition):
+    """−σ: minimising it maximises the predictive uncertainty."""
+
+    def eval(self, model, state, params, X):
+        return -_predict(model, state, X)[1]
+
+
 class EI(Acquisition):
     def eval(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
@@ -115,3 +136,53 @@ class MACE(Acquisition):
         lei = log_ei(normed, torch.log(sigma))
         lpi = log_pi(normed)
         return torch.cat([lcb, -lei, -lpi], dim=-1)
+
+
+class ThompsonSampling(Acquisition):
+    """One posterior function draw (acq.py:182-199): ``model.joint_sample_pure``
+    (the GP's joint draw, ``lin_reg``'s coefficient draw) where the model has
+    it, else μ + εσ with one shared ε.  The generator is made on the model's
+    device and seeded with ``params.seed`` at every evaluation, so the
+    evaluations of one suggest see the same function."""
+
+    def eval(self, model, state, params, X):
+        gen = torch.Generator(device=X.device)
+        gen.manual_seed(0 if params.seed is None else int(params.seed))
+        if hasattr(model, "joint_sample_pure"):
+            return model.joint_sample_pure(state, gen, X)
+        mu, sigma = _predict(model, state, X)
+        eps = torch.randn((1, 1), generator=gen, dtype=mu.dtype, device=mu.device)
+        return mu + eps * sigma
+
+
+class CEI(Acquisition):
+    """Constrained EI, −(log EI + Σ_i log Φ((λ_i − μ_i)/σ_i)) (acq.py:202-245):
+    output 0 of the model is the objective, outputs 1..k the constraints
+    with thresholds ``lambdas``.  ``augmented_ei`` multiplies EI by
+    1 − σ_n/√(σ² + σ_n²); a non-finite ``params.tau`` scores feasibility
+    alone.  One minimisation column."""
+
+    def __init__(self, num_constr: int = 0, lambdas=None, augmented_ei: bool = False):
+        self.num_constr = 0  # exposed as a single minimisation column
+        self._n_constr = int(num_constr)
+        self.lambdas = [0.0] * self._n_constr if lambdas is None else [float(v) for v in lambdas]
+        self.augmented_ei = augmented_ei
+
+    def eval(self, model, state, params, X):
+        mu, sigma = _predict(model, state, X)  # (P, 1 + n_constr)
+        mu0, s0 = mu[:, :1], sigma[:, :1]
+        tau = torch.as_tensor(params.tau, dtype=mu.dtype, device=mu.device)
+        normed = (tau - params.eps - mu0) / s0
+        lei = log_ei(normed, torch.log(s0))
+        if self.augmented_ei:
+            sn = torch.as_tensor(params.noise, dtype=mu.dtype, device=mu.device)
+            lei = lei + torch.log(torch.clamp(
+                1.0 - sn / torch.sqrt(s0 ** 2 + sn ** 2 + 1e-12), min=1e-12))
+        if self._n_constr:
+            lam = torch.as_tensor(self.lambdas, dtype=mu.dtype, device=mu.device)
+            mc = mu[:, 1:1 + self._n_constr]
+            sc = sigma[:, 1:1 + self._n_constr]
+            lfeas = torch.special.log_ndtr((lam[None, :] - mc) / sc).sum(-1, keepdim=True)
+        else:
+            lfeas = torch.zeros_like(lei)
+        return torch.where(torch.isfinite(tau), -(lei + lfeas), -lfeas)

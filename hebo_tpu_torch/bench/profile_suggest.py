@@ -4,6 +4,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest --antbo [--obs 28 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --large-n [--obs 3000]
     python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --mcbo BOCS [Casmopolitan ...] [--obs 200]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -44,8 +45,18 @@ HEBO with ``model_config={"inference": "hmc"}`` (default 800 observations,
 bucket 1024; the generic route, eager): the MAP fit, then 4 HMC chains of
 64 warm-up transitions and one kept, each transition up to 8 leapfrog
 steps, every step one batched NLL at (4, bucket); with K1's calls by
-batch size and the chains' acceptance rate.
-Prints one JSON line per observation count.
+batch size and the chains' acceptance rate.  With ``--mcbo PRESET ...``,
+MCBO's named presets (``BO_ALGOS``) at chip_smoke phase i's setting: the
+preset's defaults through ``build_bo(space, device="cuda")``, warm-started
+with 200 random observations (bucket 256) of pest control with 25
+stations (COMBO, BOCS, BOSS, BOiLS) or of Ackley-53 (50 binary + 3
+numerics; Casmopolitan, BODi, CoCaBO), the problems of
+``chip_smoke.mcbo_problems`` (the script at the repository's root, which
+this mode imports), a warm-up ``suggest(1)``, one timed
+with the optimizer's fit and acquisition seconds, and one profiled as
+above, with K1's calls by (batch × N) and K2's forward and VJP calls,
+launches and device ms.
+Prints one JSON line per observation count (per preset).
 """
 
 from __future__ import annotations
@@ -53,7 +64,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,7 +77,7 @@ from ..ops import chol as chol_mod
 from ..ops import chol_kernel, gram, pareto, ssk
 from ..models.gp import gp as gp_mod
 from ..optimizers.antbo import AntBOOptimizer
-from ..tasks import AbsolutTool
+from ..tasks import AbsolutTool, PestControlTask
 from .gram_probe import device_per_call
 
 
@@ -190,9 +203,9 @@ def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
             "k2": _k2_block(by_name, calls, bucket)}
 
 
-def _k2_block(by_name, calls, bucket) -> dict:
-    """K2 in the profiled suggest, and one Gram backward at the fit's
-    shape timed apart."""
+def _k2_counts(by_name, calls) -> dict:
+    """K2's forward and VJP wrapper calls since ``calls``, and their device
+    launches, ms and µs per launch in the profiled suggest."""
     block = {"fwd_calls": gram.matern32_gram.launches - calls[0],
              "vjp_calls": gram.matern32_gram_vjp.launches - calls[1]}
     for part, key in (("fwd", "matern32_gram"), ("vjp", "matern32_vjp")):
@@ -200,6 +213,13 @@ def _k2_block(by_name, calls, bucket) -> dict:
         ms = sum(ms for k, (_, ms) in by_name.items() if key in k)
         block.update({f"{part}_launches": n, f"{part}_device_ms": ms,
                       f"{part}_us_per_launch": 1e3 * ms / max(n, 1)})
+    return block
+
+
+def _k2_block(by_name, calls, bucket) -> dict:
+    """K2 in the profiled suggest, and one Gram backward at the fit's
+    shape timed apart."""
+    block = _k2_counts(by_name, calls)
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     leaves = [torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)
@@ -279,6 +299,50 @@ def profile_antbo(n_obs: int) -> dict:
             "device": torch.cuda.get_device_name(0), **phases, **prof}
 
 
+def profile_mcbo(name: str, n_obs: int = 200) -> dict:
+    from ..optimizers.bo_builder import BO_ALGOS
+
+    # phase i's problems are defined once, in the repository's chip_smoke.py
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    problem = dict(chip_smoke.MCBO_PRESETS)[name]
+    space, f = chip_smoke.mcbo_problems(DesignSpace, PestControlTask)[problem]
+    opt = BO_ALGOS[name].build_bo(space, n_init=10, seed=0, device="cuda")
+    warm = space.sample(n_obs, seed=1)
+    opt.observe(warm, f(warm))
+
+    def step():
+        rec = opt.suggest(1)
+        torch.cuda.synchronize()
+        opt.observe(rec, f(rec))
+
+    t0 = time.perf_counter()
+    step()  # warm-up: builds/loads kernels, cuBLAS handles
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step()
+    phases = {"first_s": first_s, "suggest_s": time.perf_counter() - t0,
+              "fit_s": opt.fit_time[-1], "acq_s": opt.acq_time[-1]}
+    calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+    k1 = K1Batches()
+    try:
+        prof = _device_profile(step)
+    finally:
+        k1.close()
+    by_name = prof.pop("by_name")
+    prof.pop("range_device_ms")
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    model = opt.model
+    return {"preset": name, "n_obs": n_obs,
+            "bucket": int(model.data.X.shape[0]) if hasattr(model, "data") else None,
+            "device": torch.cuda.get_device_name(0), **phases,
+            "profiled_fit_s": opt.fit_time[-1], "profiled_acq_s": opt.acq_time[-1], **prof,
+            "k1_calls_by_batch": k1.take(),
+            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "k2": _k2_counts(by_name, calls)}
+
+
 _RANGES = ("pcg_solve",)
 
 
@@ -344,14 +408,21 @@ def main():
                     help="profile HEBO's generic route above max_cholesky_size (default 3000 obs)")
     ap.add_argument("--hmc", action="store_true",
                     help="profile HEBO with the GP's HMC posterior (default 800 obs)")
+    ap.add_argument("--mcbo", nargs="+", default=None, metavar="PRESET",
+                    help="profile these BO_ALGOS presets at chip_smoke phase i's setting")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
-                    help="observation counts (default 112 800; with --antbo 28 200)")
+                    help="observation counts (default 112 800; with --antbo 28 200; with --mcbo 200)")
     ap.add_argument("--paths", nargs="+", default=["graph", "eager"], choices=["graph", "eager"],
                     help="HEBO's paths to profile (default both)")
     ap.add_argument("--timed", type=int, default=3, help="timed suggests per path (HEBO)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
+    if args.mcbo:
+        for name in args.mcbo:
+            for n in args.obs or [200]:
+                print(json.dumps(profile_mcbo(name, n)), flush=True)
+        return
     default = [28, 200] if args.antbo else [3000] if args.large_n else [800] if args.hmc else [112, 800]
     for n in args.obs or default:
         if args.large_n or args.hmc:

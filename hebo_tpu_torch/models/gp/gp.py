@@ -21,12 +21,18 @@ Random numbers come from a ``torch.Generator`` on the device, or are passed
 in (``init_params(draws=...)``, ``fit_from_batched(noise=...)``) so that a
 test can feed the JAX package's own draws.
 
-Categorical columns take one of four ``cat_kernel`` modes (gp.py:136-178):
-``embedding`` (learned embeddings inside the Matérn, HEBO's default) or the
-purely pairwise ``overlap``, ``transformed_overlap`` and ``ssk`` (string
+Categorical columns take one of seven ``cat_kernel`` modes (gp.py:136-181):
+``embedding`` (learned embeddings inside the Matérn, HEBO's default),
+``hed`` (the Hamming similarity to ``hed_num_anchors`` fixed random anchors
+as extra Matérn features, BODi), the purely pairwise ``overlap``,
+``transformed_overlap``, ``diffusion`` (COMBO) and ``ssk`` (string
 subsequence kernel, AntBO/BOSS), whose Gram multiplies the Matérn part of
-the numerics.  Their parameters trail ``log_ls`` (θ for transformed overlap,
-logits of the match and gap decays for SSK).
+the numerics, and ``conditional_to`` (hierarchical spaces: each category
+group's Gram is the stationary kernel over its own numeric dims, inside a
+transformed overlap; ``cond_groups``, ``cond_cat_to_group``).  Their
+parameters trail ``log_ls`` (θ per column for transformed overlap and
+conditional_to, the decays β per column for diffusion, logits of the match
+and gap decays for SSK).
 
 On CUDA the Matérn-3/2 Gram goes through kernel K2 (``ops/gram.py``), the
 SSK Gram through kernel K3 (``ops/ssk.py``) and every factorization through
@@ -57,7 +63,8 @@ from ...utils.dtypes import pad_bucket
 from ..base import BaseModel, register_model
 from .inference import hmc_sample, slice_sample, smc_sample, svi_fit
 from .tree import adam_step, tree_leaves, tree_map, tree_unflatten
-from .kernels import MATERN_FNS, embed_categorical, overlap, sq_dist, transformed_overlap
+from .kernels import (MATERN_FNS, conditional_transformed_overlap, diffusion_kernel,
+                      embed_categorical, hed_embed, overlap, sq_dist, transformed_overlap)
 
 __all__ = ["GPParams", "GPData", "GPCache", "GPCore", "GP", "WarpedGP", "MLPKernelGP",
            "make_data", "map_fit"]
@@ -105,7 +112,8 @@ class GPCache(NamedTuple):
     res: Optional[torch.Tensor] = None  # (S,) CG: relative residual of α
 
 
-_CAT_KERNELS = ("embedding", "overlap", "transformed_overlap", "ssk")
+_CAT_KERNELS = ("embedding", "overlap", "transformed_overlap", "diffusion", "hed", "ssk",
+                "conditional_to")
 _OPTIMIZERS = ("psgld", "adam", "slice")
 
 
@@ -128,6 +136,7 @@ class GPCore:
         cat_kernel: str = "embedding",
         noise_lb: float = 8.9e-5,
         emb_dim: Optional[int] = None,
+        hed_num_anchors: int = 16,
         ssk_max_subseq: int = 3,
         optimizer: str = "psgld",
         n_steps: int = 100,
@@ -139,14 +148,13 @@ class GPCore:
         max_cholesky_size: int = 2048,
         cg_rank: int = 128,
         cg_iters: int = 96,
+        cond_groups=None,
+        cond_cat_to_group=None,
     ):
         if kernel not in MATERN_FNS:
             raise ValueError(f"unknown kernel {kernel!r}; known: {sorted(MATERN_FNS)}")
         if cat_dims and cat_kernel not in _CAT_KERNELS:
-            raise NotImplementedError(
-                f"cat_kernel {cat_kernel!r}: only {', '.join(_CAT_KERNELS)} are ported "
-                "(the others are ROADMAP slice 11)"
-            )
+            raise ValueError(f"unknown cat_kernel {cat_kernel!r}; known: {', '.join(_CAT_KERNELS)}")
         if optimizer not in _OPTIMIZERS:
             raise ValueError(f"unknown optimizer {optimizer!r}; known: {', '.join(_OPTIMIZERS)}")
         self.numeric_dims = tuple(numeric_dims)
@@ -169,9 +177,22 @@ class GPCore:
         self.d_num = len(self.numeric_dims)
         self.cat_kernel = cat_kernel if self.cat_dims else "embedding"
         C = len(self.cat_dims)
-        n_cat_feat = C * self.emb_dim if self.cat_kernel == "embedding" else 0
-        # trailing cat-kernel parameters of log_ls: θ per column, or SSK's two decays
-        self.n_cat_param = {"transformed_overlap": C, "ssk": 2}.get(self.cat_kernel, 0)
+        n_cat_feat = {"embedding": C * self.emb_dim,
+                      "hed": int(hed_num_anchors)}.get(self.cat_kernel, 0)
+        # trailing cat-kernel parameters of log_ls: θ or β per column, or SSK's two decays
+        self.n_cat_param = {"transformed_overlap": C, "diffusion": C, "conditional_to": C,
+                            "ssk": 2}.get(self.cat_kernel, 0)
+        self.hed_anchors = None
+        if self.cat_kernel == "hed":
+            # the JAX package's anchors (gp.py:146-149): the same numpy draws
+            rng = np.random.default_rng(7)
+            self.hed_anchors = np.stack(
+                [rng.integers(0, np.asarray(self.num_categories)) for _ in range(int(hed_num_anchors))]
+            ).astype(np.float32)  # (m, C)
+        # conditional_to: groups of positions into numeric_dims, and each
+        # category's group (-1: no hyperparameters)
+        self.cond_groups = tuple(tuple(int(i) for i in g) for g in (cond_groups or ()))
+        self.cond_cat_to_group = tuple(int(g) for g in (cond_cat_to_group or ()))
         self.ssk_max_subseq = int(ssk_max_subseq)
         self.n_feat_dims = self.d_num + n_cat_feat
         self.d_feat = self.n_feat_dims + self.n_cat_param
@@ -197,6 +218,16 @@ class GPCore:
             self._index[key] = cols
         return cols
 
+    def _const(self, name: str, device: torch.device, make):
+        """A constant tensor ``make(device)`` made once per device (the HED
+        anchors, the cardinalities, the conditional groups), for the same
+        reason as ``_columns``."""
+        key = (name, str(device))
+        t = self._index.get(key)
+        if t is None:
+            t = self._index[key] = make(device)
+        return t
+
     # ------------------------------------------------------------- features
     def features(self, params: GPParams, X: torch.Tensor, data: GPData) -> torch.Tensor:
         """(B, N, n_feat_dims): scaled numerics in [-1, 1] (through the
@@ -207,7 +238,7 @@ class GPCore:
         parts = []
         if self.d_num:
             xn = X.index_select(1, num_idx)
-            u = torch.clamp((xn - data.x_lb) / data.x_span, 0.0, 1.0).expand(B, -1, -1)
+            u = _clip((xn - data.x_lb) / data.x_span, 0.0, 1.0).expand(B, -1, -1)
             if self.input_warp:
                 a = torch.exp(params.log_wa)[:, None, :]
                 b = torch.exp(params.log_wb)[:, None, :]
@@ -216,6 +247,9 @@ class GPCore:
             parts.append(2.0 * u - 1.0)
         if self.cat_dims and self.cat_kernel == "embedding":
             parts.append(embed_categorical(X.index_select(1, cat_idx), params.emb, offs))
+        elif self.cat_dims and self.cat_kernel == "hed":
+            anchors = self._const("hed", X.device, lambda d: torch.as_tensor(self.hed_anchors, device=d))
+            parts.append(hed_embed(X.index_select(1, cat_idx), anchors).expand(B, -1, -1))
         if not parts:
             return X.new_zeros((B, X.shape[0], 0))
         return torch.cat(parts, -1)
@@ -230,29 +264,65 @@ class GPCore:
             return overlap(c1, c2)[None]
         if self.cat_kernel == "transformed_overlap":
             return transformed_overlap(c1, c2, torch.exp(cat_p))
+        if self.cat_kernel == "diffusion":
+            ncat = self._const("ncat", X1.device, lambda d: torch.as_tensor(
+                self.num_categories, dtype=torch.float32, device=d))
+            return diffusion_kernel(c1, c2, torch.exp(cat_p), ncat)
         return ssk_gram(c1, c2, torch.sigmoid(cat_p[:, 0]), torch.sigmoid(cat_p[:, 1]),
                         self.ssk_max_subseq)
+
+    def _stationary(self, f1: torch.Tensor, f2: torch.Tensor, ls: torch.Tensor,
+                    sc: torch.Tensor) -> torch.Tensor:
+        """(B, N, M) sc × the stationary kernel over features (B, N, F),
+        (B, M, F) with lengthscales (B, F); Matérn-3/2 through kernel K2."""
+        if self.kernel_name == "matern32":
+            l3 = ls[:, None, :]
+            return matern32_gram((f1 / l3).contiguous(), (f2 / l3).contiguous(), sc.contiguous())
+        return sc[:, None, None] * self.kfn(f1, f2, ls)
 
     def gram_points(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor,
                     data: GPData) -> torch.Tensor:
         """(B, N, M) outputscale × the stationary kernel over the features
         (Matérn-3/2: kernel K2) × the pairwise categorical kernel, where
-        there is one."""
+        there is one; for ``conditional_to`` the outputscale × the
+        conditional transformed overlap of the groups' Grams
+        (gp.py:270-309)."""
         sc = torch.exp(params.log_sc)
-        if self.n_feat_dims and self.kernel_name == "matern32":
-            ls = torch.exp(params.log_ls[:, : self.n_feat_dims])[:, None, :]
-            a = (self.features(params, X1, data) / ls).contiguous()
-            b = (self.features(params, X2, data) / ls).contiguous()
-            K = matern32_gram(a, b, sc.contiguous())
-        elif self.n_feat_dims:
+        if self.cat_kernel == "conditional_to":
+            return sc[:, None, None] * self._conditional_gram(params, X1, X2, data)
+        if self.n_feat_dims:
             ls = torch.exp(params.log_ls[:, : self.n_feat_dims])
-            f1, f2 = self.features(params, X1, data), self.features(params, X2, data)
-            K = sc[:, None, None] * self.kfn(f1, f2, ls)
+            K = self._stationary(self.features(params, X1, data), self.features(params, X2, data),
+                                 ls, sc)
         else:
             K = sc[:, None, None]
-        if self.cat_kernel != "embedding":
+        if self.cat_kernel not in ("embedding", "hed"):
             K = K * self.cat_gram(params, X1, X2)
         return K
+
+    def _conditional_gram(self, params: GPParams, X1: torch.Tensor, X2: torch.Tensor,
+                          data: GPData) -> torch.Tensor:
+        """(B, N, M) conditional transformed overlap: each group's Gram is
+        the unit-scale stationary kernel over its numeric dims (K2 for
+        Matérn-3/2); without groups, ones."""
+        f1, f2 = self.features(params, X1, data), self.features(params, X2, data)
+        ls = torch.exp(params.log_ls[:, : self.n_feat_dims])
+        B = ls.shape[0]
+        ones = ls.new_ones((B,))
+        grams = []
+        for k, dims in enumerate(self.cond_groups):
+            d = self._const(f"cond{k}", X1.device, lambda dv, dims=dims: torch.as_tensor(
+                dims, dtype=torch.int64, device=dv))
+            grams.append(self._stationary(f1.index_select(-1, d), f2.index_select(-1, d),
+                                          ls.index_select(-1, d), ones))
+        if not grams:
+            grams = [f1.new_ones((B, X1.shape[0], X2.shape[0]))]
+        cat_idx = self._columns(X1.device)[1]
+        c2g = self._const("c2g", X1.device, lambda dv: torch.as_tensor(
+            self.cond_cat_to_group, dtype=torch.int64, device=dv))
+        lam = torch.exp(params.log_ls[:, self.n_feat_dims:])
+        return conditional_transformed_overlap(X1.index_select(1, cat_idx), X2.index_select(1, cat_idx),
+                                               torch.stack(grams, 1), c2g, lam)
 
     def noise_base(self, params: GPParams) -> torch.Tensor:
         """(B,) the homoscedastic noise variance; the CG routes'
@@ -644,6 +714,7 @@ class GP(BaseModel):
             cat_kernel=conf.get("cat_kernel", "embedding"),
             noise_lb=conf.get("noise_lb", 8.9e-5),
             emb_dim=conf.get("emb_dim"),
+            hed_num_anchors=conf.get("hed_num_anchors", 16),
             ssk_max_subseq=conf.get("ssk_max_subseq", 3),
             optimizer=conf.get("optimizer", "psgld"),
             n_steps=conf.get("num_epochs", 100),
@@ -654,6 +725,8 @@ class GP(BaseModel):
             max_cholesky_size=conf.get("max_cholesky_size", 2048),
             cg_rank=conf.get("cg_rank", 128),
             cg_iters=conf.get("cg_iters", 96),
+            cond_groups=conf.get("cond_groups"),
+            cond_cat_to_group=conf.get("cond_cat_to_group"),
         )
         self.n_restarts = conf.get("n_restarts", 1)
         self.n_chains = conf.get("n_chains", 4)
@@ -725,13 +798,16 @@ class GP(BaseModel):
     def state(self):
         return (self.samples, self.caches, self.data)
 
-    @torch.no_grad()
     def predict_pure(self, state, Xs: torch.Tensor):
-        """(mu, var) in the raw-y frame for opt-frame tensors Xs (P, D)."""
+        """(mu, var) in the raw-y frame for opt-frame tensors Xs (P, D),
+        differentiable in Xs (the interleaved and bandit optimizers descend
+        the acquisition through it); callers that need no gradient run it
+        under ``torch.no_grad``."""
         samples, caches, data = state
         mu, var = self.core.predict_ensemble(samples, caches, data, Xs)
         return mu * data.y_std + data.y_mean, var * data.y_std ** 2
 
+    @torch.no_grad()
     def predict(self, X):
         if self.data is None:
             raise RuntimeError("fit first")

@@ -4,7 +4,9 @@ Port of ``hebo_tpu/models/gp/kernels.py``: ``sq_dist`` (:46), the
 stationary kernels ``matern12``, ``matern32``, ``matern52``, ``rbf`` and the
 arc-sine ``mlp`` (:61-100) with their ``MATERN_FNS`` table (:102),
 ``embed_categorical`` (:108), ``overlap`` (:131), ``transformed_overlap``
-(:141) and ``ssk_kernel`` (:234).  Distances use the expansion
+(:141), ``conditional_transformed_overlap`` (:155), ``ordinal_kernel``
+(:198), ``diffusion_kernel`` (:210), ``ssk_kernel`` (:234), ``hed_embed``
+(:278), ``feature_warp_rbf`` (:294) and ``feature_warp_cosine`` (:315).  Distances use the expansion
 ‖a−b‖² = ‖a‖² + ‖b‖² − 2a·b, as in the JAX package, with the +1e-16 inside
 each square root, so the gradients at d = 0 are the JAX package's.
 
@@ -12,7 +14,7 @@ The kernels take point sets (..., N, D), (..., M, D) and lengthscales
 (..., D) with the same leading (batch) shape and return (..., N, M).  The
 Matérn-3/2 Gram goes through kernel K2 (``hebo_tpu_torch.ops.gram``) and the
 SSK Gram through kernel K3 (``hebo_tpu_torch.ops.ssk``).  The JAX package
-has no Pallas kernel for the other four (it uses its Pallas Gram only for
+has no Pallas kernel for the others (it uses its Pallas Gram only for
 ``matern32``), so they are plain PyTorch on every device; on CUDA their
 products run in full float32, since ``resolve_device`` turns TF32 off.
 ``ssk_kernel`` here is the plain form for callers and tests.
@@ -30,7 +32,9 @@ from ...ops.ssk import ssk_gram_plain
 
 __all__ = [
     "sq_dist", "matern12", "matern32", "matern52", "rbf", "mlp", "MATERN_FNS",
-    "embed_categorical", "overlap", "transformed_overlap", "ssk_kernel",
+    "embed_categorical", "overlap", "transformed_overlap", "conditional_transformed_overlap",
+    "ordinal_kernel", "diffusion_kernel", "ssk_kernel", "hed_embed", "feature_warp_rbf",
+    "feature_warp_cosine",
 ]
 
 
@@ -125,6 +129,79 @@ def transformed_overlap(x1: torch.Tensor, x2: torch.Tensor,
     agree = (x1[:, None, :] == x2[None, :, :]).to(lengthscales.dtype)
     s = torch.einsum("nmc,...c->...nm", agree, lengthscales) / agree.shape[-1]
     return torch.exp(s - lengthscales.mean(-1)[..., None, None])
+
+
+def conditional_transformed_overlap(c1: torch.Tensor, c2: torch.Tensor,
+                                    group_grams: torch.Tensor, cat_to_group: torch.Tensor,
+                                    lam: torch.Tensor) -> torch.Tensor:
+    """Conditional (hierarchical) transformed overlap, normalised so
+    k(x, x) = 1: per dimension 0 on a category mismatch, 1 on a match whose
+    category has no hyperparameters, and the matched category's group Gram
+    otherwise; the ARD-weighted mean is exponentiated, exp(s − 1).
+
+    Codes c1 (N1, C), c2 (N2, C); ``group_grams`` (..., G, N1, N2);
+    ``cat_to_group`` (n_cats,) int, −1 for a category without
+    hyperparameters; ``lam`` (..., C) positive → (..., N1, N2)."""
+    N1, C = c1.shape
+    N2 = c2.shape[0]
+    c1i = c1.long()
+    match = c1i[:, None, :] == c2.long()[None, :, :]  # (N1, N2, C)
+    g = cat_to_group.long()[c1i]  # (N1, C)
+    moved = group_grams.movedim(-3, -1)  # (..., N1, N2, G)
+    idx = g.clamp(min=0)[:, None, :].expand(N1, N2, C)
+    picked = torch.gather(moved, -1, idx.expand(moved.shape[:-3] + (N1, N2, C)))
+    one = torch.ones((), dtype=picked.dtype, device=picked.device)
+    sim = torch.where(match, torch.where((g >= 0)[:, None, :], picked, one), torch.zeros_like(one))
+    s = (sim * lam[..., None, None, :]).sum(-1) / torch.clamp(lam.sum(-1), min=1e-12)[..., None, None]
+    return torch.exp(s - 1.0)
+
+
+def ordinal_kernel(x1: torch.Tensor, x2: torch.Tensor, lengthscales: torch.Tensor,
+                   num_values: torch.Tensor) -> torch.Tensor:
+    """exp(mean_d θ_d·(1 − |x1_d − x2_d| / max(n_d − 1, 1)) − mean_d θ_d)
+    over ordinal codes (N, C), (M, C) → (N, M)."""
+    diff = (x1[:, None, :] - x2[None, :, :]).abs() / torch.clamp(num_values - 1.0, min=1.0)
+    s = ((1.0 - diff) * lengthscales).mean(-1)
+    return torch.exp(s - lengthscales.mean())
+
+
+def diffusion_kernel(x1: torch.Tensor, x2: torch.Tensor, betas: torch.Tensor,
+                     num_categories: torch.Tensor) -> torch.Tensor:
+    """Product over the categorical dims of the complete-graph diffusion
+    kernel (COMBO's closed form): 1 where the codes agree, else
+    (1 − e^{−cβ}) / (1 + (c − 1)e^{−cβ}) for cardinality c and decay β.
+
+    Codes (N, C), (M, C); ``betas`` (C,) → (N, M), or (B, C) → (B, N, M)."""
+    c = num_categories.to(betas.dtype)
+    e = torch.exp(-c * betas)  # (..., C)
+    same_val = (1.0 + (c - 1.0) * e) / (1.0 + (c - 1.0) * e)  # = 1, as in the JAX package
+    diff_val = (1.0 - e) / (1.0 + (c - 1.0) * e)
+    agree = x1[:, None, :] == x2[None, :, :]
+    per_dim = torch.where(agree, same_val[..., None, None, :], diff_val[..., None, None, :])
+    return per_dim.prod(-1)
+
+
+def hed_embed(codes: torch.Tensor, dictionary: torch.Tensor) -> torch.Tensor:
+    """Hamming embedding: the mean agreement of codes (N, C) with each of the
+    m dictionary anchors (m, C) → (N, m)."""
+    return (codes[:, None, :] == dictionary[None, :, :]).to(torch.float32).mean(-1)
+
+
+def feature_warp_rbf(idx1: torch.Tensor, idx2: torch.Tensor, feature_table: torch.Tensor,
+                     lengthscales: torch.Tensor) -> torch.Tensor:
+    """RBF over the rows ``idx1`` (N,), ``idx2`` (M,) of a precomputed
+    feature table (table_size, F) → (N, M)."""
+    return rbf(feature_table[idx1.long()], feature_table[idx2.long()], lengthscales)
+
+
+def feature_warp_cosine(idx1: torch.Tensor, idx2: torch.Tensor,
+                        feature_table: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of the feature-table rows ``idx1``, ``idx2``, each
+    norm floored at 1e-6 (its square at 1e-12) → (N, M)."""
+    f1, f2 = feature_table[idx1.long()], feature_table[idx2.long()]
+    n1 = torch.sqrt(torch.clamp((f1 * f1).sum(-1, keepdim=True), min=1e-12))
+    n2 = torch.sqrt(torch.clamp((f2 * f2).sum(-1, keepdim=True), min=1e-12))
+    return (f1 / n1) @ (f2 / n2).transpose(0, 1)
 
 
 def ssk_kernel(s1: torch.Tensor, s2: torch.Tensor, match_decay, gap_decay,

@@ -1,6 +1,6 @@
 from .antbo import AntBOOptimizer
 from .base import AbstractOptimizer
-from .bo_builder import BoBuilder, MCBOptimizer
+from .bo_builder import BO_ALGOS, BoBuilder, MCBOptimizer
 from .hebo import HEBO
 
-__all__ = ["AbstractOptimizer", "AntBOOptimizer", "BoBuilder", "HEBO", "MCBOptimizer"]
+__all__ = ["AbstractOptimizer", "AntBOOptimizer", "BO_ALGOS", "BoBuilder", "HEBO", "MCBOptimizer"]

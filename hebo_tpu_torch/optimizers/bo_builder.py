@@ -1,18 +1,23 @@
-"""Mix-and-match BO builder (port of ``hebo_tpu/optimizers/bo_builder.py``).
+"""Mix-and-match BO builder and the named presets (port of
+``hebo_tpu/optimizers/bo_builder.py``).
 
 Parity: MCBO ``BoBuilder`` and the BoBase suggest/observe loop
 (MCBO/mcbo/optimizers/bo_builder.py:125-583, bo_base.py:71-429): compose
-model_id × acq_opt_id × acq_func_id × tr_id into a working optimizer::
+model_id × acq_opt_id × acq_func_id × tr_id into a working optimizer, with
+the named presets ``BO_ALGOS`` (Casmopolitan, BOiLS, COMBO, BODi, BOCS,
+BOSS, CoCaBO, RDUCB)::
 
-    from hebo_tpu_torch.optimizers.bo_builder import BoBuilder
-    opt = BoBuilder(model_id="gp_ssk", acq_opt_id="ls", acq_func_id="ei",
+    from hebo_tpu_torch.optimizers.bo_builder import BO_ALGOS, BoBuilder
+    opt = BoBuilder(model_id="gp_to", acq_opt_id="is", acq_func_id="ei",
                     tr_id="basic").build_bo(space, n_init=10, device="cuda")
+    opt = BO_ALGOS["BOCS"].build_bo(space, n_init=10, device="cuda")
 
-The port has the models ``gp``, ``gp_o``, ``gp_to`` and ``gp_ssk``, the
-acquisition optimizers ``ls`` and ``rs`` and the acquisitions ei, pi, lcb,
-ucb and mace; any other id raises ``NotImplementedError`` naming the
-ROADMAP slice that ports it.  The named presets ``BO_ALGOS`` wait for the
-interleaved, SA, bandit and GA optimizers they use.
+Ported: the models ``gp``, ``gp_o``, ``gp_to``, ``gp_diffusion``,
+``gp_hed``, ``gp_ssk`` and ``lin_reg``; the acquisition optimizers ``is``,
+``ls``, ``sa``, ``mab``, ``ga`` and ``rs``; the acquisitions ei, pi, lcb,
+ucb, ts, mace and cei.  Every preset but RDUCB builds.  The ids still to
+port (``gp_rd``, ``mp`` and ``addlcb``, RDUCB's; the slice-13 surrogates)
+raise ``NotImplementedError`` naming their ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -24,34 +29,52 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ..acq_optimizers.mcbo_opts import LocalSearchAcqOptimizer, RandomSearchAcqOptimizer
-from ..acquisitions.acq import EI, LCB, MACE, PI, AcqParams
+from ..acq_optimizers.mcbo_opts import (
+    GeneticAlgoAcqOptimizer,
+    InterleavedSearchAcqOptimizer,
+    LocalSearchAcqOptimizer,
+    MixedMabAcqOptimizer,
+    RandomSearchAcqOptimizer,
+    SimulatedAnnealingAcqOptimizer,
+)
+from ..acquisitions.acq import CEI, EI, LCB, MACE, PI, AcqParams, ThompsonSampling
 from ..models import get_model
 from ..trust_region.casmo import CasmopolitanTrManager, ProxyTrManager
 from .base import AbstractOptimizer
 
-__all__ = ["BoBuilder", "MCBOptimizer", "ACQ_FUNC_REGISTRY", "ACQ_OPT_REGISTRY",
+__all__ = ["BoBuilder", "BO_ALGOS", "MCBOptimizer", "ACQ_FUNC_REGISTRY", "ACQ_OPT_REGISTRY",
            "MODEL_REGISTRY_MAP"]
 
 
-ACQ_FUNC_REGISTRY = {"ei": EI, "pi": PI, "lcb": LCB, "ucb": LCB, "mace": MACE}
+ACQ_FUNC_REGISTRY = {"ei": EI, "pi": PI, "lcb": LCB, "ucb": LCB, "ts": ThompsonSampling,
+                     "mace": MACE, "cei": CEI}
 
-ACQ_OPT_REGISTRY = {"ls": LocalSearchAcqOptimizer, "rs": RandomSearchAcqOptimizer}
+ACQ_OPT_REGISTRY = {
+    "is": InterleavedSearchAcqOptimizer,
+    "ls": LocalSearchAcqOptimizer,
+    "sa": SimulatedAnnealingAcqOptimizer,
+    "mab": MixedMabAcqOptimizer,
+    "ga": GeneticAlgoAcqOptimizer,
+    "rs": RandomSearchAcqOptimizer,
+}
 
 # model_id → (get_model name, extra conf)
 MODEL_REGISTRY_MAP = {
     "gp": ("gp", {}),
     "gp_o": ("gp", {"cat_kernel": "overlap"}),
     "gp_to": ("gp", {"cat_kernel": "transformed_overlap"}),
+    "gp_diffusion": ("gp", {"cat_kernel": "diffusion"}),
+    "gp_hed": ("gp", {"cat_kernel": "hed"}),
     "gp_ssk": ("gp", {"cat_kernel": "ssk"}),
+    "lin_reg": ("lin_reg", {}),
 }
 
 # ids of the JAX package's registries that are not ported yet → ROADMAP slice
 _NOT_PORTED = {
-    "acq_func": {"ts": 10, "cei": 10, "addlcb": 10},
-    "acq_opt": {"is": 11, "sa": 11, "mab": 11, "ga": 11, "mp": 12},
-    "model": {"gp_diffusion": 11, "gp_hed": 11, "lin_reg": 11, "gp_rd": 12,
-              "deep_ensemble": 13, "rf": 13, "svgp": 13, "gbdt": 13, "catboost": 13},
+    "acq_func": {"addlcb": 12},
+    "acq_opt": {"mp": 12},
+    "model": {"gp_rd": 12, "deep_ensemble": 13, "rf": 13, "svgp": 13, "gbdt": 13,
+              "catboost": 13},
 }
 
 
@@ -123,10 +146,13 @@ class MCBOptimizer(AbstractOptimizer):
         best_id = int(np.argmin(ys[:, 0]))
         if self.tr_manager.center is None:
             self.tr_manager.register_center(Xv[best_id])
+        # every evaluation of this suggest draws Thompson samples from one
+        # seed, as the JAX package's PRNGKey(num_obs)
         params = AcqParams(
             tau=float(ys[best_id, 0]),
             kappa=float(self.kappa),
             noise=math.sqrt(max(float(self.model.noise[0]), 0.0)),
+            seed=self.num_obs,
         )
         t0 = time.time()
         if self.batch_strategy == "kb" and n_suggestions > 1:
@@ -173,7 +199,7 @@ class MCBOptimizer(AbstractOptimizer):
 @dataclass
 class BoBuilder:
     model_id: str = "gp_to"
-    acq_opt_id: str = "is"  # the JAX package's default; not ported yet
+    acq_opt_id: str = "is"
     acq_func_id: str = "ei"
     tr_id: Optional[str] = "basic"
     model_kwargs: Dict = field(default_factory=dict)
@@ -198,3 +224,17 @@ class BoBuilder:
             search_space, model, acq_cls(), acq_opt, tr,
             n_init=n_init, name=self.name, **opt_kwargs,
         )
+
+
+# Named presets (MCBO bo_builder.py:574-583); building RDUCB (gp_rd + mp)
+# raises NotImplementedError naming slice 12.
+BO_ALGOS: Dict[str, BoBuilder] = {
+    "Casmopolitan": BoBuilder("gp_to", "is", "ei", "basic", name="Casmopolitan"),
+    "BOiLS": BoBuilder("gp_ssk", "is", "ei", "basic", name="BOiLS"),
+    "COMBO": BoBuilder("gp_diffusion", "ls", "ei", "none", name="COMBO"),
+    "BODi": BoBuilder("gp_hed", "is", "ei", "basic", name="BODi"),
+    "BOCS": BoBuilder("lin_reg", "sa", "ts", "none", name="BOCS"),
+    "BOSS": BoBuilder("gp_ssk", "ga", "ei", "none", name="BOSS"),
+    "CoCaBO": BoBuilder("gp_to", "mab", "ei", "none", name="CoCaBO"),
+    "RDUCB": BoBuilder("gp_rd", "mp", "lcb", "none", name="RDUCB"),
+}

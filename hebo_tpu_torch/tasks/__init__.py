@@ -1,3 +1,4 @@
 from .antbo_tools import AA_ALPHABET, AbsolutTool, ManualTool, TableFillingTool
+from .pest import PestControlTask
 
-__all__ = ["AA_ALPHABET", "AbsolutTool", "ManualTool", "TableFillingTool"]
+__all__ = ["AA_ALPHABET", "AbsolutTool", "ManualTool", "TableFillingTool", "PestControlTask"]

@@ -130,8 +130,12 @@ def test_init_params_ssk_from_the_same_draws():
 
 
 def test_unported_cat_kernel_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        GPCore((), (0, 1), (3, 3), cat_kernel="diffusion")
+    """Every cat kernel of the JAX package is ported (diffusion, hed and
+    conditional_to came last); an unknown one raises as there."""
+    for name in ("diffusion", "hed", "conditional_to"):
+        assert GPCore((), (0, 1), (3, 3), cat_kernel=name).cat_kernel == name
+    with pytest.raises(ValueError, match="unknown cat_kernel 'walsh'"):
+        GPCore((), (0, 1), (3, 3), cat_kernel="walsh")
 
 
 def _tr_pair(seed=3):
@@ -295,9 +299,9 @@ def test_bo_builder_kriging_believer_batch():
     assert len(rec) == 3 and opt.model.data.mask.sum() == 4
 
 
-@pytest.mark.parametrize("ids,slice_", [(("gp_diffusion", "ls", "ei"), 11), (("gp_ssk", "is", "ei"), 11),
-                                        (("gp_ssk", "ga", "ei"), 11), (("gp", "ls", "ts"), 10),
-                                        (("gp_rd", "ls", "ei"), 12)])
+@pytest.mark.parametrize("ids,slice_", [(("gp_rd", "mp", "lcb"), 12), (("gp", "ls", "addlcb"), 12),
+                                        (("rf", "ls", "ei"), 13), (("svgp", "ls", "ei"), 13),
+                                        (("deep_ensemble", "ls", "ei"), 13)])
 def test_bo_builder_unported_ids_name_their_slice(ids, slice_):
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
         BoBuilder(*ids).build_bo(sequence_space(3), device="cpu")

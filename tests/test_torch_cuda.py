@@ -267,18 +267,18 @@ def test_chol_resident_api_on_card(cuda):
     torch.testing.assert_close(W.cpu(), W0, rtol=0, atol=1e-3)
 
 
-def _pareto_inputs(P, edge, seed, device):
+def _pareto_inputs(P, M, edge, seed, device):
     rng = np.random.default_rng(seed)
-    F = (rng.integers(0, 4 if edge else 1000, (P, 3)) / 4).astype(np.float32)
+    F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
     F[3] = F[4]
     F[10] = F[11] = F[12]
     if edge:
-        F[20, 1] = F[21, 1] = np.inf
+        F[20, 1 % M] = F[21, 1 % M] = np.inf
         F[22, 0] = -np.inf
         F[23] = -np.inf
-        F[30, 2] = np.nan
+        F[30, 2 % M] = np.nan
         F[31] = np.nan
-        F[40] = [np.inf, -np.inf, 0.5]
+        F[40] = [np.inf, -np.inf, 0.5][:M]
     return torch.as_tensor(F, device=device)
 
 
@@ -290,15 +290,16 @@ def _same_bits(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("P", [100, 200])
+@pytest.mark.parametrize("P, M", [(100, 3), (200, 3), (64, 1), (128, 1)])
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-def test_pareto_kernel_on_card(cuda, P, edge, masked):
-    """K5 against its plain version on the card and on the CPU: ties,
-    duplicate rows, ±inf and NaN objectives, invalid rows."""
+def test_pareto_kernel_on_card(cuda, P, M, edge, masked):
+    """K5 against its plain version on the card and on the CPU at NSGA-II's
+    shapes and the MCBO GA's single objective (where many points share a
+    front): ties, duplicate rows, ±inf and NaN objectives, invalid rows."""
     from hebo_tpu_torch.ops import pareto
 
-    F = _pareto_inputs(P, edge, P + edge, cuda)
+    F = _pareto_inputs(P, M, edge, P + edge, cuda)
     valid = None
     if masked:
         valid = torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25, device=cuda)
@@ -690,3 +691,65 @@ def test_hebo_slice_graph_replays_its_coordinate_step(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.gpu
+def test_horseshoe_chain_runs_k1_on_card(cuda):
+    """BOCS's Gibbs chain on the card with fed draws: the same coefficient
+    draws as on the CPU (rtol 1e-4; K1 against the plain ladder), five K1
+    pairs per sweep (the ladder's rungs, every one launched), and no
+    library factorization or triangular solve."""
+    from hebo_tpu_torch.models import linreg
+
+    rng = np.random.default_rng(0)
+    n, p, T = 60, 40, 6
+    Phi = rng.integers(0, 2, (n, p)).astype(np.float32)
+    Phi[:, 0] = 1.0
+    y = (Phi[:, 1:2] - 0.5 * Phi[:, 2:3] + 0.1 * rng.standard_normal((n, 1))).astype(np.float32)
+    d = linreg.draw_gibbs(T, n, p, torch.Generator().manual_seed(1), "cpu")
+    want = linreg.horseshoe_gibbs(torch.as_tensor(Phi), torch.as_tensor(y), T, draws=d)
+    n0 = (chol_kernel.chol_factor.launches, chol_kernel.chol_winv.launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = linreg.horseshoe_gibbs(torch.as_tensor(Phi, device=cuda), torch.as_tensor(y, device=cuda),
+                                     T, draws=linreg.GibbsDraws(*(t.to(cuda) for t in d)))
+        torch.cuda.synchronize()
+    assert chol_kernel.chol_factor.launches - n0[0] == 5 * T
+    assert chol_kernel.chol_winv.launches - n0[1] == 5 * T
+    names = [e.name.lower() for e in prof.events()]
+    assert not any(w in n for n in names for w in ("potrf", "trsm", "cusolver", "trsv"))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_interleaved_descent_runs_k2_vjp_on_card(cuda):
+    """The interleaved search's gradient steps on a transformed-overlap GP
+    (3 numerics, 6 binary categoricals) fitted on the card: one K2 VJP
+    launch per step, the descended points within 1e-3 of the same descent
+    on the CPU from the same fitted state."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.acq_optimizers.mcbo_opts import InterleavedSearchAcqOptimizer
+    from hebo_tpu_torch.acquisitions.acq import EI, AcqParams
+    from hebo_tpu_torch.models import get_model
+    from hebo_tpu_torch.models.gp.gp import GPData
+    from hebo_tpu_torch.models.gp.tree import tree_map
+
+    space = DesignSpace([{"name": f"b{i}", "type": "cat", "categories": ["0", "1"]} for i in range(6)]
+                        + [{"name": f"x{i}", "type": "num", "lb": -1.0, "ub": 1.0} for i in range(3)])
+    X = space.sobol_sample_opt(40, seed=0)
+    y = ((X[:, 6:] ** 2).sum(1, keepdims=True) + X[:, :1]).astype(np.float32)
+    gp = get_model("gp", space, device="cuda", cat_kernel="transformed_overlap", num_epochs=20).fit(X, y)
+    cpu = get_model("gp", space, device="cpu", cat_kernel="transformed_overlap")
+    to_cpu = lambda t: tree_map(lambda v: v.cpu(), t)
+    cpu.samples, cpu.caches = to_cpu(gp.samples), to_cpu(gp.caches)
+    cpu.data = GPData(*(v.cpu() for v in gp.data))
+    opt = InterleavedSearchAcqOptimizer(space, n_grad_steps=8)
+    X0 = space.sobol_sample_opt(8, seed=5)
+    lb, ub = space.opt_lb, space.opt_ub
+    pr = AcqParams(tau=float(y.min()), kappa=2.0, seed=0)
+    n0 = gram.matern32_gram_vjp.launches
+    got = opt.descend(gp, EI(), pr, X0, lb, ub)
+    assert gram.matern32_gram_vjp.launches - n0 == 8
+    want = opt.descend(cpu, EI(), pr, X0, lb, ub)
+    assert np.abs(got - X0).max() > 1e-3
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
