@@ -123,7 +123,42 @@
    rows above include the path's shapes (K2 and its VJP at D 3 and 19 and
    the descents' query shapes, K3 at L 25 on its shared-memory route, K1 at
    (1, 5051)).
-8. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+8. Drives the optimizer family at its defaults (GP 100 epochs, pop 100 ×
+   100 generations) through each constructor and suggest / observe
+   (phase j, with the counts reset before it):
+   (j1) Ackley-6D with 200 warm Sobol observations (bucket 256), 2 timed
+        suggests each: ``BO`` suggest(1) (the generic route, K5 at (100, 1)
+        and (200, 1)); ``NoisyOpt`` suggest(8) on the fused graph, whose
+        suggestion must equal the eager path's; ``NoMR_BO`` suggest(1) with
+        η between the best and second-best warm values and the best warm
+        point observed after the first suggest, so that HEBO serves the
+        first and the exploit-stage BO the second;
+   (j2) ``GeneralBO`` with 200 warm observations, 2 × suggest(4) (EHVI
+        over 4 greedy rounds) on ZDT1 at its published 30 variables and 2
+        objectives (K2 at D = 30, K5 at M = 2), and on BNH (2 variables, 2
+        objectives, 2 inequality constraints fed as constraint outputs,
+        feasible below 0; ``num_constr=2``: four GPs, K5 at M = 4); the 4
+        picks must be distinct and ``get_pf``'s front non-dominated;
+   (j3) Hartmann-6 with 60 warm observations: ``SubDomainBO`` in the
+        ``tr`` and ``ascent`` modes, 2 × suggest(1) each (the L-BFGS and the
+        ascent direction's gradient through K2's VJP at a query shape,
+        which must launch); ``SafeOpt`` with the threshold at the warm y's
+        median, 2 × suggest(4), every point at most the threshold or the
+        re-suggested safe incumbent;
+   (j4) ``MACEBO`` on Bayesmark SVM × breast at the challenge's batch 8:
+        the Sobol round and 3 model rounds, the losses finite, the points
+        inside the api_config's ranges, the model rounds' best no worse
+        than the Sobol round's (without sklearn on the machine, a smooth
+        stand-in loss over the same api_config, ``SVMStandIn``, and the
+        line says so); ``CMAES`` and ``Evolution`` (pop 100) on
+        Ackley-6D for 3 generations each (survival K5 at (200, 1)).
+   Every suggestion must be finite and in the space (new against the
+   history where the optimizer promises it); walls, fit / acquisition
+   seconds and launches per suggest per kernel are printed.  K1, K2, its
+   VJP and K5 must launch on the path, and every shape it launched is held
+   against its plain version, as in phase i (among them K2 at D 30 and 2,
+   and K5 at (100, 4) and (200, 4)).
+9. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -138,6 +173,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import pandas as pd
 
 ROOT = Path(__file__).resolve().parent
 FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet, 700 W)
@@ -151,6 +187,13 @@ SSK_RAW_TOL, SSK_TAN_TOL, SSK_K_TOL = 1e-5, 1e-4, 1e-5
 # population; cross (N, M) with self sets of N)
 MCBO_GRAM_SHAPES = [(1, 256, 256, 3), (1, 256, 256, 19), (1, 256, 8, 3), (1, 256, 8, 19),
                     (1, 256, 16, 3)]
+# phase j's shapes, timed with the others: K2 and its VJP at GeneralBO's
+# fits (bucket 256; ZDT1's D = 30, BNH's D = 2) and NSGA-II's predict, and
+# SubDomainBO's query sets at bucket 64 (8 L-BFGS starts, their 5 trial
+# steps, the ascent direction's one point)
+FAMILY_GRAM_SHAPES = [(1, 256, 256, 30), (1, 256, 256, 2), (1, 256, 100, 30), (1, 256, 100, 2),
+                      (1, 64, 8, 6), (1, 64, 40, 6)]
+FAMILY_VJP_SHAPES = [(1, 256, 256, 30), (1, 256, 256, 2), (1, 64, 8, 6), (1, 64, 1, 6)]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 64, 64, 25, 3, [(0.6, 0.7)])]
@@ -181,14 +224,15 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     buckets 1024 and 128; the large-N route's; the samplers' (4 HMC chains,
     SVI draws or gpy_wgp restarts at buckets 128 and 1024, 32 SMC
     particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
-    Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``)."""
+    Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``) and phase j's
+    (``FAMILY_GRAM_SHAPES``)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
                        (2, 2048, 2048, 6), (1, 3072, 3072, 6), (1, 3072, 100, 6),
                        (1, 3072, 128, 6), (1, 7168, 7168, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
-                       (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES:
+                       (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES + FAMILY_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -197,10 +241,13 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
             fails.append(f"matern32_gram {(B, N, M, D)}: max abs err {err}")
         reps = 200 if N * M > 1e5 else 1000
         bms, by = bound(B * N * M * (2 * D + 8), 4 * (B * N * D + B * M * D + B + B * N * M))
+        fwd = lambda: gram.matern32_gram(a, b, sc)
+        # a second profile where the profiler dropped every event of the first
+        us = device_per_call(torch, fwd, 100, "matern32_gram")[0] or \
+            device_per_call(torch, fwd, 100, "matern32_gram")[0]
         rows.append(dict(
             shape=[B, N, M, D], tile_rows=gram.tile_rows(B, N, M), max_abs_err=err,
-            ms=cuda_ms(torch, lambda: gram.matern32_gram(a, b, sc), reps),
-            device_us=device_per_call(torch, lambda: gram.matern32_gram(a, b, sc), 100, "matern32_gram")[0],
+            ms=cuda_ms(torch, fwd, reps), device_us=us,
             plain_ms=cuda_ms(torch, lambda: gram.matern32_gram_plain(a, b, sc), reps),
             bound_ms=bms, bound_by=by,
             # no single PyTorch call computes the Matérn Gram; torch.cdist
@@ -215,19 +262,25 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
     128 and the large-N route's subsample bucket 2048, and the samplers' (4
     and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
-    D 3 and 19, and the descents' query shapes), on random points and on a
+    D 3 and 19, and the descents' query shapes) and phase j's
+    (``FAMILY_VJP_SHAPES``), on random points and on a
     self-Gram with coincident rows (repeated rows and the zero rows of a
     padded bucket); twice on the same inputs, which must give the same
-    bits."""
+    bits.  The self-Gram's points are scaled by √(6/D) above D = 6, so
+    that its pair distances spread as at D = 6, as the GP's 1/ℓ-scaled
+    inputs do: with unit-variance features at D = 30 every distinct pair's
+    kernel is ~e^{-13}, the gradient is the coincident pairs' cancellation,
+    and the plain float32 version itself is 2.6e-4 / 4.0e-4 of max |ga| /
+    |gb| off its float64 value there."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6),
-                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES:
+                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
         g = torch.randn((B, N, M), generator=gen, device=dev)
-        x = a.clone()
+        x = a * min(1.0, math.sqrt(6.0 / D))
         x[:, N // 2: N // 2 + 8] = x[:, :8]
         x[:, -16:] = 0.0
         pairs = [("random points", (a, b))] + ([("self-Gram, coincident rows", (x, x))] if N == M else [])
@@ -445,11 +498,15 @@ def same_bits(torch, a, b):
 
 def check_pareto(torch, pareto, device_us, dev, fails):
     """K5 at NSGA-II's shapes, the tournament's (100, 3) and survival's
-    (200, 3), and at the MCBO GA's single objective, (64, 1) and (128, 1):
-    the same ranks and crowding bits as the plain version
-    (``pareto_agrees``).  Timed on standard-normal objectives."""
+    (200, 3), at the single objective of the MCBO GA, (64, 1) and (128, 1),
+    and of BO's and Evolution's NSGA-II, (100, 1) and (200, 1), and at
+    GeneralBO's M = 2 (ZDT1) and M = 4 (BNH, 2 objectives + 2
+    constraints), P 100 and 200: the same ranks and crowding bits as the
+    plain version (``pareto_agrees``).  Timed on standard-normal
+    objectives."""
     rows = []
-    for P, M in ((100, 3), (200, 3), (64, 1), (128, 1)):
+    for P, M in ((100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1), (100, 2), (200, 2),
+                 (100, 4), (200, 4)):
         pareto_agrees(torch, pareto, P, M, dev, fails, "")
         F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
         fn = lambda: pareto.nsga2_rank_crowd(F)
@@ -1249,6 +1306,259 @@ def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
     return errs
 
 
+# ---------------------------------------------------------------- phase j
+def zdt1(df):
+    """ZDT1 (Zitzler, Deb & Thiele 2000): 30 variables in [0, 1], two
+    objectives f1 = x1, f2 = g (1 − √(f1 / g)), g = 1 + 9 Σ_{i≥2} x_i / 29."""
+    X = df[[f"x{i}" for i in range(30)]].values.astype(float)
+    g = 1.0 + 9.0 * X[:, 1:].sum(1) / 29.0
+    return np.stack([X[:, 0], g * (1.0 - np.sqrt(X[:, 0] / g))], 1)
+
+
+def bnh(df):
+    """BNH (Binh & Korn 1997): x1 ∈ [0, 5], x2 ∈ [0, 3]; objectives 4x1² +
+    4x2² and (x1 − 5)² + (x2 − 5)²; constraints (x1 − 5)² + x2² ≤ 25 and
+    (x1 − 8)² + (x2 + 3)² ≥ 7.7, fed as outputs feasible below 0."""
+    x1, x2 = df["x1"].values.astype(float), df["x2"].values.astype(float)
+    return np.stack([4 * x1 ** 2 + 4 * x2 ** 2, (x1 - 5) ** 2 + (x2 - 5) ** 2,
+                     (x1 - 5) ** 2 + x2 ** 2 - 25.0, 7.7 - (x1 - 8) ** 2 - (x2 + 3) ** 2], 1)
+
+
+_H6_A = np.array([[10, 3, 17, 3.5, 1.7, 8], [0.05, 10, 17, 0.1, 8, 14],
+                  [3, 3.5, 1.7, 10, 17, 8], [17, 8, 0.05, 10, 0.1, 14]])
+_H6_P = 1e-4 * np.array([[1312, 1696, 5569, 124, 8283, 5886], [2329, 4135, 8307, 3736, 1004, 9991],
+                         [2348, 1451, 3522, 2883, 3047, 6650], [4047, 8828, 8732, 5743, 1091, 381]])
+_H6_ALPHA = np.array([1.0, 1.2, 3.0, 3.2])
+
+
+def hartmann6(df):
+    """Hartmann-6 on [0, 1]⁶ (minimum −3.32237)."""
+    X = df[[f"x{i}" for i in range(6)]].values.astype(float)
+    inner = (_H6_A[None] * (X[:, None, :] - _H6_P[None]) ** 2).sum(-1)
+    return -(_H6_ALPHA[None] * np.exp(-inner)).sum(1, keepdims=True)
+
+
+def unit_space(DesignSpace, names, lb=0.0, ub=1.0):
+    return DesignSpace([{"name": n, "type": "num", "lb": lb, "ub": ub} for n in names])
+
+
+def check_rec(space, rec, n, what, fails, hist=None):
+    """``rec`` has n rows, finite and inside the space; with ``hist`` (the
+    history's opt-frame rows) every row is new."""
+    X = space.transform(rec)
+    ok = (len(rec) == n and np.isfinite(X).all() and (X >= space.opt_lb).all()
+          and (X <= space.opt_ub).all())
+    if not ok:
+        fails.append(f"{what}: suggestion not finite / outside the space / not {n} rows")
+    if hist is not None:
+        seen = {tuple(np.round(r, 6)) for r in hist}
+        if any(tuple(np.round(r, 6)) in seen for r in X):
+            fails.append(f"{what}: suggestion repeats an observation")
+
+
+class Suggests:
+    """Times ``suggest`` calls and records each one's launches per kernel."""
+
+    def __init__(self, torch, wrappers):
+        self.torch, self.wrappers = torch, wrappers
+
+    def __call__(self, opt, n, log, **kw):
+        before = {k: w.launches for k, w in self.wrappers.items()}
+        t0 = time.time()
+        rec = opt.suggest(n, **kw) if n is not None else opt.suggest()
+        self.torch.cuda.synchronize()
+        log.setdefault("s_per_suggest", []).append(time.time() - t0)
+        log.setdefault("launches_per_suggest", []).append(
+            {k: w.launches - before[k] for k, w in self.wrappers.items() if w.launches > before[k]})
+        return rec
+
+
+def warm(opt, space, f, n, seed=1):
+    X = space.inverse_transform(space.sobol_sample_opt(n, seed=seed))
+    opt.observe(X, f(X))
+    return X
+
+
+def timers(opt, k):
+    return {"fit_s": opt.fit_time[-k:], "acq_s": opt.acq_time[-k:]}
+
+
+class SVMStandIn:
+    """Bayesmark's SVM api_config with a smooth stand-in for the SVM ×
+    breast CV loss (minimum 0.03 at C = 10^1.5, γ = 10^-3, tol = 10^-3;
+    γ matters most, as for an RBF SVM), for a machine without sklearn."""
+
+    def __init__(self, api_config):
+        self.api_config = api_config
+
+    def __call__(self, df):
+        c, g, t = (np.log10(df[k].values.astype(float)) for k in ("C", "gamma", "tol"))
+        loss = 0.03 + 0.01 * (c - 1.5) ** 2 + 0.08 * (g + 3.0) ** 2 + 0.002 * (t + 3.0) ** 2
+        return loss.reshape(-1, 1)
+
+
+def svm_breast(BayesmarkTask):
+    """Phase j4's task: ``BayesmarkTask("SVM", "breast")`` (sklearn's
+    cross-validation on the host), or, where sklearn is not installed,
+    ``SVMStandIn`` over the same api_config; and which one it is."""
+    from hebo_tpu_torch.tasks.bayesmark import BAYESMARK_API_CONFIGS
+
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        return SVMStandIn(BAYESMARK_API_CONFIGS["SVM"]), "stand-in (sklearn not installed)"
+    return BayesmarkTask("SVM", "breast"), "SVM x breast CV loss"
+
+
+def family_phase(torch, DesignSpace, wrappers, fails):
+    """Phase j: the optimizer family at its defaults, on the card; returns
+    the per-optimizer rows and the shapes the kernels were launched at."""
+    from hebo_tpu_torch.optimizers import (BO, CMAES, MACEBO, Evolution, GeneralBO, NoisyOpt,
+                                           NoMR_BO, SafeOpt, SubDomainBO)
+    from hebo_tpu_torch.tasks import BayesmarkTask
+
+    rows, sug, shapes = {}, Suggests(torch, wrappers), ShapeLog()
+    ack = unit_space(DesignSpace, [f"x{i}" for i in range(6)], -32.768, 32.768)
+    try:
+        # (j1) BO, NoisyOpt, NoMR_BO on Ackley-6D at 200 warm observations
+        for name, make, n in (("BO", lambda: BO(ack, device="cuda"), 1),
+                              ("NoisyOpt", lambda: NoisyOpt(ack, device="cuda"), 8)):
+            opt, log = make(), {}
+            warm(opt, ack, ackley, 200)
+            for _ in range(2):
+                rec = sug(opt, n, log)
+                check_rec(ack, rec, n, f"phase j {name}", fails,
+                          hist=ack.transform(opt.X) if name == "NoisyOpt" else None)
+                opt.observe(rec, ackley(rec))
+            if name == "NoisyOpt":
+                log["graphs"] = sorted(k[0] for k in opt._graphs)
+                graph_vs_eager(torch, opt, "phase j NoisyOpt", fails)
+            rows[name] = dict(log, **timers(opt, 2), n_obs=opt.num_obs, best=opt.best_y)
+            print(f"phase j {name}:", json.dumps(rows[name]), flush=True)
+
+        Xw = ack.sobol_sample_opt(200, seed=1)
+        yw = ackley(ack.inverse_transform(Xw))[:, 0]
+        order = np.argsort(yw)
+        eta = 0.5 * (yw[order[0]] + yw[order[1]])
+        opt, log = NoMR_BO(ack, eta=float(eta), device="cuda"), {"stage": []}
+        rest = np.delete(np.arange(200), order[0])
+        opt.observe(ack.inverse_transform(Xw[rest]), yw[rest, None])
+        for i in range(2):
+            log["stage"].append("exploit (BO)" if opt.exploiting else "explore (HEBO)")
+            rec = sug(opt, 1, log)
+            check_rec(ack, rec, 1, "phase j NoMR_BO", fails)
+            opt.observe(rec, ackley(rec))
+            if i == 0:  # the held-back best warm point
+                opt.observe(ack.inverse_transform(Xw[order[:1]]), yw[order[:1], None])
+        if log["stage"] != ["explore (HEBO)", "exploit (BO)"]:
+            fails.append(f"phase j NoMR_BO: stages {log['stage']}, expected HEBO then BO")
+        rows["NoMR_BO"] = dict(log, eta=float(eta), n_obs=opt.num_obs, best=opt.best_y)
+        print("phase j NoMR_BO:", json.dumps(rows["NoMR_BO"]), flush=True)
+
+        # (j2) GeneralBO: ZDT1 (30 variables, 2 objectives), BNH (2 + 2 constraints)
+        zsp = unit_space(DesignSpace, [f"x{i}" for i in range(30)])
+        bsp = DesignSpace([{"name": "x1", "type": "num", "lb": 0.0, "ub": 5.0},
+                           {"name": "x2", "type": "num", "lb": 0.0, "ub": 3.0}])
+        for name, space, f, n_constr in (("GeneralBO ZDT1", zsp, zdt1, 0),
+                                         ("GeneralBO BNH", bsp, bnh, 2)):
+            opt, log = GeneralBO(space, num_obj=2, num_constr=n_constr, device="cuda"), {}
+            warm(opt, space, f, 200)
+            for _ in range(2):
+                rec = sug(opt, 4, log)
+                check_rec(space, rec, 4, f"phase j {name}", fails)
+                if len({tuple(r) for r in space.transform(rec)}) != 4:
+                    fails.append(f"phase j {name}: the 4 EHVI picks are not distinct")
+                opt.observe(rec, f(rec))
+            _, Ypf = opt.get_pf()
+            dom = ((Ypf[:, None] <= Ypf[None]).all(-1) & (Ypf[:, None] < Ypf[None]).any(-1))
+            if len(Ypf) == 0 or dom.any():
+                fails.append(f"phase j {name}: get_pf's front is empty or dominated")
+            rows[name] = dict(log, **timers(opt, 2), ehvi_s=opt.ehvi_time[-2:], n_obs=opt.num_obs,
+                              front=len(Ypf), gps=len(opt.model.models))
+            print(f"phase j {name}:", json.dumps(rows[name]), flush=True)
+
+        # (j3) SubDomainBO (tr, ascent) and SafeOpt on Hartmann-6, 60 warm observations
+        hsp = unit_space(DesignSpace, [f"x{i}" for i in range(6)])
+        for mode in ("tr", "ascent"):
+            opt, log = SubDomainBO(hsp, mode=mode, device="cuda"), {}
+            warm(opt, hsp, hartmann6, 60)
+            for _ in range(2):
+                rec = sug(opt, 1, log)
+                check_rec(hsp, rec, 1, f"phase j SubDomainBO {mode}", fails)
+                opt.observe(rec, hartmann6(rec))
+            rows[f"SubDomainBO {mode}"] = dict(log, **timers(opt, 2), n_obs=opt.num_obs,
+                                               best=opt.best_y)
+            print(f"phase j SubDomainBO {mode}:", json.dumps(rows[f"SubDomainBO {mode}"]), flush=True)
+        query_vjp = [s for s in shapes.seen["matern32_gram_vjp"] if s[1] != s[2]]
+        if not query_vjp:
+            fails.append("phase j SubDomainBO: K2's VJP never launched at a query shape")
+        Xh = hsp.inverse_transform(hsp.sobol_sample_opt(60, seed=1))
+        h = float(np.median(hartmann6(Xh)))
+        opt, log = SafeOpt(hsp, safety_threshold=h, device="cuda"), {"unsafe": 0, "incumbent": 0}
+        opt.observe(Xh, hartmann6(Xh))
+        for _ in range(2):
+            rec = sug(opt, 4, log)
+            check_rec(hsp, rec, 4, "phase j SafeOpt", fails)
+            y = hartmann6(rec)[:, 0]
+            inc = hsp.transform(opt.X.iloc[[int(np.argmin(opt.y[:, 0]))]])[0]
+            is_inc = np.all(np.isclose(hsp.transform(rec), inc[None]), 1)
+            log["unsafe"] += int(((y > h) & ~is_inc).sum())
+            log["incumbent"] += int(is_inc.sum())
+            opt.observe(rec, y[:, None])
+        if log["unsafe"]:
+            fails.append(f"phase j SafeOpt: {log['unsafe']} suggestions above the threshold {h}")
+        rows["SafeOpt"] = dict(log, **timers(opt, 2), threshold=h, n_obs=opt.num_obs)
+        print("phase j SafeOpt:", json.dumps(rows["SafeOpt"]), flush=True)
+
+        # (j4) MACEBO on Bayesmark SVM x breast, batch 8; CMAES and Evolution
+        task, kind = svm_breast(BayesmarkTask)
+        opt, log, best = MACEBO(task.api_config, device="cuda"), {"objective": kind}, []
+        for r in range(4):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.time()
+            guesses = opt.suggest(8)
+            torch.cuda.synchronize()
+            log.setdefault("s_per_suggest", []).append(time.time() - t0)
+            log.setdefault("launches_per_suggest", []).append(
+                {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]})
+            losses = task(pd.DataFrame(guesses))[:, 0]
+            inside = all(c["range"][0] <= g[k] <= c["range"][1]
+                         for g in guesses for k, c in task.api_config.items())
+            if not (len(guesses) == 8 and inside and np.isfinite(losses).all()):
+                fails.append(f"phase j MACEBO round {r}: guesses outside the api_config or "
+                             "losses not finite")
+            best.append(float(losses.min()))
+            opt.observe(guesses, losses)
+        if not min(best[1:]) <= best[0]:
+            fails.append(f"phase j MACEBO: the model rounds' best {min(best[1:])} is worse than "
+                         f"the Sobol round's {best[0]}")
+        rows["MACEBO"] = dict(log, round_best=best, best=opt.best_y,
+                              improved=bool(min(best[1:]) < best[0]))
+        print("phase j MACEBO (Bayesmark SVM api_config, batch 8):", json.dumps(rows["MACEBO"]), flush=True)
+
+        for name, opt in (("CMAES", CMAES(ack, device="cuda")),
+                          ("Evolution", Evolution(ack, pop=100, device="cuda"))):
+            log = {}
+            for _ in range(3):
+                rec = sug(opt, None, log)
+                check_rec(ack, rec, opt.lam if name == "CMAES" else 100, f"phase j {name}", fails)
+                opt.observe(rec, ackley(rec))
+            rows[name] = dict(log, n_obs=opt.num_obs, best=opt.best_y)
+            print(f"phase j {name}:", json.dumps(rows[name]), flush=True)
+    finally:
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    for what, kernel, shape in (("K2 at D = 30", "matern32_gram", lambda s: s[3] == 30),
+                                ("K2 at D = 2", "matern32_gram", lambda s: s[3] == 2),
+                                ("K5 at M = 4", "nsga2_rank_crowd", lambda s: s[1] == 4),
+                                ("K5 at M = 2", "nsga2_rank_crowd", lambda s: s[1] == 2),
+                                ("K5 at (200, 1)", "nsga2_rank_crowd", lambda s: s == (200, 1))):
+        if not any(shape(s) for s in shapes.seen[kernel]):
+            fails.append(f"phase j: {what} never launched")
+    print("phase j shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen, query_vjp=query_vjp)
+
+
 def main() -> int:
     import torch
 
@@ -1321,8 +1631,12 @@ def main() -> int:
         "mcbo_presets": (lambda: mcbo.update(mcbo_phase(torch, DesignSpace, wrappers, fails)),
                          ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                           "ssk_cross", "ssk_self", "nsga2_rank_crowd")),
+        "optimizer_family": (lambda: family.update(family_phase(torch, DesignSpace, wrappers,
+                                                                fails)),
+                             ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                              "nsga2_rank_crowd")),
     }
-    mcbo = {}
+    mcbo, family = {}, {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -1335,7 +1649,8 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    check_path_shapes(torch, gram, ssk, ck, pareto, mcbo["shapes"], dev, fails)
+    for p in (mcbo, family):
+        check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
                   "chol_factor": [2, 1024], "chol_winv": [2, 1024],

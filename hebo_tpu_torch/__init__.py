@@ -16,13 +16,18 @@ from .design_space import DesignSpace
 
 __version__ = "0.1.0"
 
-__all__ = ["DesignSpace", "HEBO", "__version__"]
+__all__ = ["DesignSpace", "HEBO", "BO", "GeneralBO", "CMAES", "Evolution", "NoisyOpt",
+           "get_model", "__version__"]
 
 
 def __getattr__(name):
     # lazy: importing the package loads no model code
-    if name == "HEBO":
-        from .optimizers import HEBO
+    if name in ("HEBO", "BO", "GeneralBO", "CMAES", "Evolution", "NoisyOpt"):
+        from . import optimizers
 
-        return HEBO
+        return getattr(optimizers, name)
+    if name == "get_model":
+        from .models import get_model
+
+        return get_model
     raise AttributeError(name)

@@ -18,8 +18,11 @@ suggest sees the same draws).
 evaluation within one suggest draws from a generator on the model's device
 seeded afresh with ``AcqParams.seed`` (the JAX package's
 ``PRNGKey(num_obs)``), so a whole acquisition search optimises one
-posterior function draw.  ``AddLCB`` (slice 12), ``MOMeanSigmaLCB`` and
-``GeneralAcq`` (slice 10) are not ported yet.
+posterior function draw.  An acquisition that needs its own standard
+normals for a suggest (``NoisyAcq``'s shared ε) declares how many in
+``n_normals``; HEBO draws them with the suggest's other random numbers and
+passes them in ``AcqParams.draw``.  ``AddLCB`` is slice 12's and not ported
+yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 
 __all__ = [
     "AcqParams", "Acquisition", "LCB", "Mean", "Sigma", "EI", "PI", "UCB", "MACE",
-    "ThompsonSampling", "CEI", "log_ei", "log_pi",
+    "ThompsonSampling", "CEI", "MOMeanSigmaLCB", "GeneralAcq", "log_ei", "log_pi",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -46,6 +49,7 @@ class AcqParams(NamedTuple):
     noise: object = 0.0  # obs-noise scale of the perturbed mean
     z: Optional[torch.Tensor] = None  # (P, 1) standard normals, or None
     seed: Optional[int] = None  # Thompson sampling's draw (None: 0, as PRNGKey(0))
+    draw: Optional[torch.Tensor] = None  # (1, n_normals) normals the acquisition declared
 
 
 def _ndtr(z: torch.Tensor) -> torch.Tensor:
@@ -73,6 +77,7 @@ def log_ei(normed: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
 class Acquisition:
     num_obj: int = 1
     num_constr: int = 0
+    n_normals: int = 0  # standard normals per suggest, passed in ``AcqParams.draw``
 
     @property
     def num_out(self) -> int:
@@ -186,3 +191,37 @@ class CEI(Acquisition):
         else:
             lfeas = torch.zeros_like(lei)
         return torch.where(torch.isfinite(tau), -(lei + lfeas), -lfeas)
+
+
+class MOMeanSigmaLCB(Acquisition):
+    """Two objectives (μ, −σ) and one constraint, LCB − τ < 0 (acq.py:274)."""
+
+    num_obj = 2
+    num_constr = 1
+
+    def eval(self, model, state, params, X):
+        mu, sigma = _predict(model, state, X)
+        lcb = mu - params.kappa * sigma
+        return torch.cat([mu, -sigma, lcb - params.tau], dim=-1)
+
+
+class GeneralAcq(Acquisition):
+    """GeneralBO's acquisition (acq.py:290): per-output LCB μ_i − κσ_i on
+    the ``num_obj`` objectives, and μ_j − c_κ σ_j (feasible below 0) on the
+    ``num_constr`` constraint outputs.  κ comes from ``params.kappa``, as
+    in the JAX package: the constructor's ``kappa`` is kept and not read."""
+
+    def __init__(self, num_obj: int, num_constr: int = 0, kappa: float = 2.0,
+                 c_kappa: float = 0.0):
+        self.num_obj = num_obj
+        self.num_constr = num_constr
+        self.kappa = kappa
+        self.c_kappa = c_kappa
+
+    def eval(self, model, state, params, X):
+        mu, sigma = _predict(model, state, X)  # (P, num_obj + num_constr)
+        obj = mu[:, : self.num_obj] - params.kappa * sigma[:, : self.num_obj]
+        if not self.num_constr:
+            return obj
+        constr = mu[:, self.num_obj :] - self.c_kappa * sigma[:, self.num_obj :]
+        return torch.cat([obj, constr], dim=-1)

@@ -5,6 +5,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest --large-n [--obs 3000]
     python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
     python3 -m hebo_tpu_torch.bench.profile_suggest --mcbo BOCS [Casmopolitan ...] [--obs 200]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --general zdt1 [bnh] [--obs 200]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -55,8 +56,14 @@ numerics; Casmopolitan, BODi, CoCaBO), the problems of
 this mode imports), a warm-up ``suggest(1)``, one timed
 with the optimizer's fit and acquisition seconds, and one profiled as
 above, with K1's calls by (batch × N) and K2's forward and VJP calls,
-launches and device ms.
-Prints one JSON line per observation count (per preset).
+launches and device ms.  With ``--general PROBLEM ...``, ``GeneralBO`` at
+chip_smoke phase j2's setting: its defaults (one GP per output, 100
+epochs; NSGA-II pop 100 × 100) on ZDT1 (30 variables, 2 objectives) or BNH
+(2 variables, 2 objectives, 2 constraints), the problems of
+``chip_smoke.py``, warm-started with 200 Sobol observations, a warm-up
+``suggest(4)``, one timed, and one profiled as above, each with its fit,
+acquisition (NSGA-II) and EHVI seconds, and K5's and K2's launches.
+Prints one JSON line per observation count (per preset, per problem).
 """
 
 from __future__ import annotations
@@ -343,6 +350,49 @@ def profile_mcbo(name: str, n_obs: int = 200) -> dict:
             "k2": _k2_counts(by_name, calls)}
 
 
+def profile_general(problem: str, n_obs: int = 200) -> dict:
+    from ..optimizers import GeneralBO
+
+    # phase j2's problems are defined once, in the repository's chip_smoke.py
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+    import chip_smoke
+
+    if problem == "zdt1":
+        space = chip_smoke.unit_space(DesignSpace, [f"x{i}" for i in range(30)])
+        f, n_constr = chip_smoke.zdt1, 0
+    else:
+        space = DesignSpace([{"name": "x1", "type": "num", "lb": 0.0, "ub": 5.0},
+                             {"name": "x2", "type": "num", "lb": 0.0, "ub": 3.0}])
+        f, n_constr = chip_smoke.bnh, 2
+    opt = GeneralBO(space, num_obj=2, num_constr=n_constr, device="cuda")
+    chip_smoke.warm(opt, space, f, n_obs)
+
+    def step():
+        rec = opt.suggest(4)
+        torch.cuda.synchronize()
+        opt.observe(rec, f(rec))
+
+    t0 = time.perf_counter()
+    step()  # warm-up: builds/loads kernels, cuBLAS handles
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step()
+    phases = {"first_s": first_s, "suggest_s": time.perf_counter() - t0,
+              "fit_s": opt.fit_time[-1], "acq_s": opt.acq_time[-1], "ehvi_s": opt.ehvi_time[-1]}
+    calls = (gram.matern32_gram.launches, gram.matern32_gram_vjp.launches)
+    prof = _device_profile(step)
+    by_name = prof.pop("by_name")
+    prof.pop("range_device_ms")
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    return {"problem": problem, "n_obs": n_obs, "gps": len(opt.model.models),
+            "bucket": int(opt.model.models[0].data.X.shape[0]), "dims": space.num_cols,
+            "device": torch.cuda.get_device_name(0), **phases,
+            "profiled_fit_s": opt.fit_time[-1], "profiled_acq_s": opt.acq_time[-1],
+            "profiled_ehvi_s": opt.ehvi_time[-1], **prof,
+            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "k2": _k2_counts(by_name, calls)}
+
+
 _RANGES = ("pcg_solve",)
 
 
@@ -410,14 +460,22 @@ def main():
                     help="profile HEBO with the GP's HMC posterior (default 800 obs)")
     ap.add_argument("--mcbo", nargs="+", default=None, metavar="PRESET",
                     help="profile these BO_ALGOS presets at chip_smoke phase i's setting")
+    ap.add_argument("--general", nargs="+", default=None, choices=["zdt1", "bnh"],
+                    help="profile GeneralBO on these problems at chip_smoke phase j2's setting")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
-                    help="observation counts (default 112 800; with --antbo 28 200; with --mcbo 200)")
+                    help="observation counts (default 112 800; with --antbo 28 200; with --mcbo "
+                         "and --general 200)")
     ap.add_argument("--paths", nargs="+", default=["graph", "eager"], choices=["graph", "eager"],
                     help="HEBO's paths to profile (default both)")
     ap.add_argument("--timed", type=int, default=3, help="timed suggests per path (HEBO)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
+    if args.general:
+        for problem in args.general:
+            for n in args.obs or [200]:
+                print(json.dumps(profile_general(problem, n)), flush=True)
+        return
     if args.mcbo:
         for name in args.mcbo:
             for n in args.obs or [200]:

@@ -1,7 +1,9 @@
 """Carry GP hyperparameters and data over from the JAX package.
 
 The inputs are plain dicts of numpy arrays (``{k: np.asarray(v)}`` of a
-``hebo_tpu`` ``GPParams`` / ``GPData``), so this module needs neither JAX
+``hebo_tpu`` ``GPParams`` / ``GPData``), or a fitted ``hebo_tpu`` model
+whose named tuples of arrays are read through ``np.asarray``
+(``gp_from_jax``, ``model_from_jax``), so this module needs neither JAX
 nor the JAX package.
 """
 
@@ -14,7 +16,7 @@ import torch
 
 from .gp import GPCache, GPData, GPParams
 
-__all__ = ["params_from_jax", "data_from_jax", "cache_from_jax"]
+__all__ = ["params_from_jax", "data_from_jax", "cache_from_jax", "gp_from_jax", "model_from_jax"]
 
 
 def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
@@ -53,3 +55,29 @@ def cache_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPCache:
     return GPCache(L=f32("L"), alpha=f32("alpha"),
                    ok=torch.as_tensor(np.array(d["ok"], dtype=bool), device=device),
                    Wf=None if d.get("Wf") is None else f32("Wf"))
+
+
+def _fields(t) -> dict:
+    return {k: np.asarray(v) for k, v in t._asdict().items() if v is not None}
+
+
+def gp_from_jax(jax_gp, port_gp):
+    """Copy a fitted ``hebo_tpu`` GP's params, samples, caches and data into
+    the port's ``port_gp`` (on its device), which then predicts as the JAX
+    one does; returns ``port_gp``."""
+    dev = port_gp.device
+    port_gp.params = params_from_jax(_fields(jax_gp.params), dev)
+    port_gp.samples = params_from_jax(_fields(jax_gp.samples), dev)
+    port_gp.caches = cache_from_jax(_fields(jax_gp.caches), dev)
+    port_gp.data = data_from_jax(_fields(jax_gp.data), dev)
+    port_gp.fit_data = port_gp.data
+    return port_gp
+
+
+def model_from_jax(jax_model, port_model):
+    """``gp_from_jax``, member by member for a ``MultiTaskModel``."""
+    if hasattr(port_model, "models"):
+        for jm, tm in zip(jax_model.models, port_model.models):
+            model_from_jax(jm, tm)
+        return port_model
+    return gp_from_jax(jax_model, port_model)

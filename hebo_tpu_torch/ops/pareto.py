@@ -8,6 +8,9 @@ over each point's front, which propagate NaN on every device (CUDA's
 ``scatter_reduce`` does not promise to).  The crowding sum runs over the
 objectives in order.
 
+``pareto_mask`` (:144) and ``hypervolume_mc`` (:156), which GeneralBO's
+EHVI selection uses, are plain PyTorch on every device.
+
 On the card, rank and crowding come from kernel K5 (``csrc/pareto.cu``,
 ``nsga2_rank_crowd``), which peels every front on the device as the JAX
 ``while_loop`` does (:55-77), with no host sync.  On the CPU the plain
@@ -22,7 +25,7 @@ import torch
 from . import native
 
 __all__ = ["domination_matrix", "nondominated_rank", "crowding_distance", "nsga2_key",
-           "nsga2_rank_crowd", "nsga2_rank_crowd_plain"]
+           "nsga2_rank_crowd", "nsga2_rank_crowd_plain", "pareto_mask", "hypervolume_mc"]
 
 _PEEL_CHUNK = 4
 
@@ -159,3 +162,23 @@ def nsga2_key(rank: torch.Tensor, crowd: torch.Tensor) -> torch.Tensor:
     c = torch.where(torch.isnan(crowd), torch.full_like(crowd, -float("inf")), crowd)
     crowd_ord = torch.argsort(torch.argsort(-c, stable=True), stable=True)
     return rank.to(torch.float32) * P + crowd_ord.to(torch.float32)
+
+
+def pareto_mask(F: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(P,) bool: the nondominated (Pareto-optimal) rows of F (P, M)."""
+    mask = ~domination_matrix(F, valid).any(0)
+    return mask if valid is None else mask & valid
+
+
+def hypervolume_mc(F: torch.Tensor, ref_point: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Monte-Carlo hypervolume of the region that F (..., R, M) dominates
+    below ``ref_point`` (M,): the share of the uniform points u (n, M),
+    mapped into the box [min F, ref], that some row of F dominates, times
+    the box's volume.  The leading axes are a batch of point sets on the
+    same uniforms (GeneralBO scores every candidate set of a greedy round
+    in one call, the JAX package's ``vmap``)."""
+    lo = F.amin(-2)  # (..., M)
+    pts = lo[..., None, :] + u * (ref_point - lo)[..., None, :]  # (..., n, M)
+    dominated = (F[..., None, :, :] <= pts[..., :, None, :]).all(-1).any(-1)  # (..., n)
+    vol_box = torch.prod(ref_point - lo, -1)
+    return dominated.to(F.dtype).mean(-1) * vol_box

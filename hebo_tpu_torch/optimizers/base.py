@@ -6,13 +6,27 @@ and are masked out of model fitting.  Keeps per-call wall-clock timers.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
 import numpy as np
 import pandas as pd
+import torch
 
-__all__ = ["AbstractOptimizer"]
+__all__ = ["AbstractOptimizer", "timed"]
+
+
+@contextlib.contextmanager
+def timed(log: list, device):
+    """Append the wall seconds of the block to ``log``, synchronizing a
+    CUDA ``device`` at its end so that the block's kernels are in the
+    time."""
+    t0 = time.time()
+    yield
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    log.append(time.time() - t0)
 
 
 class AbstractOptimizer:

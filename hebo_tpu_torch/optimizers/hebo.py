@@ -183,8 +183,10 @@ class HEBO(AbstractOptimizer):
         gen = torch.Generator(device=dev)
         gen.manual_seed(self.num_obs % (1 << 30))
         z = torch.randn((self.pop, 1), generator=gen, device=dev)
+        k = self._acq.n_normals
+        draw = torch.randn((1, k), generator=gen, device=dev) if k else None
         params = AcqParams(tau=float(py[0, 0]), kappa=kappa, eps=1e-4,
-                           noise=float(np.sqrt(model.noise[0])), z=z)
+                           noise=float(np.sqrt(model.noise[0])), z=z, draw=draw)
         t0 = time.time()
         evo = EvolutionOpt(self.space, self._acq, pop=self.pop, iters=self.iters)
         pop_X, pop_F = evo.optimize(model=model, acq_params=params,
@@ -237,6 +239,7 @@ class HEBO(AbstractOptimizer):
         R, D = self.model.n_restarts, self.space.num_cols
         n_normal = R * (core.total_cats * _emb_cols(core) + core.d_feat)
         n_normal += core.n_steps * sum(math.prod(s) for s in _leaf_shapes(core, R)) + self.pop
+        n_normal += self._acq.n_normals
         return SuggestDraws(
             normal=torch.empty(n_normal, device=device),
             sel=torch.empty((self.iters, 2, self.pop), dtype=torch.int64, device=device),
@@ -264,8 +267,8 @@ class HEBO(AbstractOptimizer):
 
         shapes = _leaf_shapes(core, R)
         sizes = [R * core.total_cats * _emb_cols(core), R * core.d_feat,
-                 core.n_steps * sum(math.prod(s) for s in shapes), P]
-        z_emb, z_ls, psgld, z = torch.split(dr.normal, sizes)
+                 core.n_steps * sum(math.prod(s) for s in shapes), P, acq.n_normals]
+        z_emb, z_ls, psgld, z, draw = torch.split(dr.normal, sizes)
         steps = torch.split(psgld.view(core.n_steps, -1), [math.prod(s) for s in shapes], 1)
         pf, samples = map_fit(
             core, data, R,
@@ -281,7 +284,8 @@ class HEBO(AbstractOptimizer):
         xb = data.X.index_select(0, torch.argmin(y_masked).reshape(1))
         mu_b, _ = model.predict_pure(state, xb)
         noise_scale = torch.sqrt(torch.exp(pf.log_noise[0]) + core.noise_lb) * data.y_std
-        pr = AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale, z=z.view(P, 1))
+        pr = AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale, z=z.view(P, 1),
+                       draw=draw.view(1, -1) if acq.n_normals else None)
         init = parts[6].view(P, D).clone()
         init[0] = xb[0]
         pop_X, pop_F = evolve_raw(
@@ -376,12 +380,13 @@ class SuggestDraws(NamedTuple):
     """Every random number of one suggest, drawn before the program runs:
     ``normal`` holds init_params' embedding and lengthscale normals, the
     pSGLD normals of every step (one row per step, the ``GPParams`` leaves
-    in leaf order) and MACE's z; ``sel`` the tournaments' indices, ``uni``
+    in leaf order), MACE's z and the acquisition's own ``n_normals``
+    (``AcqParams.draw``); ``sel`` the tournaments' indices, ``uni``
     the eight uniforms of each generation (``GenDraws`` order) and
     ``fit_uni`` the slice sampler's uniforms (empty unless the GP's
     optimizer is ``slice``)."""
 
-    normal: torch.Tensor  # (R·cats·E + R·D_feat + steps·Σ leaf + pop,)
+    normal: torch.Tensor  # (R·cats·E + R·D_feat + steps·Σ leaf + pop + n_normals,)
     sel: torch.Tensor  # (iters, 2, pop) int64
     uni: torch.Tensor  # (iters, 8, pop, D)
     fit_uni: torch.Tensor  # (sweeps, dim, 18, R), or (0,)

@@ -1,4 +1,6 @@
 from .antbo_tools import AA_ALPHABET, AbsolutTool, ManualTool, TableFillingTool
+from .bayesmark import BayesmarkTask
 from .pest import PestControlTask
 
-__all__ = ["AA_ALPHABET", "AbsolutTool", "ManualTool", "TableFillingTool", "PestControlTask"]
+__all__ = ["AA_ALPHABET", "AbsolutTool", "ManualTool", "TableFillingTool", "PestControlTask",
+           "BayesmarkTask"]

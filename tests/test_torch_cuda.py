@@ -278,7 +278,7 @@ def _pareto_inputs(P, M, edge, seed, device):
         F[23] = -np.inf
         F[30, 2 % M] = np.nan
         F[31] = np.nan
-        F[40] = [np.inf, -np.inf, 0.5][:M]
+        F[40] = ([np.inf, -np.inf, 0.5] * 2)[:M]
     return torch.as_tensor(F, device=device)
 
 
@@ -290,13 +290,16 @@ def _same_bits(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("P, M", [(100, 3), (200, 3), (64, 1), (128, 1)])
+@pytest.mark.parametrize("P, M", [(100, 3), (200, 3), (64, 1), (128, 1), (200, 2), (100, 4),
+                                  (200, 4)])
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
 def test_pareto_kernel_on_card(cuda, P, M, edge, masked):
     """K5 against its plain version on the card and on the CPU at NSGA-II's
-    shapes and the MCBO GA's single objective (where many points share a
-    front): ties, duplicate rows, ±inf and NaN objectives, invalid rows."""
+    shapes, the MCBO GA's single objective (where many points share a
+    front) and GeneralBO's M = 2 (ZDT1) and M = 4 (BNH: 2 objectives + 2
+    constraints): ties, duplicate rows, ±inf and NaN objectives, invalid
+    rows."""
     from hebo_tpu_torch.ops import pareto
 
     F = _pareto_inputs(P, M, edge, P + edge, cuda)
@@ -753,3 +756,63 @@ def test_interleaved_descent_runs_k2_vjp_on_card(cuda):
     want = opt.descend(cpu, EI(), pr, X0, lb, ub)
     assert np.abs(got - X0).max() > 1e-3
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_noisy_opt_graph_equals_eager_on_card(cuda):
+    """NoisyOpt at full defaults, bucket 128: its ε is drawn with the
+    suggest's other draws before replay, so the captured graph's suggestion
+    equals the eager CUDA path's at the same seed."""
+    import pandas as pd
+
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.optimizers import NoisyOpt
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = NoisyOpt(space, device="cuda")
+    warm = space.inverse_transform(space.sobol_sample_opt(112, seed=1))
+    opt.observe(warm, _ackley(warm))
+    rec_g = opt.suggest(8)  # captures bucket 128
+    assert list(opt._graphs) and opt._acq.n_normals == 3
+    assert opt.suggest(8).equals(rec_g)
+    opt._use_graphs = False
+    pd.testing.assert_frame_equal(opt.suggest(8), rec_g)
+
+
+@pytest.mark.gpu
+def test_lbfgs_runs_k2_vjp_on_card(cuda):
+    """Multi-start L-BFGS on a GP's LCB fitted on the card: one K2 VJP
+    launch per gradient (the first and one per iteration), and every
+    start's point and value within 1e-4 of the same 3 iterations on the
+    CPU from the same fitted state (the plain Gram and its autograd)."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.acq_optimizers.solvers import lbfgs_batch
+    from hebo_tpu_torch.acquisitions.acq import LCB, AcqParams
+    from hebo_tpu_torch.models import get_model
+    from hebo_tpu_torch.models.gp.gp import GPData
+    from hebo_tpu_torch.models.gp.tree import tree_map
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": 0.0, "ub": 1.0} for i in range(6)])
+    X = space.sobol_sample_opt(60, seed=0).astype(np.float32)
+    y = (((X - 0.4) ** 2).sum(1, keepdims=True) + 0.3 * np.sin(5 * X[:, :1])).astype(np.float32)
+    gp = get_model("gp", space, device="cuda", num_epochs=30).fit(X, y)
+    cpu = get_model("gp", space, device="cpu")
+    to_cpu = lambda t: tree_map(lambda v: v.cpu(), t)
+    cpu.samples, cpu.caches = to_cpu(gp.samples), to_cpu(gp.caches)
+    cpu.data = GPData(*(v.cpu() for v in gp.data))
+    X0 = space.sobol_sample_opt(8, seed=5).astype(np.float32)
+    acq, pr = LCB(), AcqParams(kappa=2.0)
+    runs = {}
+    for m in (gp, cpu):
+        dev = m.device
+        f = lambda args, Xc, m=m: acq.eval(m, args[0], args[1], Xc)
+        n0 = gram.matern32_gram_vjp.launches
+        runs[dev.type] = lbfgs_batch(f, (m.state, pr), torch.as_tensor(X0, device=dev),
+                                     torch.zeros(6, device=dev), torch.ones(6, device=dev), 3, 8)
+        if dev.type == "cuda":
+            assert gram.matern32_gram_vjp.launches - n0 == 4
+    (Xg, fg), (Xc, fc) = runs["cuda"], runs["cpu"]
+    assert np.abs(Xg.cpu().numpy() - X0).max() > 1e-3
+    torch.testing.assert_close(Xg.cpu(), Xc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
