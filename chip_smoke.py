@@ -111,7 +111,14 @@
         (Casmopolitan and CoCaBO: the transformed-overlap GP, K2 at D = 3,
         with the interleaved search's and the bandit's gradient steps
         through K2's VJP in the query points; BODi: the HED GP, K2 at
-        D = 19).
+        D = 19);
+   (i3) RDUCB on LassoBench ``synt_simple``'s published box [−1, 1]^60
+        with a stand-in objective of 30 random pairwise terms (the random
+        tree's additive GP, its fit's K1 ladder at (1, 256), the
+        message-passing optimizer over each edge's 16 × 16 grid), and once
+        more with ``relearn_every=1`` and the learned decomposition (the
+        Gibbs structure learner: 120 moves per fit, each one K1 ladder at
+        (24, 256)); the learned cliques must differ from the tree.
    Every suggestion must lie in the space, be new against the history and
    score finite; walls, fit and acquisition seconds, launches per suggest
    and K1's calls by (batch × N) per preset.  K1, K2, its VJP, K3 and K5
@@ -158,7 +165,18 @@
    VJP and K5 must launch on the path, and every shape it launched is held
    against its plain version, as in phase i (among them K2 at D 30 and 2,
    and K5 at (100, 4) and (200, 4)).
-9. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+9. Drives the GP variants (phase k, with the counts reset before it):
+   ``HEBO(space, model_name=m, device="cuda")`` on Ackley-6D at its
+   defaults, 2 × suggest(8) on the generic route: ``dkl`` (K2 and its VJP
+   over 8 learned features) and ``uncertain_gp`` (the expected RBF, K1) at
+   800 warm Sobol observations (bucket 1024), ``svgp`` (32 inducing
+   points: K2 and its VJP at (1, 32, 3072, 6), K1's differentiable ladder
+   at (1, 32)) at 3000 (bucket 3072); then ``CompositionalAcqOptimizer``
+   once per method (cadam, scgd, ascgd, nasa, adam) on a GP fitted at 200
+   observations, each descent through K2's VJP in the query points.  Every
+   suggestion must be finite, in the space and new; every shape launched
+   is held against its plain version, as in phase i.
+10. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -194,6 +212,13 @@ MCBO_GRAM_SHAPES = [(1, 256, 256, 3), (1, 256, 256, 19), (1, 256, 8, 3), (1, 256
 FAMILY_GRAM_SHAPES = [(1, 256, 256, 30), (1, 256, 256, 2), (1, 256, 100, 30), (1, 256, 100, 2),
                       (1, 64, 8, 6), (1, 64, 40, 6)]
 FAMILY_VJP_SHAPES = [(1, 256, 256, 30), (1, 256, 256, 2), (1, 64, 8, 6), (1, 64, 1, 6)]
+# phase k's shapes, timed with the others: SVGP's inducing Grams at 3000
+# observations (32 inducing points; Kmm, Kmn at bucket 3072, NSGA-II's
+# predict) and the DKL GP's over its 8 learned features at bucket 1024 (fit
+# and NSGA-II's predict)
+VARIANT_GRAM_SHAPES = [(1, 32, 32, 6), (1, 32, 3072, 6), (1, 32, 100, 6), (1, 1024, 1024, 8),
+                       (1, 1024, 100, 8)]
+VARIANT_VJP_SHAPES = [(1, 32, 3072, 6), (1, 32, 32, 6), (1, 1024, 1024, 8)]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 64, 64, 25, 3, [(0.6, 0.7)])]
@@ -224,15 +249,16 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     buckets 1024 and 128; the large-N route's; the samplers' (4 HMC chains,
     SVI draws or gpy_wgp restarts at buckets 128 and 1024, 32 SMC
     particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
-    Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``) and phase j's
-    (``FAMILY_GRAM_SHAPES``)."""
+    Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``), phase j's
+    (``FAMILY_GRAM_SHAPES``) and phase k's (``VARIANT_GRAM_SHAPES``)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
                        (2, 2048, 2048, 6), (1, 3072, 3072, 6), (1, 3072, 100, 6),
                        (1, 3072, 128, 6), (1, 7168, 7168, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
-                       (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES + FAMILY_GRAM_SHAPES:
+                       (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES + FAMILY_GRAM_SHAPES \
+            + VARIANT_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -262,8 +288,8 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
     128 and the large-N route's subsample bucket 2048, and the samplers' (4
     and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
-    D 3 and 19, and the descents' query shapes) and phase j's
-    (``FAMILY_VJP_SHAPES``), on random points and on a
+    D 3 and 19, and the descents' query shapes), phase j's
+    (``FAMILY_VJP_SHAPES``) and phase k's (``VARIANT_VJP_SHAPES``), on random points and on a
     self-Gram with coincident rows (repeated rows and the zero rows of a
     padded bucket); twice on the same inputs, which must give the same
     bits.  The self-Gram's points are scaled by √(6/D) above D = 6, so
@@ -275,7 +301,7 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6),
-                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES:
+                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES + VARIANT_VJP_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -319,12 +345,13 @@ def spd(torch, B, N, dev, gen):
 def check_chol(torch, ck, dev, gen, fails):
     """K1a and K1b at the main paths' shapes: AntBO's fit and cache (1, 32)
     and (1, 256), HEBO's cache (1, 128) and (1, 1024), HEBO's fit (2, 128)
-    and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051).  Host dispatch is part of the time at the
+    and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051); RDUCB's
+    structure learner (24, 256).  Host dispatch is part of the time at the
     small shapes, for the kernels and the library call alike, so those get
     more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
-                 (4, 1024), (32, 1024), (1, 512), (4, 128)]:
+                 (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256)]:
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
@@ -1166,33 +1193,60 @@ class ShapeLog:
         self._native.call = self._saved
 
 
+def synt60_space(DesignSpace):
+    """LassoBench ``synt_simple``'s published box, [−1, 1]^60 (the JAX
+    package's tasks/lasso.py:26-29), RDUCB's flagship width."""
+    return DesignSpace([{"name": f"x{i}", "type": "num", "lb": -1.0, "ub": 1.0} for i in range(60)])
+
+
+def pairwise60(df):
+    """A stand-in objective over the 60-D box (the card's machine has no
+    sklearn for the real lasso): 30 random pairwise terms
+    Σ_k a_k sin(3 x_i x_j + b_k) + 0.1 (x_i − x_j)², fixed by a seed."""
+    rng = np.random.default_rng(60)
+    pairs = rng.permutation(60).reshape(30, 2)
+    a, b = rng.uniform(0.5, 1.5, 30), rng.uniform(0, math.pi, 30)
+    X = df[[f"x{i}" for i in range(60)]].values.astype(float)
+    xi, xj = X[:, pairs[:, 0]], X[:, pairs[:, 1]]
+    return (a * np.sin(3 * xi * xj + b) + 0.1 * (xi - xj) ** 2).sum(1).reshape(-1, 1)
+
+
 def mcbo_problems(DesignSpace, PestControlTask):
     """Phase i's problems, {name: (space, objective)}: pest control at its
-    published size (25 stations × 5 choices) and Ackley-53."""
+    published size (25 stations × 5 choices), Ackley-53 and the 60-D
+    ``synt_simple`` box with a pairwise stand-in objective."""
     pest = PestControlTask(n_stations=25)
-    return {"pest": (pest.space, pest), "ackley53": (ackley53_space(DesignSpace), ackley53)}
+    return {"pest": (pest.space, pest), "ackley53": (ackley53_space(DesignSpace), ackley53),
+            "synt60": (synt60_space(DesignSpace), pairwise60)}
 
 
 MCBO_PRESETS = (("COMBO", "pest"), ("BOCS", "pest"), ("BOSS", "pest"), ("BOiLS", "pest"),
-                ("Casmopolitan", "ackley53"), ("BODi", "ackley53"), ("CoCaBO", "ackley53"))
+                ("Casmopolitan", "ackley53"), ("BODi", "ackley53"), ("CoCaBO", "ackley53"),
+                ("RDUCB", "synt60"))
 
 
 def mcbo_phase(torch, DesignSpace, wrappers, fails):
-    """Phase i: every ``BO_ALGOS`` preset but RDUCB through
-    ``build_bo(space, device="cuda")`` at its defaults, 200 random warm
+    """Phase i: every ``BO_ALGOS`` preset through ``build_bo(space,
+    device="cuda")`` at its defaults, and RDUCB once more with
+    ``relearn_every=1`` and the learned decomposition; 200 random warm
     observations, then 2 × suggest(1); returns the per-preset rows and the
     shapes the kernels were called at."""
+    import dataclasses
+
     from hebo_tpu_torch.bench.profile_suggest import K1Batches
     from hebo_tpu_torch.optimizers.bo_builder import BO_ALGOS
     from hebo_tpu_torch.tasks import PestControlTask
 
     problems = mcbo_problems(DesignSpace, PestControlTask)
+    learn = dataclasses.replace(BO_ALGOS["RDUCB"], model_kwargs={"decomposition": "learn"})
+    runs = [(name, prob, BO_ALGOS[name], {}) for name, prob in MCBO_PRESETS]
+    runs.append(("RDUCB learn", "synt60", learn, {"relearn_every": 1}))
     rows = {}
     k1, shapes = K1Batches(), ShapeLog()
     try:
-        for name, prob in MCBO_PRESETS:
+        for name, prob, builder, kw in runs:
             space, f = problems[prob]
-            opt = BO_ALGOS[name].build_bo(space, n_init=10, seed=0, device="cuda")
+            opt = builder.build_bo(space, n_init=10, seed=0, device="cuda", **kw)
             warm = space.sample(200, seed=1)
             opt.observe(warm, f(warm))
             k1.take()
@@ -1220,11 +1274,13 @@ def mcbo_phase(torch, DesignSpace, wrappers, fails):
                 opt.observe(rec, y)
             model = opt.model
             rows[name] = dict(
-                problem=prob, model=BO_ALGOS[name].model_id, acq_opt=BO_ALGOS[name].acq_opt_id,
-                acq=BO_ALGOS[name].acq_func_id, n_obs=opt.num_obs,
+                problem=prob, model=builder.model_id, acq_opt=builder.acq_opt_id,
+                acq=builder.acq_func_id, n_obs=opt.num_obs,
                 bucket=int(model.data.X.shape[0]) if hasattr(model, "data") else None,
                 s_per_suggest=walls, fit_s=opt.fit_time[-2:], acq_s=opt.acq_time[-2:],
-                launches_per_suggest=launches, k1_calls_by_batch=batches, best=opt.best_y)
+                launches_per_suggest=launches, k1_calls_by_batch=batches, best=opt.best_y,
+                **({"cliques": [list(map(int, c)) for c in model.cliques]}
+                   if hasattr(model, "cliques") else {}))
             print(f"phase i {name} ({prob}):", json.dumps(rows[name]), flush=True)
     finally:
         k1.close()
@@ -1232,6 +1288,15 @@ def mcbo_phase(torch, DesignSpace, wrappers, fails):
     bocs = rows["BOCS"]["k1_calls_by_batch"]
     if not all(b.get("1x5051", 0) >= 300 for b in bocs):
         fails.append(f"phase i BOCS: K1 did not factor at (1, 5051) in every Gibbs sweep: {bocs}")
+    # RDUCB: the fit's ladder at (1, 256); the learner's 120 moves at (24, 256)
+    for name, key, least in (("RDUCB", "1x256", 1), ("RDUCB learn", "1x256", 1),
+                             ("RDUCB learn", "24x256", 120)):
+        got = rows[name]["k1_calls_by_batch"]
+        if not all(b.get(key, 0) >= least for b in got):
+            fails.append(f"phase i {name}: K1 did not factor at {key} ({least}+ calls) in every "
+                         f"suggest: {got}")
+    if rows["RDUCB learn"]["cliques"] == rows["RDUCB"]["cliques"]:
+        fails.append("phase i RDUCB learn: the learned decomposition equals the random tree")
     for name, kernels in (("BOSS", ("ssk_cross", "ssk_self", "nsga2_rank_crowd")),
                           ("BOiLS", ("ssk_cross", "ssk_self")),
                           ("Casmopolitan", ("matern32_gram", "matern32_gram_vjp")),
@@ -1559,6 +1624,69 @@ def family_phase(torch, DesignSpace, wrappers, fails):
     return dict(rows=rows, shapes=seen, query_vjp=query_vjp)
 
 
+# ---------------------------------------------------------------- phase k
+def variants_phase(torch, HEBO, DesignSpace, wrappers, fails):
+    """Phase k: the GP variants through ``HEBO(space, model_name=m,
+    device="cuda")`` on Ackley-6D at their defaults, batch 8 (the generic
+    route: ``model.fit``, ``EvolutionOpt``): ``dkl`` and ``uncertain_gp``
+    at 800 warm Sobol observations (bucket 1024), ``svgp`` at 3000 (bucket
+    3072), 2 × suggest(8) each; then ``CompositionalAcqOptimizer`` once per
+    method on a GP fitted at 200 observations (16 starts × 64 steps, 32
+    draws).  Returns the rows and the shapes the kernels were called at."""
+    from hebo_tpu_torch.acq_optimizers.compositional import CompositionalAcqOptimizer
+    from hebo_tpu_torch.acquisitions.acq import AcqParams
+    from hebo_tpu_torch.models import get_model
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    rows, sug, shapes = {}, Suggests(torch, wrappers), ShapeLog()
+    need = {"dkl": ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "nsga2_rank_crowd"),
+            "uncertain_gp": ("chol_factor", "chol_winv", "nsga2_rank_crowd"),
+            "svgp": ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "nsga2_rank_crowd")}
+    try:
+        for name, n_obs in (("dkl", 800), ("uncertain_gp", 800), ("svgp", 3000)):
+            opt = HEBO(space, model_name=name, device="cuda")
+            warm(opt, space, ackley, n_obs)
+            log = {}
+            for _ in range(2):
+                rec = sug(opt, 8, log)
+                check_rec(space, rec, 8, f"phase k {name}", fails, hist=space.transform(opt.X))
+                opt.observe(rec, ackley(rec))
+            rows[name] = dict(log, **timers(opt, 2), n_obs=opt.num_obs, model=type(opt.model).__name__,
+                              bucket=int(opt.model.data.X.shape[0]), best=opt.best_y)
+            if opt._graphs:
+                fails.append(f"phase k {name}: a suggest took the fused graph")
+            for k in need[name]:
+                if not all(r.get(k, 0) > 0 for r in log["launches_per_suggest"]):
+                    fails.append(f"phase k {name}: a suggest launched no {k}")
+            print(f"phase k {name}:", json.dumps(rows[name]), flush=True)
+        X = space.sobol_sample_opt(200, seed=2)
+        y = ackley(space.inverse_transform(X))
+        gp = get_model("gp", space, device="cuda").fit(X, y)
+        for method in ("cadam", "scgd", "ascgd", "nasa", "adam"):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.time()
+            rec = CompositionalAcqOptimizer(space, method=method).optimize(
+                gp, None, AcqParams(tau=float(y.min())), n_suggestions=2, seed=0, x_observed=X)
+            torch.cuda.synchronize()
+            launches = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]}
+            rows[f"compbo {method}"] = dict(s=time.time() - t0, launches=launches)
+            check_rec(space, space.inverse_transform(rec), 2, f"phase k compbo {method}", fails)
+            if not launches.get("matern32_gram_vjp"):
+                fails.append(f"phase k compbo {method}: no K2 VJP launch in the query points")
+            print(f"phase k compbo {method}:", json.dumps(rows[f"compbo {method}"]), flush=True)
+    finally:
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    for what, kernel, shape in (("K1 at (1, 32)", "chol_factor", lambda s: s == (1, 32)),
+                                ("K2 at (1, 32, 3072, 6)", "matern32_gram", lambda s: s == (1, 32, 3072, 6)),
+                                ("K2's VJP at D = 8", "matern32_gram_vjp", lambda s: s[3] == 8)):
+        if not any(shape(s) for s in shapes.seen[kernel]):
+            fails.append(f"phase k: {what} never launched")
+    print("phase k shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
 def main() -> int:
     import torch
 
@@ -1635,8 +1763,12 @@ def main() -> int:
                                                                 fails)),
                              ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                               "nsga2_rank_crowd")),
+        "gp_variants": (lambda: variants.update(variants_phase(torch, HEBO, DesignSpace, wrappers,
+                                                               fails)),
+                        ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                         "nsga2_rank_crowd")),
     }
-    mcbo, family = {}, {}
+    mcbo, family, variants = {}, {}, {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -1649,7 +1781,7 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    for p in (mcbo, family):
+    for p in (mcbo, family, variants):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],

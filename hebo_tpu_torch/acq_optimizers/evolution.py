@@ -230,7 +230,7 @@ class EvolutionOpt:
         state = model.state if model is not None else None
         with torch.no_grad():
             Xf, Ff = evolve_raw(torch.as_tensor(np.asarray(X0, np.float32), device=dev),
-                                lambda X: acq.eval(model, state, pr, X), meta,
+                                lambda X: acq.eval_pure(model, state, pr, X), meta,
                                 n_gens=self.iters, generator=gen, draws=draws)
         Xf, Ff = Xf.cpu().numpy(), Ff.cpu().numpy()
         if return_pop:

@@ -48,7 +48,7 @@ class AcqOptimizerBase:
     def _score(self, model, acq, acq_params, X) -> np.ndarray:
         """First acquisition column of the opt-frame rows X (P, D), as numpy."""
         Xt = torch.as_tensor(np.asarray(X, np.float32), device=model.device)
-        return acq.eval(model, model.state, acq_params, Xt)[:, 0].cpu().numpy()
+        return acq.eval_pure(model, model.state, acq_params, Xt)[:, 0].cpu().numpy()
 
     # ----------------------------------------------------------------- api
     def optimize(
@@ -231,7 +231,7 @@ class InterleavedSearchAcqOptimizer(AcqOptimizerBase):
         for _ in range(self.n_grad_steps):
             Xg = Xc.detach().requires_grad_(True)
             with torch.enable_grad():
-                total = acq.eval(model, state, acq_params, Xg)[:, 0].sum()
+                total = acq.eval_pure(model, state, acq_params, Xg)[:, 0].sum()
                 g, = torch.autograd.grad(total, Xg)
             upd = torch.where(num[None, :], g, torch.zeros_like(g))
             Xc = torch.minimum(torch.maximum(Xc - step * upd, lb_t), ub_t)

@@ -1,8 +1,9 @@
 """Acquisition functions (port of ``hebo_tpu/acquisitions/acq.py``, :48-245).
 
-Minimization convention: ``eval(model, state, params, X)`` returns
-(P, num_obj + num_constr).  ``model.predict_pure(state, X)`` gives the
-raw-frame (mu, var).
+Minimization convention: ``eval_pure(model, state, params, X)`` returns
+(P, num_obj + num_constr), as in the JAX package; ``acq(model, X)``
+evaluates on a fitted model and returns numpy.  ``model.predict_pure(state,
+X)`` gives the raw-frame (mu, var).
 
 ``norm.logcdf``/``cdf``/``logpdf`` become ``torch.special.log_ndtr``,
 ``_ndtr`` and an explicit log-density; the z ≤ −6 asymptotic switch of
@@ -21,8 +22,9 @@ seeded afresh with ``AcqParams.seed`` (the JAX package's
 posterior function draw.  An acquisition that needs its own standard
 normals for a suggest (``NoisyAcq``'s shared ε) declares how many in
 ``n_normals``; HEBO draws them with the suggest's other random numbers and
-passes them in ``AcqParams.draw``.  ``AddLCB`` is slice 12's and not ported
-yet.
+passes them in ``AcqParams.draw``.  ``AddLCB`` sums the per-clique LCBs of
+the random-decomposition GP (``gp_rd``), all cliques in one batched
+posterior evaluation.
 """
 
 from __future__ import annotations
@@ -30,11 +32,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
     "AcqParams", "Acquisition", "LCB", "Mean", "Sigma", "EI", "PI", "UCB", "MACE",
-    "ThompsonSampling", "CEI", "MOMeanSigmaLCB", "GeneralAcq", "log_ei", "log_pi",
+    "ThompsonSampling", "CEI", "AddLCB", "MOMeanSigmaLCB", "GeneralAcq", "log_ei", "log_pi",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -83,8 +86,17 @@ class Acquisition:
     def num_out(self) -> int:
         return self.num_obj + self.num_constr
 
-    def eval(self, model, state, params: AcqParams, X: torch.Tensor) -> torch.Tensor:
+    def eval_pure(self, model, state, params: AcqParams, X: torch.Tensor) -> torch.Tensor:
+        """→ (P, num_obj + num_constr), minimization convention."""
         raise NotImplementedError
+
+    def __call__(self, model, X, params: Optional[AcqParams] = None) -> np.ndarray:
+        """Evaluation on a fitted model (``model.state``) at the opt-frame
+        rows X, on the model's device, as numpy (acq.py:92-98)."""
+        params = params if params is not None else AcqParams()
+        Xt = torch.as_tensor(np.asarray(X, np.float32), device=model.device)
+        with torch.no_grad():
+            return self.eval_pure(model, model.state, params, Xt).cpu().numpy()
 
 
 def _predict(model, state, X):
@@ -93,7 +105,13 @@ def _predict(model, state, X):
 
 
 class LCB(Acquisition):
-    def eval(self, model, state, params, X):
+    """μ − κσ; κ comes from ``params.kappa``: the constructor's ``kappa`` is
+    kept and not read, as in the JAX package (acq.py:110-115)."""
+
+    def __init__(self, kappa: float = 2.0):
+        self.kappa = kappa
+
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
         return mu - params.kappa * sigma
 
@@ -102,26 +120,26 @@ UCB = LCB
 
 
 class Mean(Acquisition):
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         return _predict(model, state, X)[0]
 
 
 class Sigma(Acquisition):
     """−σ: minimising it maximises the predictive uncertainty."""
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         return -_predict(model, state, X)[1]
 
 
 class EI(Acquisition):
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
         normed = (params.tau - params.eps - mu) / sigma
         return -log_ei(normed, torch.log(sigma))
 
 
 class PI(Acquisition):
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
         normed = (params.tau - params.eps - mu) / sigma
         return -log_pi(normed)
@@ -132,7 +150,7 @@ class MACE(Acquisition):
 
     num_obj = 3
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
         if params.z is not None:
             mu = mu + math.sqrt(2.0) * params.noise * params.z
@@ -150,7 +168,7 @@ class ThompsonSampling(Acquisition):
     device and seeded with ``params.seed`` at every evaluation, so the
     evaluations of one suggest see the same function."""
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         gen = torch.Generator(device=X.device)
         gen.manual_seed(0 if params.seed is None else int(params.seed))
         if hasattr(model, "joint_sample_pure"):
@@ -173,7 +191,7 @@ class CEI(Acquisition):
         self.lambdas = [0.0] * self._n_constr if lambdas is None else [float(v) for v in lambdas]
         self.augmented_ei = augmented_ei
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)  # (P, 1 + n_constr)
         mu0, s0 = mu[:, :1], sigma[:, :1]
         tau = torch.as_tensor(params.tau, dtype=mu.dtype, device=mu.device)
@@ -193,13 +211,32 @@ class CEI(Acquisition):
         return torch.where(torch.isfinite(tau), -(lei + lfeas), -lfeas)
 
 
+class AddLCB(Acquisition):
+    """Additive LCB over a random decomposition, Σ_c (μ_c − κσ_c) in the
+    raw-y scale (acq.py:248-272; MCBO ``AddLCB``), for a model with the
+    clique interface (``gp_rd``): every clique's posterior at X in one
+    batched call, moment-matched over the hyperparameter samples.  κ comes
+    from ``params.kappa``."""
+
+    def eval_pure(self, model, state, params, X):
+        samples, caches, data = state
+        core = model.core
+        C = core.n_cliques
+        cs = torch.arange(C, device=X.device)
+        mus, vars_ = core.predict_cliques(samples, caches, data, X.expand(C, -1, -1), cs)
+        mu = mus.mean(0)  # (C, P, 1)
+        var = torch.clamp((vars_ + mus ** 2).mean(0) - mu ** 2, min=1e-10)
+        # component frame → raw scale (no mean shift)
+        return (mu * data.y_std - params.kappa * torch.sqrt(var) * data.y_std).sum(0)
+
+
 class MOMeanSigmaLCB(Acquisition):
     """Two objectives (μ, −σ) and one constraint, LCB − τ < 0 (acq.py:274)."""
 
     num_obj = 2
     num_constr = 1
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)
         lcb = mu - params.kappa * sigma
         return torch.cat([mu, -sigma, lcb - params.tau], dim=-1)
@@ -218,7 +255,7 @@ class GeneralAcq(Acquisition):
         self.kappa = kappa
         self.c_kappa = c_kappa
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, sigma = _predict(model, state, X)  # (P, num_obj + num_constr)
         obj = mu[:, : self.num_obj] - params.kappa * sigma[:, : self.num_obj]
         if not self.num_constr:

@@ -6,6 +6,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
     python3 -m hebo_tpu_torch.bench.profile_suggest --mcbo BOCS [Casmopolitan ...] [--obs 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --general zdt1 [bnh] [--obs 200]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --variant svgp [dkl uncertain_gp] [--obs 3000]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -50,8 +51,9 @@ batch size and the chains' acceptance rate.  With ``--mcbo PRESET ...``,
 MCBO's named presets (``BO_ALGOS``) at chip_smoke phase i's setting: the
 preset's defaults through ``build_bo(space, device="cuda")``, warm-started
 with 200 random observations (bucket 256) of pest control with 25
-stations (COMBO, BOCS, BOSS, BOiLS) or of Ackley-53 (50 binary + 3
-numerics; Casmopolitan, BODi, CoCaBO), the problems of
+stations (COMBO, BOCS, BOSS, BOiLS), of Ackley-53 (50 binary + 3
+numerics; Casmopolitan, BODi, CoCaBO) or of the 60-D ``synt_simple`` box
+(RDUCB), the problems of
 ``chip_smoke.mcbo_problems`` (the script at the repository's root, which
 this mode imports), a warm-up ``suggest(1)``, one timed
 with the optimizer's fit and acquisition seconds, and one profiled as
@@ -62,7 +64,10 @@ epochs; NSGA-II pop 100 × 100) on ZDT1 (30 variables, 2 objectives) or BNH
 (2 variables, 2 objectives, 2 constraints), the problems of
 ``chip_smoke.py``, warm-started with 200 Sobol observations, a warm-up
 ``suggest(4)``, one timed, and one profiled as above, each with its fit,
-acquisition (NSGA-II) and EHVI seconds, and K5's and K2's launches.
+acquisition (NSGA-II) and EHVI seconds, and K5's and K2's launches.  With
+``--variant MODEL ...``, HEBO's generic route as ``--large-n`` with
+``HEBO(model_name=MODEL)`` (chip_smoke phase k's setting: 800 Sobol
+observations, 3000 for ``svgp``).
 Prints one JSON line per observation count (per preset, per problem).
 """
 
@@ -238,13 +243,14 @@ def _k2_block(by_name, calls, bucket) -> dict:
     return block
 
 
-def profile_generic(n_obs: int, n_timed: int = 3, model_config=None) -> dict:
+def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name: str = "gp") -> dict:
     """HEBO's generic route at ``n_obs`` Sobol observations of Ackley-6D:
-    above max_cholesky_size (subsampled fit, CG posterior), or a GP with a
-    hyperparameter sampler (``model_config``)."""
+    above max_cholesky_size (subsampled fit, CG posterior), a GP with a
+    hyperparameter sampler (``model_config``), or another surrogate
+    (``model_name``: ``svgp``, ``dkl``, ``uncertain_gp``, ...)."""
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
-    opt = HEBO(space, device="cuda", model_config=model_config)
+    opt = HEBO(space, model_name=model_name, device="cuda", model_config=model_config)
     warm = opt.quasi_sample(n_obs)
     opt.observe(warm, _ackley(warm))
     t0 = time.perf_counter()
@@ -274,19 +280,22 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None) -> dict:
     pcg_ms = prof.pop("range_device_ms").get("pcg_solve", 0.0)
     k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
     model = opt.model
-    return {"n_obs": n_obs, "fit_bucket": int(model.fit_data.X.shape[0]),
+    fit_data = getattr(model, "fit_data", None) or model.data
+    caches = getattr(model, "caches", None)
+    return {"model": model_name, "n_obs": n_obs, "fit_bucket": int(fit_data.X.shape[0]),
             "bucket": int(model.data.X.shape[0]), "path": "generic",
             "device": torch.cuda.get_device_name(0), "first_s": first_s, "s_per_suggest": walls,
             "s_median": float(np.median(walls)) if walls else None,
             "fit_s": opt.fit_time[-n_timed - 1:-1], "acq_s": opt.acq_time[-n_timed - 1:-1],
-            "cg_residual": None if model.caches.res is None else float(model.caches.res.max()),
-            "inference": model.inference, "k1_calls_by_batch": k1.take(),
-            "accept_rate": None if model.accept_rate is None else model.accept_rate.tolist(),
+            "cg_residual": None if caches is None or caches.res is None else float(caches.res.max()),
+            "inference": getattr(model, "inference", None), "k1_calls_by_batch": k1.take(),
+            "accept_rate": (None if getattr(model, "accept_rate", None) is None
+                            else model.accept_rate.tolist()),
             **prof,
             "pcg_solves": len(pcg_calls), "pcg_device_ms": pcg_ms,
             "pcg_share_of_device": pcg_ms * 1e-3 / max(prof["device_kernel_s"], 1e-12),
             "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
-            "k2": _k2_block(by_name, calls, int(model.fit_data.X.shape[0]))}
+            "k2": _k2_block(by_name, calls, int(fit_data.X.shape[0]))}
 
 
 def profile_antbo(n_obs: int) -> dict:
@@ -460,6 +469,9 @@ def main():
                     help="profile HEBO with the GP's HMC posterior (default 800 obs)")
     ap.add_argument("--mcbo", nargs="+", default=None, metavar="PRESET",
                     help="profile these BO_ALGOS presets at chip_smoke phase i's setting")
+    ap.add_argument("--variant", nargs="+", default=None, metavar="MODEL",
+                    help="profile HEBO's generic route with these surrogates (svgp, dkl, "
+                         "uncertain_gp, gp_rd; default 800 obs, svgp 3000)")
     ap.add_argument("--general", nargs="+", default=None, choices=["zdt1", "bnh"],
                     help="profile GeneralBO on these problems at chip_smoke phase j2's setting")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
@@ -475,6 +487,11 @@ def main():
         for problem in args.general:
             for n in args.obs or [200]:
                 print(json.dumps(profile_general(problem, n)), flush=True)
+        return
+    if args.variant:
+        for name in args.variant:
+            for n in args.obs or [3000 if name == "svgp" else 800]:
+                print(json.dumps(profile_generic(n, args.timed, model_name=name)), flush=True)
         return
     if args.mcbo:
         for name in args.mcbo:

@@ -1,5 +1,6 @@
 from . import gp  # noqa: F401  (registers "gp")
 from . import linreg  # noqa: F401  (registers "lin_reg")
 from .base import BaseModel, MultiTaskModel, get_model, get_model_class, register_model
+from .gp import dkl, rd_gp, svgp, uncertain_gp  # noqa: F401  (register "dkl", "gp_rd", "svgp", "uncertain_gp")
 
 __all__ = ["BaseModel", "MultiTaskModel", "get_model", "get_model_class", "register_model"]

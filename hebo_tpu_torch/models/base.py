@@ -43,6 +43,11 @@ class BaseModel:
             (n_samples,) + mu.shape
         )
 
+    def sample_f(self):
+        """A deterministic function drawn from the posterior (Thompson
+        sampling); only where ``support_ts``."""
+        raise NotImplementedError
+
     @property
     def noise(self) -> np.ndarray:
         return np.zeros(self.num_out)

@@ -4,7 +4,10 @@ The inputs are plain dicts of numpy arrays (``{k: np.asarray(v)}`` of a
 ``hebo_tpu`` ``GPParams`` / ``GPData``), or a fitted ``hebo_tpu`` model
 whose named tuples of arrays are read through ``np.asarray``
 (``gp_from_jax``, ``model_from_jax``), so this module needs neither JAX
-nor the JAX package.
+nor the JAX package.  ``model_from_jax`` also carries the random-
+decomposition GP (its cliques first, then the GP's state), the SVGP
+(``SVGPParams(gp, Z)``; the port rebuilds its cache from them) and the
+DKL GP (its packed MLP is ``params.emb``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 
 from .gp import GPCache, GPData, GPParams
 
-__all__ = ["params_from_jax", "data_from_jax", "cache_from_jax", "gp_from_jax", "model_from_jax"]
+__all__ = ["params_from_jax", "data_from_jax", "cache_from_jax", "gp_from_jax", "svgp_from_jax",
+           "model_from_jax"]
 
 
 def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
@@ -74,10 +78,30 @@ def gp_from_jax(jax_gp, port_gp):
     return port_gp
 
 
+def svgp_from_jax(jax_m, port_m):
+    """A fitted ``hebo_tpu`` SVGP's (gp, Z) and data into the port's SVGP,
+    whose cache is then built from them; returns ``port_m``."""
+    from .svgp import SVGPParams
+
+    dev = port_m.device
+    Z = torch.as_tensor(np.array(jax_m.params.Z, dtype=np.float32), device=dev)[None]
+    port_m.params = SVGPParams(gp=params_from_jax(_fields(jax_m.params.gp), dev), Z=Z)
+    port_m.data = data_from_jax(_fields(jax_m.data), dev)
+    port_m._cache = port_m.core.svgp_cache(port_m.params, port_m.data)
+    return port_m
+
+
 def model_from_jax(jax_model, port_model):
-    """``gp_from_jax``, member by member for a ``MultiTaskModel``."""
+    """``gp_from_jax`` (``svgp_from_jax`` for an SVGP; a random-decomposition
+    GP takes the JAX model's cliques first), member by member for a
+    ``MultiTaskModel``."""
     if hasattr(port_model, "models"):
         for jm, tm in zip(jax_model.models, port_model.models):
             model_from_jax(jm, tm)
         return port_model
+    if hasattr(port_model.core, "num_inducing"):
+        return svgp_from_jax(jax_model, port_model)
+    if hasattr(port_model, "resample_decomposition"):
+        port_model.cliques = [tuple(int(d) for d in c) for c in jax_model.cliques]
+        port_model._rebuild_core()
     return gp_from_jax(jax_model, port_model)

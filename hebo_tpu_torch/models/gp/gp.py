@@ -271,6 +271,14 @@ class GPCore:
         return ssk_gram(c1, c2, torch.sigmoid(cat_p[:, 0]), torch.sigmoid(cat_p[:, 1]),
                         self.ssk_max_subseq)
 
+    def gram(self, params: GPParams, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+        """(B, N, M) outputscale × the stationary kernel over feature-space
+        points f1 (B, N, F), f2 (B, M, F) (gp.py:248-252; SVGP's inducing
+        path); Matérn-3/2 through kernel K2, whose VJP carries the gradient
+        in f1, f2 and ℓ on CUDA."""
+        ls = torch.exp(params.log_ls[:, : self.n_feat_dims])
+        return self._stationary(f1, f2, ls, torch.exp(params.log_sc))
+
     def _stationary(self, f1: torch.Tensor, f2: torch.Tensor, ls: torch.Tensor,
                     sc: torch.Tensor) -> torch.Tensor:
         """(B, N, M) sc × the stationary kernel over features (B, N, F),
@@ -506,6 +514,11 @@ class GPCore:
         with torch.no_grad():
             return pf, self.loss_batched(pf, data), samples
 
+    def prior_diag(self, params: GPParams) -> torch.Tensor:
+        """(B,) k(x, x): the outputscale for the normalised stationary
+        kernels (gp.py:653-655); subclasses with other kernels override it."""
+        return torch.exp(params.log_sc)
+
     # ------------------------------------------------------------ posterior
     @torch.no_grad()
     def posterior_cache(self, samples: GPParams, data: GPData) -> GPCache:
@@ -553,7 +566,7 @@ class GPCore:
         Ks = self.gram_points(params, data.X, Xs, data)  # (S, N, P)
         Ks = Ks * data.mask.to(Ks.dtype)[:, None]
         mu = params.mean[:, None, None] + Ks.transpose(-1, -2) @ cache.alpha
-        kss = torch.exp(params.log_sc)[:, None]
+        kss = self.prior_diag(params)[:, None]
         if self._use_cg(data.X.shape[0]):
             # the explained variance kᵀ Kt⁻¹ k from a block PCG over the P
             # columns; Kt and the Woodbury factor come from the cache

@@ -10,7 +10,9 @@ here NaN-fill every matrix whose ``cholesky_ex`` reports ``info != 0``
 package does inside its program with ``lax.cond`` (chol.py:209): every rung
 is launched, and kernel K1 skips the matrices an earlier rung factored
 (``skip``), so no value comes back to the host and the ladder can sit in a
-captured CUDA graph.
+captured CUDA graph.  ``ladder_factor_inv`` is the same ladder as a
+differentiable function of K (SVGP's ELBO), whose backward uses only
+products with W = L⁻¹.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from .chol_kernel import TILE, chol_factor, chol_winv, padded_size
 
 __all__ = [
     "safe_cholesky", "chol_solve", "chol_logdet", "make_masked_nll",
-    "make_masked_nll_batched", "batched_ladder_factor", "LADDER",
+    "make_masked_nll_batched", "batched_ladder_factor", "ladder_factor_inv", "LADDER",
 ]
 
 LADDER = (0.0, 1e-6, 1e-4, 1e-2, 1.0)
@@ -126,6 +128,42 @@ def batched_ladder_factor(Kt: torch.Tensor, rungs: tuple, base_jitter: float = 1
         ok = _all_finite(L)
         skip = ok.to(torch.int32)
     return L[:, :n, :n], W[:, :n, :n], ok
+
+
+class _LadderFactorInv(torch.autograd.Function):
+    """(L, W, ok) of ``batched_ladder_factor``, differentiable in K.
+
+    The backward (Murray 2016, "Differentiation of the Cholesky
+    decomposition") with W = L⁻¹ in place of triangular solves: W's
+    cotangent W̄ adds −Wᵀ W̄ Wᵀ to L̄ (dW = −W dL W), then
+    K̄ = Wᵀ Φ(Lᵀ tril(L̄)) W, symmetrised, where Φ keeps the lower triangle
+    and halves the diagonal.  The ladder's jitter is held constant: at the
+    first rung, where a well-conditioned matrix is factored, this is the
+    exact gradient; the JAX package also differentiates a later rung's
+    jitter through the mean diagonal it scales."""
+
+    @staticmethod
+    def forward(ctx, K, rungs, base_jitter):
+        L, W, ok = batched_ladder_factor(K, rungs, base_jitter)
+        ctx.save_for_backward(L, W)
+        ctx.mark_non_differentiable(ok)
+        return L, W, ok
+
+    @staticmethod
+    def backward(ctx, gL, gW, _gok):
+        L, W = ctx.saved_tensors
+        Wt = W.transpose(-1, -2)
+        Lbar = torch.tril(gL - Wt @ gW @ Wt)
+        P = L.transpose(-1, -2) @ Lbar
+        P = torch.tril(P) - 0.5 * torch.diag_embed(torch.diagonal(P, dim1=-2, dim2=-1))
+        X = Wt @ P @ W
+        return 0.5 * (X + X.transpose(-1, -2)), None, None
+
+
+def ladder_factor_inv(K: torch.Tensor, rungs: tuple = LADDER, base_jitter: float = 1e-6):
+    """``batched_ladder_factor`` of a (B, N, N) batch as a differentiable
+    function: (L, W = L⁻¹, ok), with gradients to K through L and W."""
+    return _LadderFactorInv.apply(K, tuple(rungs), base_jitter)
 
 
 class _MaskedNLLBatched(torch.autograd.Function):

@@ -171,7 +171,7 @@ class LineBO(AbstractOptimizer):
             cand = x0[None, :] + ts[:, None] * (d * span)[None, :]
             cand = np.clip(cand, self.space.opt_lb, self.space.opt_ub)
             with torch.no_grad():
-                scores = acq.eval(self.model, self.model.state, AcqParams(kappa=2.0),
+                scores = acq.eval_pure(self.model, self.model.state, AcqParams(kappa=2.0),
                                   torch.as_tensor(cand, dtype=torch.float32, device=self.device))
             recs.append(cand[int(np.argmin(scores[:, 0].cpu().numpy()))])
         return self.space.inverse_transform(np.stack(recs))

@@ -13,11 +13,13 @@ BOSS, CoCaBO, RDUCB)::
     opt = BO_ALGOS["BOCS"].build_bo(space, n_init=10, device="cuda")
 
 Ported: the models ``gp``, ``gp_o``, ``gp_to``, ``gp_diffusion``,
-``gp_hed``, ``gp_ssk`` and ``lin_reg``; the acquisition optimizers ``is``,
-``ls``, ``sa``, ``mab``, ``ga`` and ``rs``; the acquisitions ei, pi, lcb,
-ucb, ts, mace and cei.  Every preset but RDUCB builds.  The ids still to
-port (``gp_rd``, ``mp`` and ``addlcb``, RDUCB's; the slice-13 surrogates)
-raise ``NotImplementedError`` naming their ROADMAP slice.
+``gp_hed``, ``gp_ssk``, ``gp_rd``, ``svgp`` and ``lin_reg``; the acquisition
+optimizers ``is``, ``ls``, ``sa``, ``mab``, ``ga``, ``rs`` and ``mp``; the
+acquisitions ei, pi, lcb, ucb, ts, mace, cei and addlcb.  Every preset
+builds.  ``MCBOptimizer(relearn_every=k)`` resamples a decomposition
+model's cliques at every k-th model suggest (RDUCB).  The ids still to port
+(the other slice-13 surrogates) raise ``NotImplementedError`` naming their
+ROADMAP slice.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from ..acq_optimizers.mcbo_opts import (
     RandomSearchAcqOptimizer,
     SimulatedAnnealingAcqOptimizer,
 )
-from ..acquisitions.acq import CEI, EI, LCB, MACE, PI, AcqParams, ThompsonSampling
+from ..acq_optimizers.message_passing import MessagePassingOptimizer
+from ..acquisitions.acq import CEI, EI, LCB, MACE, PI, AcqParams, AddLCB, ThompsonSampling
 from ..models import get_model
 from ..trust_region.casmo import CasmopolitanTrManager, ProxyTrManager
 from .base import AbstractOptimizer
@@ -47,7 +50,7 @@ __all__ = ["BoBuilder", "BO_ALGOS", "MCBOptimizer", "ACQ_FUNC_REGISTRY", "ACQ_OP
 
 
 ACQ_FUNC_REGISTRY = {"ei": EI, "pi": PI, "lcb": LCB, "ucb": LCB, "ts": ThompsonSampling,
-                     "mace": MACE, "cei": CEI}
+                     "mace": MACE, "cei": CEI, "addlcb": AddLCB}
 
 ACQ_OPT_REGISTRY = {
     "is": InterleavedSearchAcqOptimizer,
@@ -56,6 +59,7 @@ ACQ_OPT_REGISTRY = {
     "mab": MixedMabAcqOptimizer,
     "ga": GeneticAlgoAcqOptimizer,
     "rs": RandomSearchAcqOptimizer,
+    "mp": MessagePassingOptimizer,
 }
 
 # model_id → (get_model name, extra conf)
@@ -66,25 +70,21 @@ MODEL_REGISTRY_MAP = {
     "gp_diffusion": ("gp", {"cat_kernel": "diffusion"}),
     "gp_hed": ("gp", {"cat_kernel": "hed"}),
     "gp_ssk": ("gp", {"cat_kernel": "ssk"}),
+    "gp_rd": ("gp_rd", {}),
     "lin_reg": ("lin_reg", {}),
+    "svgp": ("svgp", {}),
 }
 
 # ids of the JAX package's registries that are not ported yet → ROADMAP slice
-_NOT_PORTED = {
-    "acq_func": {"addlcb": 12},
-    "acq_opt": {"mp": 12},
-    "model": {"gp_rd": 12, "deep_ensemble": 13, "rf": 13, "svgp": 13, "gbdt": 13,
-              "catboost": 13},
-}
+_NOT_PORTED = {"model": {"deep_ensemble": 13, "rf": 13, "gbdt": 13, "catboost": 13}}
 
 
 def _lookup(kind: str, registry: dict, key: str):
     if key in registry:
         return registry[key]
-    if key in _NOT_PORTED[kind]:
-        raise NotImplementedError(
-            f"{kind} {key!r} is not ported yet (ROADMAP slice {_NOT_PORTED[kind][key]})"
-        )
+    slice_ = _NOT_PORTED.get(kind, {}).get(key)
+    if slice_ is not None:
+        raise NotImplementedError(f"{kind} {key!r} is not ported yet (ROADMAP slice {slice_})")
     raise ValueError(f"unknown {kind} {key!r}; known: {sorted(registry)}")
 
 
@@ -108,6 +108,7 @@ class MCBOptimizer(AbstractOptimizer):
         kappa: float = 2.0,
         csv_save_path: Optional[str] = None,
         name: str = "MCBO",
+        relearn_every: Optional[int] = None,
         batch_strategy: str = "topk",  # 'topk' | 'kb' (Kriging believer)
     ):
         super().__init__(space, csv_save_path)
@@ -118,10 +119,14 @@ class MCBOptimizer(AbstractOptimizer):
         self.n_init = n_init
         self.kappa = kappa
         self.name = name
+        # RDUCB: resample the random decomposition at every k-th model
+        # suggest (learnDependencyStructureRate, RDUCB algorithms.py:266-340)
+        self.relearn_every = relearn_every
         # 'kb': batch>1 via Kriging-believer hallucinations — append each
         # suggestion as a fake observation at its posterior mean and refit
         # before the next pick (MCBO utils/model_utils.py:28)
         self.batch_strategy = batch_strategy
+        self._suggest_count = 0
         self._sobol_count = 0
 
     def method_suggest(self, n_suggestions=1, fix_input=None):
@@ -132,6 +137,11 @@ class MCBOptimizer(AbstractOptimizer):
 
         if self.tr_manager.needs_restart:
             self.tr_manager.restart(seed=self.num_obs)
+
+        self._suggest_count += 1
+        if (self.relearn_every and hasattr(self.model, "resample_decomposition")
+                and self._suggest_count % self.relearn_every == 0):
+            self.model.resample_decomposition()
 
         X = self.space.transform(self.X)
         y = self.y[:, :1].copy()
@@ -226,8 +236,7 @@ class BoBuilder:
         )
 
 
-# Named presets (MCBO bo_builder.py:574-583); building RDUCB (gp_rd + mp)
-# raises NotImplementedError naming slice 12.
+# Named presets (MCBO bo_builder.py:574-583)
 BO_ALGOS: Dict[str, BoBuilder] = {
     "Casmopolitan": BoBuilder("gp_to", "is", "ei", "basic", name="Casmopolitan"),
     "BOiLS": BoBuilder("gp_ssk", "is", "ei", "basic", name="BOiLS"),

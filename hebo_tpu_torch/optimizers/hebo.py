@@ -25,8 +25,9 @@ The fused program serves a plain ``GP`` (``type(model).__name__ ==
 "GP"``) with ``inference="map"`` up to its ``max_cholesky_size``, as in the
 JAX package (hebo.py:132-140), whatever its kernel, input warp,
 heteroscedastic noise or optimizer (pSGLD, Adam, slice).  Every other
-suggest takes the generic route (hebo.py:126-173): the ``gpy_wgp`` and
-``gpy_mlp`` subclasses, a GP with a sampler over its hyperparameters
+suggest takes the generic route (hebo.py:126-173): every other registered
+model (the ``gpy_wgp`` and ``gpy_mlp`` subclasses, ``gp_rd``, ``svgp``,
+``dkl``, ``uncertain_gp``, ``lin_reg``), a GP with a sampler over its hyperparameters
 (HMC, SVI, SMC), or a bucket above ``max_cholesky_size``, where ``GP.fit``
 fits on a subsample and the posterior runs through CG.  It fits the model,
 takes the incumbent's posterior mean and runs ``EvolutionOpt`` with MACE's
@@ -47,7 +48,7 @@ import torch
 from ..acq_optimizers.evolution import (EvolutionOpt, GenDraws, MetaTensors, _space_meta,
                                         evolve_raw, meta_tensors)
 from ..acquisitions.acq import MACE, AcqParams
-from ..models import get_model
+from ..models import get_model, get_model_class
 from ..models.gp.gp import GPData, map_fit
 from ..ops.chol_kernel import chol_factor, chol_winv
 from ..ops.gram import matern32_gram, matern32_gram_vjp
@@ -80,10 +81,10 @@ class HEBO(AbstractOptimizer):
         device="cuda",
     ):
         super().__init__(space, csv_save_path)
-        if model_name not in _MODELS:
+        if model_name in _NOT_PORTED:
             raise NotImplementedError(
-                f"model {model_name!r}: only {', '.join(_MODELS)} are ported (the other "
-                "surrogates are ROADMAP slice 13)")
+                f"model {model_name!r} is not ported yet (ROADMAP slice 13)")
+        get_model_class(model_name)  # an unknown name raises ValueError here
         self.device = resolve_device(device)
         self.model_name = model_name
         self.rand_sample = rand_sample if rand_sample is not None else 1 + space.num_cols
@@ -289,7 +290,7 @@ class HEBO(AbstractOptimizer):
         init = parts[6].view(P, D).clone()
         init[0] = xb[0]
         pop_X, pop_F = evolve_raw(
-            init, lambda Xc: acq.eval(model, state, pr, Xc), None, n_gens=self.iters,
+            init, lambda Xc: acq.eval_pure(model, state, pr, Xc), None, n_gens=self.iters,
             draws=lambda g: GenDraws(dr.sel[g], *dr.uni[g].unbind(0)), mt=mt,
         )
         mu_pop, var_pop = model.predict_pure(state, pop_X)
@@ -421,8 +422,9 @@ def _slice_shape(core, R: int):
     return (20 + 2 * core.n_ensemble, dim, 18, R)
 
 
-# the GP models the JAX package's HEBO takes (``gp`` on the fused program)
-_MODELS = ("gp", "gpy_wgp", "gpy_mlp")
+# the JAX package's surrogates that the port does not have yet
+_NOT_PORTED = ("deep_ensemble", "eac", "mcbn", "gumbel", "conditional_deep_ensemble", "rf", "gbdt",
+               "catboost")
 
 
 class _Segments:

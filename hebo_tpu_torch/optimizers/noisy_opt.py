@@ -31,7 +31,7 @@ class NoisyAcq(Acquisition):
         self.num_constr = 0
         self.n_normals = num_samples
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, var = model.predict_pure(state, X)
         sigma = torch.sqrt(torch.clamp(var, min=1e-12))
         eps = params.draw

@@ -20,7 +20,7 @@ class AbsEtaDifference(Acquisition):
         self.eta = eta
         self.kappa = kappa
 
-    def eval(self, model, state, params, X):
+    def eval_pure(self, model, state, params, X):
         mu, var = model.predict_pure(state, X)
         sigma = torch.sqrt(torch.clamp(var, min=1e-12))
         return torch.abs(mu - self.eta) - self.kappa * sigma

@@ -131,12 +131,12 @@ class SubDomainBO(AbstractOptimizer):
         params = AcqParams(kappa=self.kappa, tau=tau)
 
         def f_box(args, Xc):
-            return acq.eval(model, args[0], args[1], Xc)
+            return acq.eval_pure(model, args[0], args[1], Xc)
 
         def acq_f(Xc):
             with torch.no_grad():
                 Xt = torch.as_tensor(np.asarray(Xc, np.float32), device=dev)
-                return acq.eval(model, state, params, Xt).cpu().numpy()
+                return acq.eval_pure(model, state, params, Xt).cpu().numpy()
 
         if self.mode == "tr":
             span = (ub - lb) * self.tr_radius
@@ -168,7 +168,7 @@ class SubDomainBO(AbstractOptimizer):
         x0_t, d_t = torch.as_tensor(x0, **f32), torch.as_tensor(d, **f32)
 
         def f_line(args, T):  # T (B, 1): the line parameter
-            return acq.eval(model, args[0], args[1], args[2][None, :] + T * args[3][None, :])
+            return acq.eval_pure(model, args[0], args[1], args[2][None, :] + T * args[3][None, :])
 
         t_best, _ = multi_start_lbfgs(f_line, t_starts[:, None], np.asarray([t_lo]),
                                       np.asarray([t_hi]), n_iters=15,

@@ -51,7 +51,7 @@ def test_mace_values(jitter):
     Fj = jacq.MACE().eval_pure(_Fixed(jnp.asarray(mu), jnp.asarray(var)), None, pj, jnp.zeros((64, 2)))
     z = torch.as_tensor(np.asarray(jax.random.normal(key, mu.shape, jnp.float32))) if jitter else None
     pt = tacq.AcqParams(tau=0.2, kappa=2.5, eps=1e-4, noise=0.3, z=z)
-    Ft = tacq.MACE().eval(_Fixed(torch.as_tensor(mu), torch.as_tensor(var)), None, pt, None)
+    Ft = tacq.MACE().eval_pure(_Fixed(torch.as_tensor(mu), torch.as_tensor(var)), None, pt, None)
     np.testing.assert_allclose(Ft.numpy(), np.asarray(Fj), rtol=1e-5, atol=1e-5)
     z_all = (0.2 - 1e-4 - mu) / np.sqrt(np.maximum(var, 1e-12))
     assert (z_all <= -6).sum() >= 3  # the asymptotic branch is exercised
@@ -64,7 +64,7 @@ def test_single_objective_acquisitions():
     pj = jacq.AcqParams(tau=jnp.float32(0.1), kappa=jnp.float32(1.5))
     pt = tacq.AcqParams(tau=0.1, kappa=1.5)
     for jc, tc in ((jacq.LCB, tacq.LCB), (jacq.EI, tacq.EI), (jacq.PI, tacq.PI)):
-        np.testing.assert_allclose(tc().eval(mt, None, pt, None).numpy(),
+        np.testing.assert_allclose(tc().eval_pure(mt, None, pt, None).numpy(),
                                    np.asarray(jc().eval_pure(mj, None, pj, None)), rtol=1e-5, atol=1e-5)
 
 

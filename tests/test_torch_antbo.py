@@ -299,8 +299,8 @@ def test_bo_builder_kriging_believer_batch():
     assert len(rec) == 3 and opt.model.data.mask.sum() == 4
 
 
-@pytest.mark.parametrize("ids,slice_", [(("gp_rd", "mp", "lcb"), 12), (("gp", "ls", "addlcb"), 12),
-                                        (("rf", "ls", "ei"), 13), (("svgp", "ls", "ei"), 13),
+@pytest.mark.parametrize("ids,slice_", [(("gbdt", "ls", "ei"), 13), (("catboost", "ls", "ei"), 13),
+                                        (("rf", "ls", "ei"), 13), (("rf", "sa", "ts"), 13),
                                         (("deep_ensemble", "ls", "ei"), 13)])
 def test_bo_builder_unported_ids_name_their_slice(ids, slice_):
     with pytest.raises(NotImplementedError, match=f"slice {slice_}"):

@@ -171,7 +171,7 @@ def test_predrawn_suggest_equals_step_by_step_draws():
         init = torch.as_tensor(host[-P * D:].reshape(P, D)).clone()
         init[0] = xb[0]
         gens = [GenDraws(dr.sel[g].clone(), *(u.clone() for u in dr.uni[g])) for g in range(opt.iters)]
-        pop_X, pop_F = evolve_raw(init, lambda Xc: opt._acq.eval(model, state, pr, Xc),
+        pop_X, pop_F = evolve_raw(init, lambda Xc: opt._acq.eval_pure(model, state, pr, Xc),
                                   _space_meta(space), n_gens=opt.iters, draws=lambda g: gens[g])
         mu_pop, var_pop = model.predict_pure(state, pop_X)
     ref = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1)

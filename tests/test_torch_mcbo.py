@@ -308,7 +308,7 @@ def test_linreg_thompson_draw_is_one_function_per_seed():
     assert tm.w_draws.shape == (30, tm._featurize(X[:1]).shape[1])
     Xq = T(X[:9].astype(np.float32))
     ts = tacq.ThompsonSampling()
-    f = lambda seed, Xs: ts.eval(tm, tm.state, tacq.AcqParams(seed=seed), Xs)[:, 0].numpy()
+    f = lambda seed, Xs: ts.eval_pure(tm, tm.state, tacq.AcqParams(seed=seed), Xs)[:, 0].numpy()
     np.testing.assert_array_equal(f(3, Xq), f(3, Xq))
     assert not np.allclose(f(3, Xq), f(4, Xq))
     # one coefficient vector for every batch of one search (up to the
@@ -352,7 +352,7 @@ def test_cei_values(conf, tau):
     mu, var = _two_out()
     want = jacq.CEI(**conf).eval_pure(_Fixed(jnp.asarray(mu), jnp.asarray(var)), None,
                                       jacq.AcqParams(tau=jnp.float32(tau), noise=jnp.float32(0.3)), None)
-    got = tacq.CEI(**conf).eval(_Fixed(T(mu), T(var)), None, tacq.AcqParams(tau=tau, noise=0.3), None)
+    got = tacq.CEI(**conf).eval_pure(_Fixed(T(mu), T(var)), None, tacq.AcqParams(tau=tau, noise=0.3), None)
     assert got.shape == (40, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -363,7 +363,7 @@ def test_mean_sigma_values():
     var[5] = 0.0  # below the 1e-12 floor
     for j, t in ((jacq.Mean(), tacq.Mean()), (jacq.Sigma(), tacq.Sigma())):
         want = j.eval_pure(_Fixed(jnp.asarray(mu), jnp.asarray(var)), None, jacq.AcqParams(), None)
-        got = t.eval(_Fixed(T(mu), T(var)), None, tacq.AcqParams(), None)
+        got = t.eval_pure(_Fixed(T(mu), T(var)), None, tacq.AcqParams(), None)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
@@ -372,11 +372,11 @@ def test_thompson_without_joint_sampler_shares_one_eps():
     m = _Fixed(T(mu[:, :1]), T(var[:, :1]))
     ts = tacq.ThompsonSampling()
     X = torch.zeros((40, 1))
-    a = ts.eval(m, None, tacq.AcqParams(seed=5), X)
-    np.testing.assert_array_equal(a.numpy(), ts.eval(m, None, tacq.AcqParams(seed=5), X).numpy())
+    a = ts.eval_pure(m, None, tacq.AcqParams(seed=5), X)
+    np.testing.assert_array_equal(a.numpy(), ts.eval_pure(m, None, tacq.AcqParams(seed=5), X).numpy())
     eps = (a - m.mu) / torch.sqrt(m.var)
     assert float(eps.std()) < 1e-5
-    assert not torch.equal(a, ts.eval(m, None, tacq.AcqParams(seed=6), X))
+    assert not torch.equal(a, ts.eval_pure(m, None, tacq.AcqParams(seed=6), X))
 
 
 # ------------------------------------------------------- acquisition optimizers
@@ -535,7 +535,7 @@ def test_bo_algos_keys_and_builders():
         assert [getattr(b, a) for a in fields] == [getattr(JALGOS[k], a) for a in fields]
 
 
-@pytest.mark.parametrize("name", sorted(set(BO_ALGOS) - {"RDUCB"}))
+@pytest.mark.parametrize("name", sorted(BO_ALGOS))
 def test_preset_runs(name):
     builder = dataclasses.replace(BO_ALGOS[name], model_kwargs={"num_epochs": 10})
     cat_only = name in ("COMBO", "BOCS", "BOSS", "BOiLS")
@@ -550,9 +550,20 @@ def test_preset_runs(name):
     assert len(opt.fit_time) == len(opt.acq_time) == 2
 
 
-def test_rducb_names_slice_12():
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        BO_ALGOS["RDUCB"].build_bo(DesignSpace(MIXED), device="cpu")
+def test_rducb_builds_and_suggests():
+    """RDUCB at its defaults (a random tree over the dims, Adam, the
+    message-passing optimizer over a 16-point grid per dim, LCB): valid,
+    new suggestions."""
+    space = DesignSpace(MIXED)
+    opt = BO_ALGOS["RDUCB"].build_bo(space, n_init=4, device="cpu")
+    assert type(opt.model).__name__ == "RDGP" and type(opt.acq_optimizer).__name__ == \
+        "MessagePassingOptimizer" and type(opt.acq_func).__name__ == "LCB"
+    warm = space.sample(8, seed=3)
+    opt.observe(warm, _obj_mixed(warm))
+    rec = opt.suggest(1)
+    X = space.transform(rec)
+    assert np.isfinite(X).all() and np.array_equal(X, space.round_opt(X))
+    assert tuple(np.round(X[0], 6)) not in {tuple(np.round(r, 6)) for r in space.transform(opt.X)}
 
 
 def test_thompson_seed_is_the_observation_count():
@@ -561,8 +572,8 @@ def test_thompson_seed_is_the_observation_count():
     space = DesignSpace(CATONLY)
     opt = dataclasses.replace(BO_ALGOS["BOCS"], model_kwargs={"n_gibbs": 40}).build_bo(
         space, n_init=4, device="cpu")
-    seeds, ev = [], opt.acq_func.eval
-    opt.acq_func.eval = lambda m, st, p, X: (seeds.append(p.seed), ev(m, st, p, X))[1]
+    seeds, ev = [], opt.acq_func.eval_pure
+    opt.acq_func.eval_pure = lambda m, st, p, X: (seeds.append(p.seed), ev(m, st, p, X))[1]
     rec = opt.suggest(2)
     opt.observe(rec, _obj_cat(rec))
     opt.suggest(2)

@@ -178,7 +178,7 @@ def test_mo_mean_sigma_lcb_and_general_acq():
     for ja, ta, model, n_out in pairs:
         want = ja.eval_pure(model, None, jacq.AcqParams(tau=jnp.float32(0.3),
                                                         kappa=jnp.float32(1.5)), jnp.asarray(X))
-        got = ta.eval(model, None, tacq.AcqParams(tau=0.3, kappa=1.5), T(X))
+        got = ta.eval_pure(model, None, tacq.AcqParams(tau=0.3, kappa=1.5), T(X))
         assert got.shape == (10, n_out) and ta.num_out == n_out
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -202,11 +202,11 @@ def test_noisy_acq_with_fed_eps():
     eps = T(np.asarray(jax.random.normal(key, (1, 3), jnp.float32)))
     acq = O.NoisyAcq(3)
     assert acq.n_normals == 3
-    got = acq.eval(m, None, tacq.AcqParams(draw=eps), T(X))
+    got = acq.eval_pure(m, None, tacq.AcqParams(draw=eps), T(X))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
     # without a draw: one shared eps from a generator seeded 0
-    a = acq.eval(m, None, tacq.AcqParams(), T(X))
-    assert torch.equal(a, acq.eval(m, None, tacq.AcqParams(), T(X)))
+    a = acq.eval_pure(m, None, tacq.AcqParams(), T(X))
+    assert torch.equal(a, acq.eval_pure(m, None, tacq.AcqParams(), T(X)))
 
 
 def test_noisy_opt_draws_its_eps_with_the_suggest():

@@ -125,7 +125,7 @@ def test_multi_start_lbfgs_on_a_gp_lcb(gp_pair):
     jargs, targs = (jm.state, jacq.AcqParams(kappa=jnp.float32(2.0))), \
         (tm.state, tacq.AcqParams(kappa=2.0))
     f_j = lambda args, X: jl.eval_pure(jm, args[0], args[1], X)
-    f_t = lambda args, X: tl.eval(tm, args[0], args[1], X)
+    f_t = lambda args, X: tl.eval_pure(tm, args[0], args[1], X)
     Xj, fj = jsolvers._lbfgs_batch(f_j, jargs, jnp.asarray(X0), jnp.asarray(lb), jnp.asarray(ub),
                                    3, 8)
     Xt, ft = tsolvers.lbfgs_batch(f_t, targs, torch.as_tensor(X0), torch.as_tensor(lb),
