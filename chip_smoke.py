@@ -176,7 +176,19 @@
    observations, each descent through K2's VJP in the query points.  Every
    suggestion must be finite, in the space and new; every shape launched
    is held against its plain version, as in phase i.
-10. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+10. Drives the other surrogate families (phase l, with the counts reset
+   before it): ``HEBO(space, model_name=m, device="cuda")`` on Ackley-6D at
+   its defaults, 800 warm Sobol observations, 2 × suggest(8) on the generic
+   route, for ``deep_ensemble``, ``mcbn``, ``conditional_deep_ensemble``,
+   ``gbdt`` (``catboost`` builds the same class) and ``nap`` (its first
+   suggest meta-trains 300 steps, each sampling 16 GP tasks of 32 points
+   through K1 at (16, 32)); ``gumbel`` fitted on the same points
+   (``sample_f`` raises the JAX package's own ``AttributeError``) and
+   ``eac`` with each of its cells on pest control (25 × 5) at 200 points.
+   ``rf`` is skipped: the card's machine has no sklearn.  Predictions on
+   the training points must be finite with σ² > 0; K5 must launch in every
+   suggest; every shape launched is held against its plain version.
+11. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -346,12 +358,12 @@ def check_chol(torch, ck, dev, gen, fails):
     """K1a and K1b at the main paths' shapes: AntBO's fit and cache (1, 32)
     and (1, 256), HEBO's cache (1, 128) and (1, 1024), HEBO's fit (2, 128)
     and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051); RDUCB's
-    structure learner (24, 256).  Host dispatch is part of the time at the
-    small shapes, for the kernels and the library call alike, so those get
-    more calls per timing."""
+    structure learner (24, 256); NAP's meta-training tasks (16, 32).  Host
+    dispatch is part of the time at the small shapes, for the kernels and
+    the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
-                 (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256)]:
+                 (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32)]:
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
@@ -1687,6 +1699,109 @@ def variants_phase(torch, HEBO, DesignSpace, wrappers, fails):
     return dict(rows=rows, shapes=seen)
 
 
+# ---------------------------------------------------------------- phase l
+FAMILY_MODELS = ("deep_ensemble", "mcbn", "conditional_deep_ensemble", "gbdt", "nap")
+
+
+def model_families_phase(torch, HEBO, DesignSpace, wrappers, fails):
+    """Phase l: the other surrogate families at their defaults.  HEBO on
+    Ackley-6D, batch 8, the generic route, 800 warm Sobol observations
+    (phase k's setting), 2 × suggest(8) for each of ``FAMILY_MODELS``
+    (``catboost`` builds the same ``GBDT`` and is checked, not run twice;
+    NAP meta-trains 300 steps in its first suggest, K1 at (16, 32)); then
+    ``gumbel`` fitted on the same 800 points, and ``eac`` with each cell on
+    phase i's pest control space (25 stations × 5 choices) at 200 random
+    points.  ``rf`` is not run: the card's machine has no sklearn.  Returns
+    the rows and the shapes the kernels were launched at."""
+    import hebo_tpu_torch.meta  # noqa: F401  (registers "nap")
+    from hebo_tpu_torch.bench.profile_suggest import K1Batches
+    from hebo_tpu_torch.models import get_model
+    from hebo_tpu_torch.models.boosting import GBDT
+    from hebo_tpu_torch.tasks import PestControlTask
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    rows, sug, shapes, k1 = {}, Suggests(torch, wrappers), ShapeLog(), K1Batches()
+    print("phase l rf: skipped, the card's machine has no sklearn (the model imports it in fit)",
+          flush=True)
+    try:
+        for name in FAMILY_MODELS:
+            opt = HEBO(space, model_name=name, device="cuda")
+            warm(opt, space, ackley, 800)
+            log, batches = {}, []
+            for _ in range(2):
+                k1.take()
+                rec = sug(opt, 8, log)
+                batches.append(k1.take())
+                check_rec(space, rec, 8, f"phase l {name}", fails, hist=space.transform(opt.X))
+                opt.observe(rec, ackley(rec))
+            model = opt.model
+            mu, var = model.predict(space.transform(opt.X))
+            if not (np.isfinite(mu).all() and np.isfinite(var).all() and (var > 0).all()):
+                fails.append(f"phase l {name}: predict on the training points not finite / σ² ≤ 0")
+            meta_s = getattr(model, "meta_train_s", None)
+            rows[name] = dict(log, **timers(opt, 2), k1_calls_by_batch=batches, n_obs=opt.num_obs,
+                              model=type(model).__name__, best=opt.best_y,
+                              **({"meta_train_s": meta_s} if meta_s is not None else {}))
+            if opt._graphs:
+                fails.append(f"phase l {name}: a suggest took the fused graph")
+            if not all(r.get("nsga2_rank_crowd", 0) > 0 for r in log["launches_per_suggest"]):
+                fails.append(f"phase l {name}: a suggest launched no nsga2_rank_crowd")
+            print(f"phase l {name}:", json.dumps(rows[name]), flush=True)
+        if not rows["nap"]["k1_calls_by_batch"][0].get("16x32", 0) >= 300:
+            fails.append(f"phase l nap: K1 did not factor at (16, 32) in each of the 300 "
+                         f"meta-training steps: {rows['nap']['k1_calls_by_batch']}")
+        if not isinstance(get_model("catboost", space, device="cuda"), GBDT):
+            fails.append("phase l: catboost does not build a GBDT")
+
+        X = space.sobol_sample_opt(800, seed=1)
+        y = ackley(space.inverse_transform(X))
+        t0 = time.time()
+        m = get_model("gumbel", space, device="cuda").fit(X, y)
+        mu, var = m.predict(X)
+        imp = m.feature_importance()
+        row = dict(fit_predict_s=time.time() - t0, importance=imp.tolist())
+        try:
+            m.sample_f(2)(X[:8])
+            row["sample_f"] = "returned"
+            fails.append("phase l gumbel: sample_f returned; the JAX package raises AttributeError")
+        except AttributeError as e:  # the JAX package's own: inherited, reads params.w
+            row["sample_f"] = f"AttributeError: {e} (as in the JAX package)"
+        if not (np.isfinite(mu).all() and (var > 0).all() and imp.shape == (6,)
+                and ((imp >= 0) & (imp <= 1)).all()):
+            fails.append(f"phase l gumbel: predict / feature_importance off: {row}")
+        rows["gumbel"] = row
+        print("phase l gumbel (800 Ackley-6D points):", json.dumps(row), flush=True)
+
+        pest = PestControlTask(n_stations=25)
+        Xp = pest.space.sample(200, seed=1)
+        Xo, yp = pest.space.transform(Xp), pest(Xp)
+        for cell in ("mlp", "rnn", "transformer"):
+            t0 = time.time()
+            m = get_model("eac", pest.space, cell=cell, device="cuda").fit(Xo, yp)
+            torch.cuda.synchronize()
+            fit_s = time.time() - t0
+            mu, var = m.predict(Xo)
+            draws = m.sample_f(2)(Xo[:8])
+            row = dict(fit_s=fit_s, rmse=float(np.sqrt(np.mean((mu - yp) ** 2))),
+                       y_sd=float(yp.std()))
+            if not (np.isfinite(mu).all() and (var > 0).all() and draws.shape == (2, 8, 1)
+                    and np.isfinite(draws).all()):
+                fails.append(f"phase l eac {cell}: predict / sample_f off: {row}")
+            rows[f"eac {cell}"] = row
+            print(f"phase l eac {cell} (pest control 25 x 5, 200 points):", json.dumps(row), flush=True)
+    finally:
+        shapes.close()
+        k1.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    for what, kernel, shape in (("K1 at (16, 32)", "chol_factor", lambda s: s == (16, 32)),
+                                ("K5 at (200, 3)", "nsga2_rank_crowd", lambda s: s == (200, 3))):
+        if not any(shape(s) for s in shapes.seen[kernel]):
+            fails.append(f"phase l: {what} never launched")
+    print("phase l shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
 def main() -> int:
     import torch
 
@@ -1767,8 +1882,11 @@ def main() -> int:
                                                                fails)),
                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                          "nsga2_rank_crowd")),
+        "model_families": (lambda: families.update(model_families_phase(torch, HEBO, DesignSpace,
+                                                                        wrappers, fails)),
+                           ("chol_factor", "chol_winv", "nsga2_rank_crowd")),
     }
-    mcbo, family, variants = {}, {}, {}
+    mcbo, family, variants, families = {}, {}, {}, {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -1781,7 +1899,7 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    for p in (mcbo, family, variants):
+    for p in (mcbo, family, variants, families):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],

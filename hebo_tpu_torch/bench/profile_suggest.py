@@ -6,7 +6,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
     python3 -m hebo_tpu_torch.bench.profile_suggest --mcbo BOCS [Casmopolitan ...] [--obs 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --general zdt1 [bnh] [--obs 200]
-    python3 -m hebo_tpu_torch.bench.profile_suggest --variant svgp [dkl uncertain_gp] [--obs 3000]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --variant svgp [dkl deep_ensemble gbdt nap] [--obs 3000]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
 suggest as one captured CUDA graph per bucket, and ``eager``, the same
@@ -66,8 +66,9 @@ epochs; NSGA-II pop 100 × 100) on ZDT1 (30 variables, 2 objectives) or BNH
 ``suggest(4)``, one timed, and one profiled as above, each with its fit,
 acquisition (NSGA-II) and EHVI seconds, and K5's and K2's launches.  With
 ``--variant MODEL ...``, HEBO's generic route as ``--large-n`` with
-``HEBO(model_name=MODEL)`` (chip_smoke phase k's setting: 800 Sobol
-observations, 3000 for ``svgp``).
+``HEBO(model_name=MODEL)`` (chip_smoke phase k's and l's setting: 800
+Sobol observations, 3000 for ``svgp``; NAP's meta-training, in the
+warm-up suggest, reported apart).
 Prints one JSON line per observation count (per preset, per problem).
 """
 
@@ -83,7 +84,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import DesignSpace, HEBO
+from .. import DesignSpace, HEBO, meta  # noqa: F401  (meta registers "nap")
 from ..optimizers import hebo as hebo_mod
 from ..ops import chol as chol_mod
 from ..ops import chol_kernel, gram, pareto, ssk
@@ -247,7 +248,9 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name:
     """HEBO's generic route at ``n_obs`` Sobol observations of Ackley-6D:
     above max_cholesky_size (subsampled fit, CG posterior), a GP with a
     hyperparameter sampler (``model_config``), or another surrogate
-    (``model_name``: ``svgp``, ``dkl``, ``uncertain_gp``, ...)."""
+    (``model_name``: ``svgp``, ``dkl``, ``uncertain_gp``, ``deep_ensemble``,
+    ``gbdt``, ``nap``, ...).  NAP meta-trains in the warm-up suggest: its
+    seconds are reported apart (``meta_train_s``)."""
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
     opt = HEBO(space, model_name=model_name, device="cuda", model_config=model_config)
@@ -280,11 +283,14 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name:
     pcg_ms = prof.pop("range_device_ms").get("pcg_solve", 0.0)
     k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
     model = opt.model
-    fit_data = getattr(model, "fit_data", None) or model.data
+    data = getattr(model, "data", None)  # None: a surrogate that is not a GP
+    fit_data = getattr(model, "fit_data", None) or data
     caches = getattr(model, "caches", None)
-    return {"model": model_name, "n_obs": n_obs, "fit_bucket": int(fit_data.X.shape[0]),
-            "bucket": int(model.data.X.shape[0]), "path": "generic",
-            "device": torch.cuda.get_device_name(0), "first_s": first_s, "s_per_suggest": walls,
+    return {"model": model_name, "n_obs": n_obs,
+            "fit_bucket": None if fit_data is None else int(fit_data.X.shape[0]),
+            "bucket": None if data is None else int(data.X.shape[0]), "path": "generic",
+            "device": torch.cuda.get_device_name(0), "first_s": first_s,
+            "meta_train_s": getattr(model, "meta_train_s", None), "s_per_suggest": walls,
             "s_median": float(np.median(walls)) if walls else None,
             "fit_s": opt.fit_time[-n_timed - 1:-1], "acq_s": opt.acq_time[-n_timed - 1:-1],
             "cg_residual": None if caches is None or caches.res is None else float(caches.res.max()),
@@ -295,7 +301,7 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name:
             "pcg_solves": len(pcg_calls), "pcg_device_ms": pcg_ms,
             "pcg_share_of_device": pcg_ms * 1e-3 / max(prof["device_kernel_s"], 1e-12),
             "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
-            "k2": _k2_block(by_name, calls, int(fit_data.X.shape[0]))}
+            "k2": None if fit_data is None else _k2_block(by_name, calls, int(fit_data.X.shape[0]))}
 
 
 def profile_antbo(n_obs: int) -> dict:
@@ -471,7 +477,8 @@ def main():
                     help="profile these BO_ALGOS presets at chip_smoke phase i's setting")
     ap.add_argument("--variant", nargs="+", default=None, metavar="MODEL",
                     help="profile HEBO's generic route with these surrogates (svgp, dkl, "
-                         "uncertain_gp, gp_rd; default 800 obs, svgp 3000)")
+                         "uncertain_gp, gp_rd, deep_ensemble, gbdt, nap, ...; default 800 obs, "
+                         "svgp 3000)")
     ap.add_argument("--general", nargs="+", default=None, choices=["zdt1", "bnh"],
                     help="profile GeneralBO on these problems at chip_smoke phase j2's setting")
     ap.add_argument("--obs", type=int, nargs="+", default=None,

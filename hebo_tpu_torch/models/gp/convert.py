@@ -7,7 +7,8 @@ whose named tuples of arrays are read through ``np.asarray``
 nor the JAX package.  ``model_from_jax`` also carries the random-
 decomposition GP (its cliques first, then the GP's state), the SVGP
 (``SVGPParams(gp, Z)``; the port rebuilds its cache from them) and the
-DKL GP (its packed MLP is ``params.emb``).
+DKL GP (its packed MLP is ``params.emb``), and hands the other model
+families to ``models.convert``.
 """
 
 from __future__ import annotations
@@ -94,7 +95,12 @@ def svgp_from_jax(jax_m, port_m):
 def model_from_jax(jax_model, port_model):
     """``gp_from_jax`` (``svgp_from_jax`` for an SVGP; a random-decomposition
     GP takes the JAX model's cliques first), member by member for a
-    ``MultiTaskModel``."""
+    ``MultiTaskModel``; a deep ensemble, EAC ensemble, GBDT or NAP surrogate
+    through ``models.convert.family_from_jax``."""
+    if not hasattr(port_model, "models") and not hasattr(port_model, "core"):
+        from ..convert import family_from_jax
+
+        return family_from_jax(jax_model, port_model)
     if hasattr(port_model, "models"):
         for jm, tm in zip(jax_model.models, port_model.models):
             model_from_jax(jm, tm)

@@ -49,14 +49,6 @@ class SVGPCache(NamedTuple):
     w: torch.Tensor  # (B, M, 1)
 
 
-def _leaves(p: SVGPParams):
-    return tree_leaves(p.gp) + [p.Z]
-
-
-def _unflatten(like: SVGPParams, leaves) -> SVGPParams:
-    return SVGPParams(gp=tree_unflatten(like.gp, leaves[:-1]), Z=leaves[-1])
-
-
 class SVGPCore(GPCore):
     def __init__(self, *args, num_inducing: int = 32, **kw):
         super().__init__(*args, **kw)
@@ -161,19 +153,19 @@ class SVGP(GP):
     def fit_params(self, p0: SVGPParams, data: GPData) -> SVGPParams:
         """Adam on (hyperparameters, Z), gradients clipped to ±1e3."""
         core = self.core
-        p = [t.detach().clone() for t in _leaves(p0)]
+        p = [t.detach().clone() for t in tree_leaves(p0)]
         mu = [torch.zeros_like(t) for t in p]
         nu = [torch.zeros_like(t) for t in p]
         for i in range(core.n_steps):
             leaves = [t.requires_grad_(True) for t in p]
             with torch.enable_grad():
-                total = core.loss(_unflatten(p0, leaves), data).sum()
+                total = core.loss(tree_unflatten(p0, leaves), data).sum()
                 gs = torch.autograd.grad(total, leaves, allow_unused=True)
             with torch.no_grad():
                 for j, (t, g) in enumerate(zip(p, gs)):
                     g = torch.zeros_like(t) if g is None else torch.clamp(g, -1e3, 1e3)
                     p[j], mu[j], nu[j] = adam_step(t.detach(), g, mu[j], nu[j], i + 1, core.lr)
-        return _unflatten(p0, [t.detach() for t in p])
+        return tree_unflatten(p0, [t.detach() for t in p])
 
     def fit(self, X, y):
         self.data = make_data(X, y, self.core.numeric_dims, pad_bucket(max(len(X), 2)), self.device)

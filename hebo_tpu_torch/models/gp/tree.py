@@ -1,7 +1,7 @@
-"""Pytree helpers over ``GPParams`` / ``GPCache`` tuples and dicts (JAX's
-``tree_leaves``, ``tree_map`` and ``ravel_pytree``, with ``None`` skipped as
-JAX's flattening skips it), and the Adam step that the MAP fit and SVI
-share."""
+"""Pytree helpers over ``GPParams`` / ``GPCache`` tuples, dicts and nested
+parameter tuples (SVGP's, the ensembles') (JAX's ``tree_leaves``,
+``tree_map`` and ``ravel_pytree``, with ``None`` skipped as JAX's flattening
+skips it), and the Adam step that the MAP fit, SVI and the ensembles share."""
 
 from __future__ import annotations
 
@@ -14,19 +14,35 @@ __all__ = ["tree_leaves", "tree_map", "tree_unflatten", "Flat", "adam_step"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The leaves of a tuple / NamedTuple (``None`` skipped, as in JAX's
-    flattening) or of a dict (sorted keys, as in JAX)."""
+    """The tensor leaves of a tuple / NamedTuple or of a dict (sorted keys,
+    as in JAX), nested ones included, depth first; ``None`` is skipped, as
+    in JAX's flattening."""
     vals = [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else list(tree)
-    return [t for t in vals if t is not None]
+    out = []
+    for t in vals:
+        if isinstance(t, (tuple, dict)):
+            out.extend(tree_leaves(t))
+        elif t is not None:
+            out.append(t)
+    return out
 
 
 def tree_unflatten(like, leaves: Sequence[torch.Tensor]):
-    """A tree of ``like``'s structure holding ``leaves`` in leaf order."""
+    """A tree of ``like``'s (nested) structure holding ``leaves`` in leaf order."""
     it = iter(leaves)
-    if isinstance(like, dict):
-        out = {k: next(it) for k in sorted(like)}
-        return {k: out[k] for k in like}
-    return type(like)(*(None if t is None else next(it) for t in like))
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, tuple):
+            vals = [build(t) for t in node]
+            return type(node)(*vals) if hasattr(node, "_fields") else tuple(vals)
+        return next(it)
+
+    return build(like)
 
 
 def tree_map(fn: Callable, tree, *rest):

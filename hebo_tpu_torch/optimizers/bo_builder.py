@@ -12,14 +12,13 @@ BOSS, CoCaBO, RDUCB)::
                     tr_id="basic").build_bo(space, n_init=10, device="cuda")
     opt = BO_ALGOS["BOCS"].build_bo(space, n_init=10, device="cuda")
 
-Ported: the models ``gp``, ``gp_o``, ``gp_to``, ``gp_diffusion``,
-``gp_hed``, ``gp_ssk``, ``gp_rd``, ``svgp`` and ``lin_reg``; the acquisition
-optimizers ``is``, ``ls``, ``sa``, ``mab``, ``ga``, ``rs`` and ``mp``; the
-acquisitions ei, pi, lcb, ucb, ts, mace, cei and addlcb.  Every preset
-builds.  ``MCBOptimizer(relearn_every=k)`` resamples a decomposition
-model's cliques at every k-th model suggest (RDUCB).  The ids still to port
-(the other slice-13 surrogates) raise ``NotImplementedError`` naming their
-ROADMAP slice.
+Every id of the JAX package's registries: the models ``gp``, ``gp_o``,
+``gp_to``, ``gp_diffusion``, ``gp_hed``, ``gp_ssk``, ``gp_rd``, ``lin_reg``,
+``deep_ensemble``, ``rf``, ``svgp``, ``gbdt`` and ``catboost``; the
+acquisition optimizers ``is``, ``ls``, ``sa``, ``mab``, ``ga``, ``rs`` and
+``mp``; the acquisitions ei, pi, lcb, ucb, ts, mace, cei and addlcb.  Every
+preset builds.  ``MCBOptimizer(relearn_every=k)`` resamples a
+decomposition model's cliques at every k-th model suggest (RDUCB).
 """
 
 from __future__ import annotations
@@ -72,19 +71,17 @@ MODEL_REGISTRY_MAP = {
     "gp_ssk": ("gp", {"cat_kernel": "ssk"}),
     "gp_rd": ("gp_rd", {}),
     "lin_reg": ("lin_reg", {}),
+    "deep_ensemble": ("deep_ensemble", {}),
+    "rf": ("rf", {}),
     "svgp": ("svgp", {}),
+    "gbdt": ("gbdt", {}),
+    "catboost": ("catboost", {}),
 }
-
-# ids of the JAX package's registries that are not ported yet → ROADMAP slice
-_NOT_PORTED = {"model": {"deep_ensemble": 13, "rf": 13, "gbdt": 13, "catboost": 13}}
 
 
 def _lookup(kind: str, registry: dict, key: str):
     if key in registry:
         return registry[key]
-    slice_ = _NOT_PORTED.get(kind, {}).get(key)
-    if slice_ is not None:
-        raise NotImplementedError(f"{kind} {key!r} is not ported yet (ROADMAP slice {slice_})")
     raise ValueError(f"unknown {kind} {key!r}; known: {sorted(registry)}")
 
 

@@ -27,7 +27,9 @@ JAX package (hebo.py:132-140), whatever its kernel, input warp,
 heteroscedastic noise or optimizer (pSGLD, Adam, slice).  Every other
 suggest takes the generic route (hebo.py:126-173): every other registered
 model (the ``gpy_wgp`` and ``gpy_mlp`` subclasses, ``gp_rd``, ``svgp``,
-``dkl``, ``uncertain_gp``, ``lin_reg``), a GP with a sampler over its hyperparameters
+``dkl``, ``uncertain_gp``, ``lin_reg``, the deep ensembles, ``eac``, ``rf``,
+``gbdt`` / ``catboost`` and, once ``hebo_tpu_torch.meta`` is imported,
+``nap``), a GP with a sampler over its hyperparameters
 (HMC, SVI, SMC), or a bucket above ``max_cholesky_size``, where ``GP.fit``
 fits on a subsample and the posterior runs through CG.  It fits the model,
 takes the incumbent's posterior mean and runs ``EvolutionOpt`` with MACE's
@@ -81,9 +83,6 @@ class HEBO(AbstractOptimizer):
         device="cuda",
     ):
         super().__init__(space, csv_save_path)
-        if model_name in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model {model_name!r} is not ported yet (ROADMAP slice 13)")
         get_model_class(model_name)  # an unknown name raises ValueError here
         self.device = resolve_device(device)
         self.model_name = model_name
@@ -420,11 +419,6 @@ def _slice_shape(core, R: int):
         return (0,)
     dim = sum(math.prod(s[1:]) for s in _leaf_shapes(core, R))
     return (20 + 2 * core.n_ensemble, dim, 18, R)
-
-
-# the JAX package's surrogates that the port does not have yet
-_NOT_PORTED = ("deep_ensemble", "eac", "mcbn", "gumbel", "conditional_deep_ensemble", "rf", "gbdt",
-               "catboost")
 
 
 class _Segments:

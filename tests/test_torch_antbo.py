@@ -299,12 +299,35 @@ def test_bo_builder_kriging_believer_batch():
     assert len(rec) == 3 and opt.model.data.mask.sum() == 4
 
 
-@pytest.mark.parametrize("ids,slice_", [(("gbdt", "ls", "ei"), 13), (("catboost", "ls", "ei"), 13),
-                                        (("rf", "ls", "ei"), 13), (("rf", "sa", "ts"), 13),
-                                        (("deep_ensemble", "ls", "ei"), 13)])
-def test_bo_builder_unported_ids_name_their_slice(ids, slice_):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_}"):
-        BoBuilder(*ids).build_bo(sequence_space(3), device="cpu")
+@pytest.mark.parametrize("ids,error", [(("gbdt", "ls", "ei"), None), (("catboost", "ls", "ei"), None),
+                                       (("rf", "ls", "ei"), "'RF' object has no attribute 'state'"),
+                                       (("rf", "sa", "ts"), "'RF' object has no attribute 'state'"),
+                                       (("deep_ensemble", "ls", "ei"), None)])
+def test_bo_builder_model_ids_suggest_or_fail_as_the_reference(ids, error):
+    """The ids that were slice 13's: the GBDT (both ids) and the deep
+    ensemble suggest; the random forest has no ``state`` for the
+    acquisition optimizers, and raises the same ``AttributeError`` in the
+    JAX package (ROADMAP §3)."""
+    from hebo_tpu.optimizers.bo_builder import BoBuilder as JBoBuilder
+
+    conf = {"n_estimators": 4} if ids[0] == "rf" else {"num_epochs": 4}
+    builders = [BoBuilder(*ids, model_kwargs=conf).build_bo(sequence_space(3), n_init=4,
+                                                            device="cpu")]
+    if error is not None:
+        builders.append(JBoBuilder(*ids, model_kwargs=conf).build_bo(jsequence_space(3), n_init=4))
+    for opt in builders:
+        rec = opt.suggest(4)
+        opt.observe(rec, _toy_binding(["".join(r) for _, r in rec.iterrows()]))
+        if error is not None:
+            with pytest.raises(AttributeError) as err:
+                opt.suggest(1)
+            assert str(err.value) == error
+            continue
+        for _ in range(2):
+            rec = opt.suggest(1)
+            assert len(rec) == 1 and list(rec.columns) == opt.space.param_order
+            opt.observe(rec, _toy_binding(["".join(r) for _, r in rec.iterrows()]))
+        assert opt.num_obs == 6 and np.isfinite(opt.best_y)
 
 
 # ------------------------------------------------------------------ tools

@@ -20,6 +20,11 @@ at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
 the CG posterior against the dense K1 posterior at N = 2048 with
 tests/test_cg.py's tolerances (μ 2e-2, σ² 5e-2 relative), a PCG solve and a
 CG predict that make no host sync, TF32 off, and a valid large-N suggest.
+The surrogate families: the deep ensemble's fit and predictions against
+the CPU's from the same initial weights (1e-4 of the largest |value|),
+NAP's task sampler through K1 (its y as close to a float64 factor as 10×
+the CPU's float32 one), and the GBDT's forest against the CPU's with the
+same draws (the same splits or a tie within rounding; leaves 1e-5).
 """
 
 import numpy as np
@@ -913,3 +918,95 @@ def test_svgp_elbo_gradient_on_card_equals_cpu(cuda):
     for g, c in zip(gg, gc):
         if c is not None:
             torch.testing.assert_close(g.cpu(), c, rtol=0, atol=2e-3 * c.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_deep_ensemble_fit_on_card_equals_cpu(cuda):
+    """The ensemble's batched fit on the card (one baddbmm per layer over the
+    members, Adam) against the CPU from the same initial weights and
+    bootstrap: the params and the predictions within 1e-4 of their largest
+    |value| after 10 epochs."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.models import get_model
+    from hebo_tpu_torch.models.gp.tree import tree_leaves, tree_unflatten
+    from hebo_tpu_torch.models.nn.deep_ensemble import init_mlp
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -1.0, "ub": 1.0} for i in range(3)]
+                        + [{"name": "c", "type": "cat", "categories": ["a", "b", "c"]}])
+    X = space.sobol_sample_opt(32, seed=0).astype(np.float32)
+    y = (np.sin(2 * X[:, :1]) + X[:, 1:2] ** 2).astype(np.float32)
+    init = init_mlp(5, [6, 64, 64, 2], torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev in (cuda, "cpu"):
+        m = get_model("deep_ensemble", space, device=dev, num_epochs=10)
+        m.fit(X, y, init=tree_unflatten(init, [t.to(dev) for t in tree_leaves(init)]))
+        out[str(dev)] = ([t.cpu() for t in tree_leaves(m.params)], m.predict(X))
+    (pg, (mg, vg)), (pc, (mc, vc)) = out[str(cuda)], out["cpu"]
+    for g, c in zip(pg, pc):
+        torch.testing.assert_close(g, c, rtol=0, atol=1e-4 * c.abs().max().item())
+    np.testing.assert_allclose(mg, mc, rtol=0, atol=1e-4 * np.abs(mc).max())
+    np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-4 * np.abs(vc).max())
+
+
+@pytest.mark.gpu
+def test_nap_task_sampler_runs_k1_on_card(cuda):
+    """NAP's ``sample_gp_tasks`` at its meta-training shape (16 tasks of 32
+    points) factors through K1 (one K1a and one K1b launch, no library
+    factor) and gives the CPU's X exactly; its y lies as close to a float64
+    factor of the same Grams as 10× the CPU's float32 y does (the RBF Grams
+    with ℓ up to e^0.5 on [−1, 1]³ have condition numbers near 1e5, so the
+    two float32 factors differ in their last pivots)."""
+    from hebo_tpu_torch.meta.nap import draw_tasks, sample_gp_tasks
+
+    for cat in ((), (1,)):
+        ncat = (3,) if cat else ()
+        d = draw_tasks(16, 32, 3, ncat, torch.Generator().manual_seed(1), "cpu")
+        n0, w0 = chol_kernel.chol_factor.launches, chol_kernel.chol_winv.launches
+        Xg, yg = sample_gp_tasks(16, 32, 3, cat, ncat,
+                                 draws=type(d)(*(None if t is None else t.to(cuda) for t in d)))
+        assert (chol_kernel.chol_factor.launches - n0, chol_kernel.chol_winv.launches - w0) == (1, 1)
+        Xc, yc = sample_gp_tasks(16, 32, 3, cat, ncat, draws=d)
+        d64 = type(d)(*(t if t is None or not t.is_floating_point() else t.double() for t in d))
+        _, y64 = sample_gp_tasks(16, 32, 3, cat, ncat, draws=d64)
+        torch.testing.assert_close(Xg.cpu(), Xc, rtol=0, atol=0)
+        err_card = (yg.cpu().double() - y64).abs().max().item()
+        err_cpu = (yc.double() - y64).abs().max().item()
+        assert err_card <= 10 * err_cpu + 1e-6, (err_card, err_cpu)
+
+
+@pytest.mark.gpu
+def test_gbdt_fit_on_card_equals_cpu(cuda):
+    """The forest's rounds × levels loop on the card against the CPU with the
+    same row bags and leaf noise: the same splits, or at the first split
+    that differs two scores tied within float32 rounding, and then the
+    forest grown from the CPU's splits; leaf values within 1e-5 of their
+    largest |value|."""
+    from hebo_tpu_torch.models.boosting import fit_forest
+
+    rng = np.random.default_rng(0)
+    N, F, R, T, B = 1024, 8, 40, 4, 32
+    codes = torch.as_tensor(rng.integers(0, B, (N, F)))
+    y = torch.as_tensor(np.sin(codes[:, 0].numpy() / 5.0) + 0.1 * rng.standard_normal(N),
+                        dtype=torch.float32)
+    mask = torch.as_tensor(np.arange(N) < 1000)
+    bags = torch.as_tensor(rng.random((R, N)) < 0.8)
+    eps = torch.as_tensor(rng.standard_normal((R, 2 ** T, 2)), dtype=torch.float32)
+    args = dict(n_rounds=R, depth=T, n_bins=B)
+    cpu = fit_forest(codes, y, mask, bags=bags, eps=eps, **args)
+    trace = []
+    on = lambda t: t.to(cuda)  # noqa: E731
+    free = fit_forest(on(codes), on(y), on(mask), bags=on(bags), eps=on(eps), **args)
+    forced = fit_forest(on(codes), on(y), on(mask), bags=on(bags), eps=on(eps),
+                        splits=(on(cpu.feats), on(cpu.bins)), trace=trace, **args)
+    same = ((free.feats.cpu() == cpu.feats) & (free.bins.cpu() == cpu.bins)).numpy()
+    if not same.all():
+        r, t = np.argwhere(~same)[0]
+        score = trace[r * T + t].cpu()
+        mine = score[free.feats[r, t].item(), free.bins[r, t].item()]
+        theirs = score[cpu.feats[r, t], cpu.bins[r, t]]
+        assert abs(float(mine - theirs)) <= 1e-5 * abs(float(mine))
+    else:
+        torch.testing.assert_close(free.leaf_w.cpu(), cpu.leaf_w, rtol=0,
+                                   atol=1e-5 * cpu.leaf_w.abs().max().item())
+    torch.testing.assert_close(forced.leaf_w.cpu(), cpu.leaf_w, rtol=0,
+                               atol=1e-5 * cpu.leaf_w.abs().max().item())

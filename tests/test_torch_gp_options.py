@@ -387,7 +387,8 @@ def test_hebo_loop_and_route_of_each_option(model_name, conf, route):
 
 def test_hebo_model_defaults_and_unported_models():
     """gpy_wgp is the warped GP with 4 restarts, gpy_mlp the MLP kernel;
-    a surrogate of slice 13 still names its slice."""
+    HEBO takes every registered model (rf among them), and the one option
+    still to port, a device mesh, names its slice."""
     from hebo_tpu_torch import HEBO
     from hebo_tpu_torch.models import get_model
 
@@ -396,8 +397,9 @@ def test_hebo_model_defaults_and_unported_models():
     mlp = get_model("gpy_mlp", space, device="cpu")
     assert wgp.core.input_warp and wgp.n_restarts == 4 and wgp.core.kernel_name == "matern32"
     assert mlp.core.kernel_name == "mlp" and not mlp.core.input_warp
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        HEBO(space, model_name="rf", device="cpu")
+    assert HEBO(space, model_name="rf", device="cpu").model_name == "rf"
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        get_model("gp", space, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown kernel"):
         get_model("gp", space, device="cpu", kernel="periodic")
 
