@@ -188,13 +188,44 @@
    ``rf`` is skipped: the card's machine has no sklearn.  Predictions on
    the training points must be finite with σ² > 0; K5 must launch in every
    suggest; every shape launched is held against its plain version.
-11. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+11. Drives the mesh paths (phase m, with the counts reset before it) on
+   one NCCL rank per card (at most 4): on one card a one-rank group over a
+   ``HashStore`` in this process, on more spawned ranks over a
+   ``FileStore``; the world size is printed:
+   (m1) ``HEBO(mesh=...)`` at its defaults on Ackley-6D, 800 warm Sobol
+        observations (bucket 1024), 3 × suggest(8) on the eager mesh route
+        (2 restarts a rank, islands of pop / world with migration every 10
+        generations): each suggest exactly 107 / 107 K1, 50 VJP, 200 K5 and
+        164 K2 launches; finite, in the box, new; the best beats the init;
+   (m2) ``GP(mesh=...)`` at 3000 observations (bucket 3072): the fit's
+        block-sharded factor (block 128, exactly 24 K1a launches) and its W
+        against K1's dense ladder at (1, 3072) (relative Frobenius ≤ 1e-3),
+        and the prediction at 128 points against the dense cache's (μ 1e-3
+        relative, σ² 1e-3 of |σ²| + the prior variance), both timed;
+   (m3) ``GP(mesh=..., inference="hmc" | "smc")`` at 800 observations, and
+        the sharded samplers against the unsharded ones on the same draws
+        (1e-5; HMC's against an unsharded run of each rank's block of chains,
+        which at one rank is every chain), with HMC's R̂; HMC's chains also
+        against one unsharded run over all of them, and, with no mesh, the
+        first quarter of the chains run alone against the same chains in
+        that run (the witness of how far the batch alone moves a chain);
+        world-size dependence with no such batch effect fails the run;
+   (m4) ``ppo_train(mesh=...)`` at its defaults (batch 16, 24 candidates,
+        horizon 8, d_model 64, 4 heads, 2 layers) for 3 iterations: losses
+        finite, parameters moved, K1 at (16, 24); the first iteration is
+        timed apart from the next two.
+   The path runs first and the phase reads its launches at its end; the
+   comparisons run after it.  Every shape the phase launched is held
+   against its plain version, as in phase i; the new K1 shapes are rows of
+   the kernel timings.
+12. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -231,6 +262,9 @@ FAMILY_VJP_SHAPES = [(1, 256, 256, 30), (1, 256, 256, 2), (1, 64, 8, 6), (1, 64,
 VARIANT_GRAM_SHAPES = [(1, 32, 32, 6), (1, 32, 3072, 6), (1, 32, 100, 6), (1, 1024, 1024, 8),
                        (1, 1024, 100, 8)]
 VARIANT_VJP_SHAPES = [(1, 32, 3072, 6), (1, 32, 32, 6), (1, 1024, 1024, 8)]
+# phase m's new K1 shapes: the block factor at block 128 and 64 (K1a), W of
+# the gathered factor at bucket 3072 (K1b); PPO's tasks at (16, 24)
+MESH_K1 = {"chol_factor": {(1, 128), (1, 64), (16, 24)}, "chol_winv": {(1, 3072)}}
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 64, 64, 25, 3, [(0.6, 0.7)])]
@@ -358,12 +392,15 @@ def check_chol(torch, ck, dev, gen, fails):
     """K1a and K1b at the main paths' shapes: AntBO's fit and cache (1, 32)
     and (1, 256), HEBO's cache (1, 128) and (1, 1024), HEBO's fit (2, 128)
     and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051); RDUCB's
-    structure learner (24, 256); NAP's meta-training tasks (16, 32).  Host
+    structure learner (24, 256); NAP's meta-training tasks (16, 32); phase
+    m's block factor at block 64 (1, 64), W of the gathered factor
+    (1, 3072) and PPO's tasks (16, 24).  Host
     dispatch is part of the time at the small shapes, for the kernels and
     the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
-                 (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32)]:
+                 (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
+                 (1, 3072), (16, 24)]:
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
@@ -1191,12 +1228,15 @@ class ShapeLog:
         from hebo_tpu_torch.ops import native
 
         self.seen = {name: set() for name, _, _ in self.DIMS.values()}
+        self.count = collections.Counter()  # launches by (kernel, shape)
         self._native, self._saved = native, native.call
 
         def call(fn, device, *args):
             hit = self.DIMS.get(getattr(fn, "__name__", ""))
             if hit is not None:
-                self.seen[hit[0]].add(tuple(int(a) for a in args[hit[1]:hit[2]]))
+                shape = tuple(int(a) for a in args[hit[1]:hit[2]])
+                self.seen[hit[0]].add(shape)
+                self.count[hit[0], shape] += 1
             return self._saved(fn, device, *args)
 
         native.call = call
@@ -1802,6 +1842,335 @@ def model_families_phase(torch, HEBO, DesignSpace, wrappers, fails):
     return dict(rows=rows, shapes=seen)
 
 
+# ---------------------------------------------------------------- phase m
+class StepClock(list):
+    """``ppo_train``'s ``trace``: keeps each Adam step's record and the
+    time (card synchronized) at which it came."""
+
+    def __init__(self, torch):
+        super().__init__()
+        self.torch, self.t = torch, []
+
+    def append(self, item):
+        self.torch.cuda.synchronize()
+        self.t.append(time.time())
+        super().append(item)
+
+
+def rel_fro(torch, a, b):
+    return (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+
+
+def mesh_phase(torch, HEBO, DesignSpace, GP, wrappers, fails, mesh):
+    """Phase m: the mesh paths through their entry points, on ``mesh`` (one
+    NCCL rank per card; every rank runs this).  m1 ``HEBO(mesh=...)`` at
+    full defaults on Ackley-6D, 800 warm observations, 3 × suggest(8)
+    (eager); m2 ``GP(mesh=...)`` at 3000 observations (the block-sharded
+    posterior at bucket 3072); m3 ``GP(mesh=..., inference="hmc" | "smc")``
+    at 800; m4 ``ppo_train(mesh=...)`` at its defaults for 3 iterations.
+    The path runs first and its launches are read at its end; then m2's
+    factor and prediction are held against K1's dense ladder, and m3's
+    sharded samplers against the unsharded ones on the same draws, so these
+    comparisons add to no count.  Returns the rows, the path's launches and
+    the shapes the kernels were launched at."""
+    from hebo_tpu_torch.meta.ppo import NAPPolicy, ppo_train
+    from hebo_tpu_torch.models.gp.inference import (HMCDraws, _value_and_grad, hmc_sample,
+                                                    hmc_sample_sharded, smc_sample,
+                                                    smc_sample_sharded)
+    from hebo_tpu_torch.models.gp.tree import Flat, tree_leaves, tree_map
+    from hebo_tpu_torch.ops.block_chol import block_ladder_factor
+    from hebo_tpu_torch.ops.chol import LADDER, batched_ladder_factor
+    from hebo_tpu_torch.ops.gram import matern32_gram_vjp, tile_rows
+    from hebo_tpu_torch.parallel.sharded import mesh_rank, mesh_size
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    world = mesh_size(mesh)
+    leaf_diff = lambda a, b: max((x - y).abs().max().item()  # noqa: E731
+                                 for x, y in zip(tree_leaves(a), tree_leaves(b)) if x.numel())
+    rows, sug, shapes = {"world": world}, Suggests(torch, wrappers), ShapeLog()
+    gen = lambda s: torch.Generator(device="cuda").manual_seed(s)  # noqa: E731
+    try:
+        # (m1) HEBO on the mesh: per suggest the fit's 51 NLL ladders of 2
+        # rungs and the cache's 5 (K1a, K1b), 50 VJPs, 100 generations of 2
+        # K5 launches, and K2 51 + 1 + 1 + 110 + 1 (fit, cache, incumbent,
+        # 10 island rounds of 1 + 10 evaluations, the population)
+        opt = HEBO(space, mesh=mesh, device="cuda")
+        warm(opt, space, ackley, 800)
+        log = {}
+        for _ in range(3):
+            rec = sug(opt, 8, log)
+            check_rec(space, rec, 8, "phase m1", fails, hist=space.transform(opt.X))
+            opt.observe(rec, ackley(rec))
+        steps = opt.model_config["num_epochs"]
+        expect = {"matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
+                  "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5,
+                  "matern32_gram": steps + 4 + opt.iters + opt.iters // opt.migrate_every}
+        for got in log["launches_per_suggest"]:
+            for k, want in expect.items():
+                if got.get(k) != want:
+                    fails.append(f"phase m1: {k} launched {got.get(k)} times in a suggest, "
+                                 f"expected {want}")
+        init_best = float(opt.y[:opt.rand_sample, 0].min())
+        if not opt.best_y < init_best:
+            fails.append(f"phase m1: best {opt.best_y} does not beat the init phase's {init_best}")
+        if opt._graphs or not bool(opt.model.caches.ok.all()):
+            fails.append("phase m1: a suggest took the single-card graph or its factor failed")
+        rows["m1"] = dict(log, **timers(opt, 3), route="eager (no CUDA graph)", world=world,
+                          n_obs=opt.num_obs, bucket=int(opt.model.data.X.shape[0]),
+                          pop=opt.pop, islands=world, init_best=init_best, best=opt.best_y)
+        print("phase m1 (HEBO(mesh), Ackley-6D b8, 800 warm obs, bucket 1024):",
+              json.dumps(rows["m1"]), flush=True)
+
+        # (m2) GP(mesh) above max_cholesky_size: phase e's 3000 observations;
+        # the cache's block factor is the fit's only K1a launch at (1, 128)
+        # and K1b at (1, 3072) (the hyperparameters are fitted at 2048)
+        X = space.sobol_sample_opt(3000, seed=1)
+        y = ackley(space.inverse_transform(X))
+        gp2 = GP(space, device="cuda", mesh=mesh)
+        c0 = collections.Counter(shapes.count)
+        t0 = time.time()
+        gp2.fit(X, y)
+        torch.cuda.synchronize()
+        fit_s, by_shape = time.time() - t0, shapes.count - c0
+        m2 = dict(fit_s=fit_s, bucket=int(gp2.data.X.shape[0]),
+                  fit_bucket=int(gp2.fit_data.X.shape[0]), ok=gp2.caches.ok.tolist(),
+                  launches_per_factorization={f"{k} {list(sh)}": by_shape[k, sh] for k, sh in (
+                      ("chol_factor", (1, 128)), ("chol_winv", (1, 128)),
+                      ("chol_winv", (1, 3072)))})
+        Xq = space.sobol_sample_opt(128, seed=5)
+        mu_b, var_b = gp2.predict(Xq)
+
+        # (m3) the samplers on the mesh at 800 observations (phase g's shapes)
+        X = space.sobol_sample_opt(800, seed=1)
+        y = ackley(space.inverse_transform(X))
+        gps = {}
+        for inf in ("hmc", "smc"):
+            gp = GP(space, device="cuda", mesh=mesh, inference=inf)
+            t0 = time.time()
+            gp.fit(X, y)
+            torch.cuda.synchronize()
+            gps[inf] = gp
+            rows[f"m3 {inf}"] = dict(fit_s=time.time() - t0, bucket=int(gp.data.X.shape[0]),
+                                     samples=list(gp.samples.log_sc.shape),
+                                     ok=gp.caches.ok.tolist())
+
+        # (m4) data-parallel PPO at its defaults; its first iteration apart
+        # from the next two, whose time does not depend on what ran before
+        policy = NAPPolicy(dim_x=2, d_model=64, n_heads=4, n_layers=2, generator=gen(0),
+                           device="cuda")
+        p0 = {k: v.detach().clone() for k, v in policy.named_parameters()}
+        trace, before = StepClock(torch), {k: w.launches for k, w in wrappers.items()}
+        t0 = time.time()
+        params, regrets = ppo_train(policy, seed=0, n_iters=3, mesh=mesh, axis="pop", trace=trace)
+        torch.cuda.synchronize()
+        losses = [float(loss) for loss, _ in trace]
+        moved = max((params[k] - p0[k]).abs().max().item() for k in p0)
+        ends = trace.t[len(trace) // 3 - 1::len(trace) // 3]  # each iteration's last Adam step
+        m4 = dict(s_per_iter=(ends[-1] - ends[0]) / 2, first_iter_s=ends[0] - t0,
+                  mean_regret=regrets.tolist(), losses=losses, max_param_move=moved,
+                  launches={k: w.launches - before[k] for k, w in wrappers.items()
+                            if w.launches > before[k]})
+
+        # the path ends here: its launches, and the shapes it launched at
+        path_launches = {k: w.launches for k, w in wrappers.items()}
+        path_seen = {k: set(v) for k, v in shapes.seen.items()}
+
+        if not (np.isfinite(losses).all() and moved > 0 and m4["launches"].get("chol_factor")):
+            fails.append(f"phase m4: PPO's loss not finite, params unmoved or no K1 launch: {m4}")
+
+        # m2's block factor and prediction against K1's dense ladder
+        gp = gp2
+        Kt, _ = gp.core._train_system(gp.samples, gp.data)
+        L, W, ok = block_ladder_factor(Kt[0], mesh)
+        m2["block_ms"] = cuda_ms(torch, lambda: block_ladder_factor(Kt[0], mesh), 2)
+        m2["dense_ms"] = cuda_ms(torch, lambda: batched_ladder_factor(Kt, LADDER), 2)
+        Ld, Wd, okd = batched_ladder_factor(Kt, LADDER)
+        dense = type(gp.core).__new__(type(gp.core))
+        dense.__dict__.update(gp.core.__dict__, mesh=None, max_cholesky_size=4096)
+        caches = dense.posterior_cache_batched(gp.samples, gp.data)
+        mu_d, var_d = gp.predict_pure((gp.samples, caches, gp.data),
+                                      torch.as_tensor(Xq, dtype=torch.float32, device="cuda"))
+        mu_d, var_d = mu_d.cpu().numpy(), var_d.cpu().numpy()
+        prior_var = float(torch.exp(gp.samples.log_sc).max() * gp.data.y_std ** 2)
+        m2.update(L_rel_fro=rel_fro(torch, L, Ld[0]), W_rel_fro=rel_fro(torch, W, Wd[0]),
+                  mu_max_rel=float(np.abs(mu_b - mu_d).max() / np.abs(mu_d).max()),
+                  var_max_err_over_prior=float(np.abs(var_b - var_d).max() / prior_var),
+                  var_max_rel=float((np.abs(var_b - var_d) / var_d).max()))
+        if not (bool(ok) and bool(okd[0]) and m2["L_rel_fro"] <= 1e-3 and m2["W_rel_fro"] <= 1e-3):
+            fails.append(f"phase m2: the block factor disagrees with K1's dense ladder: {m2}")
+        if not (m2["mu_max_rel"] <= 1e-3 and np.all(np.abs(var_b - var_d)
+                                                     <= 1e-3 * (np.abs(var_d) + prior_var))):
+            fails.append(f"phase m2: the block posterior's predictions disagree with the dense "
+                         f"one's: {m2}")
+        want = {"chol_factor [1, 128]": 3072 // 128, "chol_winv [1, 3072]": 1}
+        if any(m2["launches_per_factorization"][k] != n for k, n in want.items()):
+            fails.append(f"phase m2: the fit's factorization launched "
+                         f"{m2['launches_per_factorization']}, expected {want} at block 128")
+        rows["m2"] = m2
+        print("phase m2 (GP(mesh), Ackley-6D, 3000 obs, bucket 3072, block 128):", json.dumps(m2),
+              flush=True)
+
+        # m3's sharded samplers against the unsharded ones on the same draws
+        for inf, gp in gps.items():
+            row, core, data = rows[f"m3 {inf}"], gp.core, gp.fit_data
+            if inf == "smc":
+                lik = lambda p: -core.nll_batched(p, data)  # noqa: E731
+                parts0 = core.init_params(data, gp.n_particles, gen(5))
+                a, za = smc_sample_sharded(core.log_prior, lik, parts0, gen(6), mesh)
+                b, zb = smc_sample(core.log_prior, lik, parts0, gen(6))
+                row["log_evidence"] = [float(za), float(zb)]
+                row["max_abs_diff"] = max(float(abs(za - zb)), leaf_diff(a, b))
+            else:
+                # every transition's draws for all C chains (hmc_sample's
+                # stream).  This rank's block runs again unsharded on its
+                # rows of them, the same batch as the sharded run's; the
+                # chains also run unsharded over all C, and, with no mesh,
+                # the first C/4 alone: the witness of how far the batch
+                # alone moves a chain (a batched matmul's rounding follows
+                # the batch count, and HMC turns rounding into another
+                # accept decision)
+                logp = lambda p: -core.loss_batched(p, data)  # noqa: E731
+                C, n_s = gp.n_chains, 4
+                g0 = gen(7)
+                chain0 = tree_map(lambda t: t.expand((C,) + t.shape[1:]) + 0.05 * torch.randn(
+                    (C,) + t.shape[1:], generator=g0, device="cuda"), gp.params)
+                g8, dim, dr = gen(8), Flat(chain0).dim, ([], [], [])
+                for _ in range(gp.n_warmup + n_s):
+                    dr[0].append(torch.randn((C, dim), generator=g8, device="cuda"))
+                    dr[1].append(torch.rand((C,), generator=g8, device="cuda"))
+                    dr[2].append(torch.randint(1, 9, (C,), generator=g8, device="cuda"))
+                draws = HMCDraws(*(torch.stack(d) for d in dr))
+                run = lambda r, k: hmc_sample(  # noqa: E731
+                    logp, tree_map(lambda t: t[r], chain0), None, n_chains=k,
+                    n_warmup=gp.n_warmup, n_samples=n_s, draws=HMCDraws(*(d[:, r] for d in draws)))[0]
+                a, acc, rhat = hmc_sample_sharded(logp, chain0, None, mesh, n_chains=C,
+                                                  n_warmup=gp.n_warmup, n_samples=n_s,
+                                                  draws=draws)
+                k = C // world
+                rows_r = slice(mesh_rank(mesh) * k, (mesh_rank(mesh) + 1) * k)
+                full = run(slice(0, C), C)
+                b = full if k == C else run(rows_r, k)
+                kw = max(1, C // 4)
+                n = int(data.X.shape[0])
+                # one log-density evaluation of the first kw chains, in the
+                # batch of C and alone: which part differs with the batch
+                first = lambda t: t[:kw]  # noqa: E731
+                Kc, _ = core._train_system(chain0, data)
+                Kk, _ = core._train_system(tree_map(first, chain0), data)
+                Lc, Wc, _ = batched_ladder_factor(Kc, LADDER)
+                Lk, Wk, _ = batched_ladder_factor(Kc[:kw].contiguous(), LADDER)
+                v = Flat(chain0).ravel(chain0)
+                lpc, gc = _value_and_grad(logp, Flat(chain0), v)
+                lpk, gk = _value_and_grad(logp, Flat(chain0), v[:kw])
+                # the backward's parts on the same inputs: the NLL's S⁻¹ =
+                # WᵀW (a batched matmul) and K2's VJP
+                gv = torch.randn(Kc.shape, generator=gen(9), device="cuda")
+                pts = torch.rand((C, n, 6), generator=gen(10), device="cuda")
+                sc = torch.ones(C, device="cuda")
+                vjp = lambda m: matern32_gram_vjp(pts[:m], pts[:m], sc[:m], gv[:m])[0]  # noqa: E731
+                one_eval = {w: (x[:kw] - y).abs().max().item() for w, x, y in (
+                    ("gram", Kc, Kk), ("factor_L_same_input", Lc, Lk),
+                    ("factor_W_same_input", Wc, Wk), ("logp", lpc, lpk), ("grad", gc, gk),
+                    ("nll_backward_WtW_same_input", Wc.transpose(-1, -2) @ Wc,
+                     Wc[:kw].transpose(-1, -2) @ Wc[:kw]),
+                    ("k2_vjp_same_input", vjp(C), vjp(kw)))}
+                row.update(rhat=float(rhat), rhat_note=f"split-R-hat over {n_s} samples of {C} "
+                           "chains: printed, not a convergence test",
+                           accept_rate=acc.tolist(), fit_accept_rate=gp.accept_rate.tolist(),
+                           max_abs_diff=leaf_diff(tree_map(lambda t: t[:, rows_r], a), b),
+                           max_abs_diff_full=leaf_diff(a, full),
+                           batch_witness=dict(batch=[C, kw], tile_rows=[tile_rows(C, n, n),
+                                                                        tile_rows(kw, n, n)],
+                                              one_eval=one_eval,
+                                              max_abs_diff=leaf_diff(
+                                                  tree_map(lambda t: t[:, :kw], full),
+                                                  run(slice(0, kw), kw))))
+                if row["max_abs_diff_full"] > 1e-5 and row["batch_witness"]["max_abs_diff"] <= 1e-5:
+                    fails.append(f"phase m3 hmc: the chains depend on the world size, but not on "
+                                 f"the batch alone: the sharding is at fault: {row}")
+            if not row["max_abs_diff"] <= 1e-5 or not all(row["ok"]):
+                fails.append(f"phase m3 {inf}: the sharded sampler disagrees with the unsharded "
+                             f"one on the same draws, or the cache failed: {row}")
+            print(f"phase m3 GP(mesh, inference={inf!r}) at 800 obs:", json.dumps(row), flush=True)
+        rows["m4"] = m4
+        print("phase m4 (ppo_train(mesh), batch 16, 24 candidates, horizon 8, d_model 64, "
+              "4 heads, 2 layers, 3 iterations; s_per_iter over iterations 2-3):",
+              json.dumps(m4), flush=True)
+    finally:
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    for what, kernel, shape in (("K1a at (1, 128)", "chol_factor", (1, 128)),
+                                ("K1b at (1, 3072)", "chol_winv", (1, 3072)),
+                                ("K1a at (16, 24)", "chol_factor", (16, 24))):
+        if shape not in path_seen[kernel]:
+            fails.append(f"phase m: {what} never launched on the path")
+    print("phase m shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, launches=path_launches, shapes=seen)
+
+
+def _mesh_rank(rank, world, store, out):
+    """One rank of phase m on a machine with several cards (spawned)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(ROOT))
+    from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.models.gp.gp import GP
+    from hebo_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    try:
+        wrappers, fails = kernel_wrappers(), []
+        res = mesh_phase(torch, HEBO, DesignSpace, GP, wrappers, fails, make_mesh(device="cuda"))
+        Path(out, f"rank{rank}.json").write_text(json.dumps(dict(res, fails=fails)))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh(torch, HEBO, DesignSpace, GP, wrappers, fails):
+    """Phase m with one rank per card (at most 4): in this process on one
+    card (a one-rank NCCL group over a HashStore), spawned ranks over a
+    FileStore on more; rank 0's rows and path launches are kept, every
+    rank's failed checks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    world = min(torch.cuda.device_count(), 4)
+    print(f"phase m: world size {world} (NCCL, one rank per card)", flush=True)
+    if world == 1:
+        from hebo_tpu_torch.parallel import make_mesh
+
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            return mesh_phase(torch, HEBO, DesignSpace, GP, wrappers, fails,
+                              make_mesh(device="cuda"))
+        finally:
+            dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as d:
+        torch.multiprocessing.start_processes(_mesh_rank, args=(world, str(Path(d) / "store"), d),
+                                              nprocs=world, join=True, start_method="spawn")
+        ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(world)]
+    for r, res in enumerate(ranks):
+        fails.extend(f"rank {r}: {f}" for f in res.pop("fails"))
+    return ranks[0]
+
+
+def kernel_wrappers():
+    """The kernels' wrappers, by name; each counts its launches."""
+    from hebo_tpu_torch.ops import chol_kernel as ck
+    from hebo_tpu_torch.ops import gram, pareto, ssk
+
+    return {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
+            "chol_factor": ck.chol_factor, "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross,
+            "ssk_self": ssk.ssk_self, "nsga2_rank_crowd": pareto.nsga2_rank_crowd}
+
+
 def main() -> int:
     import torch
 
@@ -1849,10 +2218,7 @@ def main() -> int:
           "no single PyTorch call computes the Matérn Gram, its VJP or the string-subsequence DP",
           flush=True)
 
-    wrappers = {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
-                "chol_factor": ck.chol_factor,
-                "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross, "ssk_self": ssk.ssk_self,
-                "nsga2_rank_crowd": pareto.nsga2_rank_crowd}
+    wrappers = kernel_wrappers()
     # each path is driven with every count at 0 and read just after
     paths = {
         "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, wrappers, fails),
@@ -1885,21 +2251,26 @@ def main() -> int:
         "model_families": (lambda: families.update(model_families_phase(torch, HEBO, DesignSpace,
                                                                         wrappers, fails)),
                            ("chol_factor", "chol_winv", "nsga2_rank_crowd")),
+        "mesh": (lambda: mesh.update(run_mesh(torch, HEBO, DesignSpace, GP, wrappers, fails)),
+                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                  "nsga2_rank_crowd")),
     }
-    mcbo, family, variants, families = {}, {}, {}, {}
+    mcbo, family, variants, families, mesh = {}, {}, {}, {}, {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
             w.launches = 0
         t0 = time.time()
         drive()
-        by_path[path] = {k: w.launches for k, w in wrappers.items()}
+        # phase m reads its path's counts itself, before its comparisons
+        by_path[path] = (mesh["launches"] if path == "mesh" else
+                         {k: w.launches for k, w in wrappers.items()})
         print(f"main path {path}: {time.time() - t0:.1f} s, launches {json.dumps(by_path[path])}",
               flush=True)
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    for p in (mcbo, family, variants, families):
+    for p in (mcbo, family, variants, families, mesh):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
@@ -1931,6 +2302,8 @@ def main() -> int:
             **({"k3_route": r["route"]} if "route" in r else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
             **({"skipped_rung_ms": ladder["skipped_rung_ms"]} if name == "chol_factor" else {}),
+            **({"mesh_shapes": [x for x in rows if tuple(x["shape"]) in MESH_K1[name]]}
+               if name in MESH_K1 else {}),
         })
     if fails:
         print("FAILED:\n  " + "\n  ".join(fails), flush=True)

@@ -272,6 +272,76 @@ def meta_train_np(model: TransformerNP, generator: Optional[torch.Generator] = N
     return params, losses.cpu().numpy()
 
 
+class _FlaxTree:
+    """The leaves of a flax parameter tree (nested dicts of arrays, with or
+    without the top ``"params"`` level) by path, each to be taken once."""
+
+    def __init__(self, flax_params):
+        tree = flax_params.get("params", flax_params)
+        self.leaves, self.used = {}, set()
+
+        def walk(node, path):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, path + (k,))
+            else:
+                self.leaves[path] = np.array(node, np.float32)
+
+        walk(tree, ())
+        self.top = {p[0] for p in self.leaves}
+
+    def take(self, *path):
+        if path in self.used:
+            raise ValueError(f"flax leaf {'/'.join(path)} used twice")
+        self.used.add(path)
+        return self.leaves[path]
+
+    def dense(self, out: dict, name: str, flax_name: str) -> None:
+        """A Dense kernel (in, out) becomes the transposed Linear weight."""
+        out[f"{name}.weight"] = self.take(flax_name, "kernel").T
+        out[f"{name}.bias"] = self.take(flax_name, "bias")
+
+    def blocks(self, out: dict, n_layers: int, first_ff: int) -> None:
+        """The transformer blocks: attention query / key / value kernels
+        (d, H, hd) become (H·hd, d) weights and the out kernel (H, hd, d) a
+        (d, H·hd) weight; LayerNorm's scale and bias carry over.  Flax names
+        the outer Dense of Dense(d)(gelu(Dense(2d)(h))) first, and layer l's
+        pair is Dense_{first_ff + 2l}, Dense_{first_ff + 2l + 1}."""
+        for l in range(n_layers):
+            mha = f"MultiHeadDotProductAttention_{l}"
+            for part in ("query", "key", "value"):
+                k = self.take(mha, part, "kernel")
+                out[f"blocks.{l}.attn.{part}.weight"] = k.reshape(k.shape[0], -1).T
+                out[f"blocks.{l}.attn.{part}.bias"] = self.take(mha, part, "bias").reshape(-1)
+            k = self.take(mha, "out", "kernel")
+            out[f"blocks.{l}.attn.out.weight"] = k.reshape(-1, k.shape[-1]).T
+            out[f"blocks.{l}.attn.out.bias"] = self.take(mha, "out", "bias")
+            for ln, idx in (("ln1", 2 * l), ("ln2", 2 * l + 1)):
+                out[f"blocks.{l}.{ln}.scale"] = self.take(f"LayerNorm_{idx}", "scale")
+                out[f"blocks.{l}.{ln}.bias"] = self.take(f"LayerNorm_{idx}", "bias")
+            self.dense(out, f"blocks.{l}.ff2", f"Dense_{first_ff + 2 * l}")
+            self.dense(out, f"blocks.{l}.ff1", f"Dense_{first_ff + 2 * l + 1}")
+
+    def state_dict(self, out: dict, model: nn.Module, keep=()) -> dict:
+        """``out`` as tensors on ``model``'s device, after checking that every
+        flax leaf was used and every parameter of ``model`` (but those named
+        in ``keep``, which ``model``'s own values fill) is set at its shape."""
+        if self.used != set(self.leaves):
+            raise ValueError(f"flax leaves not used: {sorted(set(self.leaves) - self.used)}")
+        own = dict(model.named_parameters())
+        for k in keep:
+            out[k] = own[k].detach().cpu().numpy()
+        if set(out) != set(own):
+            raise ValueError(f"parameters not set: {sorted(set(own) - set(out))}")
+        dev = next(model.parameters()).device
+        res = {}
+        for k, v in out.items():
+            if tuple(v.shape) != tuple(own[k].shape):
+                raise ValueError(f"{k}: flax shape {v.shape}, port shape {tuple(own[k].shape)}")
+            res[k] = torch.as_tensor(np.ascontiguousarray(v), device=dev)
+        return res
+
+
 def nap_from_flax(flax_params, model: TransformerNP) -> dict:
     """A flax ``TransformerNP`` parameter tree (nested dicts of arrays,
     with or without the top ``"params"`` level) → the port's parameter dict
@@ -280,65 +350,16 @@ def nap_from_flax(flax_params, model: TransformerNP) -> dict:
     weight and its out kernel (H, hd, d) a (d, H·hd) weight; LayerNorm's
     scale and bias and the Embed tables carry over.  Every flax leaf must
     be used exactly once."""
-    tree = flax_params.get("params", flax_params)
-    leaves = {}
-
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, path + (k,))
-        else:
-            leaves[path] = np.asarray(node, np.float32)
-
-    walk(tree, ())
-    used = set()
-
-    def take(*path):
-        if path in used:
-            raise ValueError(f"flax leaf {'/'.join(path)} used twice")
-        used.add(path)
-        return leaves[path]
-
-    out = {}
-
-    def dense(name, flax_name):
-        out[f"{name}.weight"] = take(flax_name, "kernel").T
-        out[f"{name}.bias"] = take(flax_name, "bias")
-
+    tree, out = _FlaxTree(flax_params), {}
     n = model.n_layers
-    dense("ctx_proj", "Dense_0")
-    dense("qry_proj", "Dense_1")
+    tree.dense(out, "ctx_proj", "Dense_0")
+    tree.dense(out, "qry_proj", "Dense_1")
     for i in range(len(model.cat_dims)):
-        out[f"cat_emb.{i}.weight"] = take(f"cat_emb{i}", "embedding")
-    for l in range(n):
-        mha = f"MultiHeadDotProductAttention_{l}"
-        for part in ("query", "key", "value"):
-            k = take(mha, part, "kernel")  # (d, H, hd)
-            out[f"blocks.{l}.attn.{part}.weight"] = k.reshape(k.shape[0], -1).T
-            out[f"blocks.{l}.attn.{part}.bias"] = take(mha, part, "bias").reshape(-1)
-        k = take(mha, "out", "kernel")  # (H, hd, d)
-        out[f"blocks.{l}.attn.out.weight"] = k.reshape(-1, k.shape[-1]).T
-        out[f"blocks.{l}.attn.out.bias"] = take(mha, "out", "bias")
-        for ln, idx in (("ln1", 2 * l), ("ln2", 2 * l + 1)):
-            out[f"blocks.{l}.{ln}.scale"] = take(f"LayerNorm_{idx}", "scale")
-            out[f"blocks.{l}.{ln}.bias"] = take(f"LayerNorm_{idx}", "bias")
-        # flax names the outer Dense of Dense(d)(gelu(Dense(2d)(h))) first
-        dense(f"blocks.{l}.ff2", f"Dense_{2 + 2 * l}")
-        dense(f"blocks.{l}.ff1", f"Dense_{3 + 2 * l}")
-    dense("mu_head", f"Dense_{2 + 2 * n}")
-    dense("ls_head", f"Dense_{3 + 2 * n}")
-    if used != set(leaves):
-        raise ValueError(f"flax leaves not used: {sorted(set(leaves) - used)}")
-    dev = next(model.parameters()).device
-    own = dict(model.named_parameters())
-    if set(out) != set(own):
-        raise ValueError(f"parameters not set: {sorted(set(own) - set(out))}")
-    res = {}
-    for k, v in out.items():
-        if tuple(v.shape) != tuple(own[k].shape):
-            raise ValueError(f"{k}: flax shape {v.shape}, port shape {tuple(own[k].shape)}")
-        res[k] = torch.as_tensor(np.ascontiguousarray(v), device=dev)
-    return res
+        out[f"cat_emb.{i}.weight"] = tree.take(f"cat_emb{i}", "embedding")
+    tree.blocks(out, n, 2)
+    tree.dense(out, "mu_head", f"Dense_{2 + 2 * n}")
+    tree.dense(out, "ls_head", f"Dense_{3 + 2 * n}")
+    return tree.state_dict(out, model)
 
 
 @register_model("nap")

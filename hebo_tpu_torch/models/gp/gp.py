@@ -44,6 +44,15 @@ pivoted-Cholesky-preconditioned block CG (``ops/cg.py``, gp.py:713-733 and
 ``max_cholesky_size`` points (gp.py:1076-1103).  The CG cache holds the
 train system ``Kt`` and the Woodbury factor, made once per fitted state,
 so an acquisition evaluation runs one Gram (N, P) and one PCG.
+
+``GP(mesh=...)`` (a 1-D device mesh, ``parallel/sharded.make_mesh``)
+takes the block-sharded route there instead (gp.py:194-205, :673-705):
+the posterior is the row-slab Cholesky over the ranks
+(``ops/block_chol.block_ladder_factor``: K1 per diagonal block, the
+2-rung ladder), gathered on every rank with W = L⁻¹, so predictions stay
+the dense path's products; and ``inference="hmc"`` / ``"smc"`` shard the
+chains / particles over the ranks (gp.py:977-1040), with ``n_chains`` and
+``n_particles`` rounded up to a multiple of the mesh size.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...ops.block_chol import block_ladder_factor
 from ...ops.cg import pcg_solve, pivoted_cholesky, woodbury_factor, woodbury_precond_apply
 from ...ops.chol import LADDER, batched_ladder_factor, make_masked_nll_batched
 from ...ops.gram import matern32_gram
@@ -61,7 +71,9 @@ from ...ops.ssk import ssk_gram
 from ...utils.device import resolve_device
 from ...utils.dtypes import pad_bucket
 from ..base import BaseModel, register_model
-from .inference import hmc_sample, slice_sample, smc_sample, svi_fit
+from ...parallel.sharded import mesh_size
+from .inference import (hmc_sample, hmc_sample_sharded, slice_sample, smc_sample,
+                        smc_sample_sharded, svi_fit)
 from .tree import adam_step, tree_leaves, tree_map, tree_unflatten
 from .kernels import (MATERN_FNS, conditional_transformed_overlap, diffusion_kernel,
                       embed_categorical, hed_embed, overlap, sq_dist, transformed_overlap)
@@ -200,10 +212,16 @@ class GPCore:
         self.max_cholesky_size = int(max_cholesky_size)
         self.cg_rank = int(cg_rank)
         self.cg_iters = int(cg_iters)
+        # a device mesh (GP(mesh=...)): above max_cholesky_size the
+        # block-sharded route takes the CG route's place
+        self.mesh = None
         self._index = {}
 
     def _use_cg(self, n: int) -> bool:
-        return n > self.max_cholesky_size
+        return n > self.max_cholesky_size and self.mesh is None
+
+    def _use_block_sharded(self, n: int) -> bool:
+        return n > self.max_cholesky_size and self.mesh is not None
 
     def _columns(self, device: torch.device):
         """(numeric column indices, categorical column indices, embedding
@@ -385,6 +403,12 @@ class GPCore:
     def loss_batched(self, params: GPParams, data: GPData) -> torch.Tensor:
         return self.nll_batched(params, data) - self.log_prior(params)
 
+    # The JAX package's per-restart ``nll`` (gp.py:348) and ``loss`` (:392),
+    # which the sharded suggest programs call: every method here already
+    # takes a batch of parameter sets, so they are the batched ones.
+    nll = nll_batched
+    loss = loss_batched
+
     # ----------------------------------------------------------------- init
     def init_params(self, data: GPData, n: int, generator: Optional[torch.Generator] = None,
                     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> GPParams:
@@ -514,6 +538,17 @@ class GPCore:
         with torch.no_grad():
             return pf, self.loss_batched(pf, data), samples
 
+    def fit_from(self, params0: GPParams, data: GPData,
+                 generator: Optional[torch.Generator] = None,
+                 noise: Optional[Callable[[int], Sequence[torch.Tensor]]] = None):
+        """The JAX package's per-chain ``fit_from`` (gp.py:466-558) for a
+        batch of chains, as one run of ``fit_from_batched``: the optimizer
+        updates are elementwise, so each chain follows its own trajectory
+        on its own draws, and each NLL factors through K1's ladder on
+        CUDA.  Returns (final params (R, ...), final loss (R,), samples
+        (S, R, ...))."""
+        return self.fit_from_batched(params0, data, generator, noise=noise)
+
     def prior_diag(self, params: GPParams) -> torch.Tensor:
         """(B,) k(x, x): the outputscale for the normalised stationary
         kernels (gp.py:653-655); subclasses with other kernels override it."""
@@ -543,7 +578,8 @@ class GPCore:
     def posterior_cache_batched(self, samples: GPParams, data: GPData) -> GPCache:
         """L, α and W = L⁻¹ per ensemble sample from one batched full-ladder
         factorization (gp.py:734-761); above ``max_cholesky_size`` the CG
-        ``posterior_cache``.  Between bucket 2048 and ``max_cholesky_size``
+        ``posterior_cache``, or with a mesh the block-sharded factor of each
+        sample (gp.py:673-705, :746).  Between bucket 2048 and ``max_cholesky_size``
         the JAX package factors each sample densely (gp.py:746), since its
         slab kernel stops at 2048; kernel K1 takes any N, so every bucket up
         to ``max_cholesky_size`` runs the same ladder here."""
@@ -551,7 +587,13 @@ class GPCore:
         if self._use_cg(n):
             return self.posterior_cache(samples, data)
         Kt, r = self._train_system(samples, data)
-        L, W, ok = batched_ladder_factor(Kt, LADDER)
+        if self._use_block_sharded(n):
+            # one row-slab factorization over the mesh per sample, its
+            # 2-rung ladder (gp.py:673-705), L and W gathered on every rank
+            L, W, ok = (torch.stack(t) for t in zip(*(block_ladder_factor(K, self.mesh)
+                                                      for K in Kt)))
+        else:
+            L, W, ok = batched_ladder_factor(Kt, LADDER)
         okb = ok[:, None, None]
         eye = torch.eye(n, dtype=Kt.dtype, device=Kt.device)
         Ls = torch.where(okb, L, eye)
@@ -716,9 +758,6 @@ class GP(BaseModel):
         self.inference = conf.get("inference", "map")
         if self.inference not in _INFERENCE:
             raise ValueError(f"unknown inference {self.inference!r}; known: {', '.join(_INFERENCE)}")
-        if conf.get("mesh") is not None:
-            raise NotImplementedError("a device mesh (block-sharded large-N posterior) is "
-                                      "ROADMAP slice 9")
         self.core = GPCore(
             numeric_dims=tuple(space.numeric_dims) + tuple(space.perm_dims),
             cat_dims=tuple(space.cat_dims),
@@ -742,9 +781,18 @@ class GP(BaseModel):
             cond_cat_to_group=conf.get("cond_cat_to_group"),
         )
         self.n_restarts = conf.get("n_restarts", 1)
-        self.n_chains = conf.get("n_chains", 4)
+        # a 1-D DeviceMesh: the block-sharded posterior above
+        # max_cholesky_size, and HMC's chains / SMC's particles over the
+        # ranks, their counts rounded up to a multiple of the mesh size
+        self.mesh = self.core.mesh = conf.get("mesh")
+        axis = conf.get("mesh_axis")
+        if axis is not None and (self.mesh is None or axis not in self.mesh.mesh_dim_names):
+            raise ValueError(f"mesh_axis {axis!r} is not an axis of the mesh")
+        n_dev = mesh_size(self.mesh)
+        rup = lambda v: -(-int(v) // n_dev) * n_dev
+        self.n_chains = rup(conf.get("n_chains", 4))
         self.n_warmup = conf.get("n_warmup", 64)
-        self.n_particles = conf.get("n_particles", 32)
+        self.n_particles = rup(conf.get("n_particles", 32))
         self._seed = conf.get("seed", 0)
         self.params: Optional[GPParams] = None
         self.samples: Optional[GPParams] = None
@@ -752,6 +800,7 @@ class GP(BaseModel):
         self.data: Optional[GPData] = None
         self.fit_data: Optional[GPData] = None  # what the hyperparameters were fitted on
         self.accept_rate: Optional[torch.Tensor] = None  # HMC's, per chain
+        self.rhat: Optional[torch.Tensor] = None  # HMC's split-R̂ on a mesh
 
     def fit(self, X, y):
         """Fit the hyperparameters and build the posterior caches.  Above
@@ -795,15 +844,24 @@ class GP(BaseModel):
             chain0 = tree_map(lambda t: t.expand((C,) + t.shape[1:]) + 0.05 * torch.randn(
                 (C,) + t.shape[1:], generator=gen, dtype=t.dtype, device=t.device), pf)
             n_per = max(1, S)
-            draws, self.accept_rate = hmc_sample(logp, chain0, gen, n_chains=C,
-                                                 n_warmup=self.n_warmup, n_samples=n_per)
+            if self.mesh is not None:
+                draws, self.accept_rate, self.rhat = hmc_sample_sharded(
+                    logp, chain0, gen, self.mesh, n_chains=C, n_warmup=self.n_warmup,
+                    n_samples=n_per)
+            else:
+                draws, self.accept_rate = hmc_sample(logp, chain0, gen, n_chains=C,
+                                                     n_warmup=self.n_warmup, n_samples=n_per)
             take = torch.as_tensor(_take(n_per * C, S), device=pf.log_sc.device)
             return tree_map(lambda t: t.reshape((n_per * C,) + t.shape[2:]).index_select(0, take),
                             draws)
         if self.inference == "svi":
             return svi_fit(logp, pf, gen, n_samples=S)[0]
         parts0 = core.init_params(data, self.n_particles, gen)
-        parts, _ = smc_sample(core.log_prior, lambda p: -core.nll_batched(p, data), parts0, gen)
+        if self.mesh is not None:
+            parts, _ = smc_sample_sharded(core.log_prior, lambda p: -core.nll_batched(p, data),
+                                          parts0, gen, self.mesh)
+        else:
+            parts, _ = smc_sample(core.log_prior, lambda p: -core.nll_batched(p, data), parts0, gen)
         take = torch.as_tensor(_take(self.n_particles, S), device=pf.log_sc.device)
         return tree_map(lambda t: t.index_select(0, take), parts)
 

@@ -22,7 +22,17 @@ draws.  Nothing reads a device value on the host: a chain whose trajectory
 length has ended is frozen by a mask for the rest of the n_leapfrog steps,
 and every accept or resample decision is a ``where``.
 
-The sharded samplers (:295, :620) are not here.
+The sharded samplers (``hmc_sample_sharded`` :295, ``smc_sample_sharded``
+:620) run the same code on each rank's block of chains or particles of a
+device mesh (``parallel/sharded.py``): every rank holds the full initial
+batch, runs its rows, and returns every rank's rows all-gathered.  Each
+transition's random numbers are drawn for the whole batch from the shared
+generator (or fed for the whole batch) and each rank takes its rows, so a
+chain's or a particle's draws do not depend on the world size: the sharded
+HMC's chains and the sharded SMC's population equal the unsharded
+samplers' on the same draws.  SMC's normalization, evidence and ESS are
+all-reduced and its systematic resampling runs over the all-gathered
+population; HMC's split-R̂ comes from all-reduced moments.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ...parallel.sharded import all_gather, all_reduce, mesh_rank, mesh_size
 from .tree import Flat, adam_step
 
-__all__ = ["hmc_sample", "slice_sample", "svi_fit", "smc_sample", "HMCDraws"]
+__all__ = ["hmc_sample", "hmc_sample_sharded", "slice_sample", "svi_fit", "smc_sample",
+           "smc_sample_sharded", "HMCDraws"]
 
 
 def _value_and_grad(logp: Callable, flat: Flat, v: torch.Tensor):
@@ -98,9 +110,47 @@ def hmc_sample(logp: Callable, init_params, generator: Optional[torch.Generator]
     acceptance probability after warm-up.  ``trace``, a list, receives
     per transition (q, log ε, log ε̄, h̄, inv_mass, log u − log α) for
     tests."""
+    samples, acc, _ = _hmc(logp, init_params, generator, None, n_warmup=n_warmup,
+                           n_samples=n_samples, n_leapfrog=n_leapfrog, init_step=init_step,
+                           target_accept=target_accept, draws=draws, trace=trace)
+    return samples, acc
+
+
+def hmc_sample_sharded(logp: Callable, init_params, generator: Optional[torch.Generator], mesh, *,
+                       n_chains: int = 8, n_warmup: int = 64,
+                       n_samples: int = 16, n_leapfrog: int = 8, init_step: float = 0.02,
+                       target_accept: float = 0.8, draws: Optional[HMCDraws] = None):
+    """Chain-parallel HMC over the mesh (inference.py:295-378): rank r runs
+    chains [r·C/world, (r+1)·C/world) of ``init_params`` (every leaf leads
+    with ``n_chains`` = C, a multiple of the mesh size, the same on every
+    rank).  Returns (samples (n_samples, C, ...), accept_rate (C,), R̂) on
+    every rank: the chains' draws are those of ``hmc_sample`` with the same
+    generator or ``draws``, whatever the world size, and R̂ is the
+    split-R̂ of the per-sample sum of every parameter over all chains,
+    from all-reduced chain means and variances."""
+    if n_chains % mesh_size(mesh):
+        raise ValueError(f"hmc_sample_sharded: {n_chains} chains over {mesh_size(mesh)} ranks")
+    return _hmc(logp, init_params, generator, mesh, n_warmup=n_warmup, n_samples=n_samples,
+                n_leapfrog=n_leapfrog, init_step=init_step, target_accept=target_accept,
+                draws=draws, trace=None)
+
+
+def _rows(mesh, n: int) -> slice:
+    """This rank's block of ``n`` chains or particles."""
+    k = n // mesh_size(mesh)
+    return slice(mesh_rank(mesh) * k, (mesh_rank(mesh) + 1) * k)
+
+
+def _hmc(logp, init_params, generator, mesh, *, n_warmup, n_samples, n_leapfrog, init_step,
+         target_accept, draws, trace):
+    """This rank's chains of ``init_params``; returns every rank's samples
+    and acceptance rates, and R̂ with a mesh (else None)."""
     flat = Flat(init_params)
-    q = flat.ravel(init_params).detach()
-    C, dim = q.shape
+    q_all = flat.ravel(init_params).detach()
+    C_all, dim = q_all.shape
+    rows = _rows(mesh, C_all)
+    q = q_all[rows]
+    C = q.shape[0]
     dev, f32 = q.device, q.dtype
     vg = lambda v: _value_and_grad(logp, flat, v)
     total = n_warmup + n_samples
@@ -118,11 +168,12 @@ def hmc_sample(logp: Callable, init_params, generator: Optional[torch.Generator]
     kept, a_probs = [], []
     for i in range(total):
         if draws is None:
-            xi = torch.randn((C, dim), generator=generator, dtype=f32, device=dev)
-            u = torch.rand((C,), generator=generator, dtype=f32, device=dev)
-            n_lf = torch.randint(1, n_leapfrog + 1, (C,), generator=generator, device=dev)
+            xi = torch.randn((C_all, dim), generator=generator, dtype=f32, device=dev)
+            u = torch.rand((C_all,), generator=generator, dtype=f32, device=dev)
+            n_lf = torch.randint(1, n_leapfrog + 1, (C_all,), generator=generator, device=dev)
         else:
             xi, u, n_lf = (torch.as_tensor(d[i], device=dev) for d in draws)
+        xi, u, n_lf = xi[rows], u[rows], n_lf[rows]
         p = xi / torch.sqrt(inv_mass)
         eps = torch.exp(log_eps)
         q_new, p_new, lp_new, g_new = _leapfrog(vg, q, p, eps, n_leapfrog, inv_mass, n_lf, cur)
@@ -166,8 +217,22 @@ def hmc_sample(logp: Callable, init_params, generator: Optional[torch.Generator]
         if i >= n_warmup:
             kept.append(q)
             a_probs.append(a_prob)
-    samples = flat.unravel(torch.stack(kept))  # (n_samples, C, ...)
-    return samples, torch.stack(a_probs).mean(0)
+    kept = torch.stack(kept)  # (n_samples, C, dim)
+    acc = torch.stack(a_probs).mean(0)
+    rhat = None
+    if mesh is not None:
+        # split-R̂ over all chains of the summary Σ params (inference.py:341-353)
+        s = kept.sum(-1).transpose(0, 1)  # (C, n_samples)
+        ch_mean, ch_var = s.mean(1), s.var(1, correction=1)
+        m = C_all
+        grand = all_reduce(ch_mean.sum(), mesh) / m
+        B = all_reduce(((ch_mean - grand) ** 2).sum(), mesh) * n_samples / (m - 1)
+        W = all_reduce(ch_var.sum(), mesh) / m
+        var_plus = (n_samples - 1) / n_samples * W + B / n_samples
+        rhat = torch.sqrt(var_plus / torch.clamp(W, min=1e-12))
+        kept = all_gather(kept.transpose(0, 1), mesh).transpose(0, 1)
+        acc = all_gather(acc, mesh)
+    return flat.unravel(kept), acc, rhat
 
 
 # ------------------------------------------------------------------ slice
@@ -310,13 +375,45 @@ def smc_sample(log_prior: Callable, log_lik: Callable, init_particles,
     MALA move])`` replaces the generator's.  ``trace``, a list, receives
     per stage (particles, log-weights, log-evidence, ESS, [log u − log α
     per MALA move]).  Returns (particles, the log-evidence estimate)."""
+    return _smc(log_prior, log_lik, init_particles, generator, None, n_stages=n_stages,
+                n_mala=n_mala, mala_step=mala_step, ess_threshold=ess_threshold, draws=draws,
+                trace=trace)
+
+
+def smc_sample_sharded(log_prior: Callable, log_lik: Callable, init_particles,
+                       generator: Optional[torch.Generator], mesh, *, n_stages: int = 16,
+                       n_mala: int = 2, mala_step: float = 0.01, ess_threshold: float = 0.5,
+                       draws=None):
+    """Particle-parallel SMC over the mesh (inference.py:620-717): rank r
+    holds particles [r·n/world, (r+1)·n/world) of ``init_particles`` (n a
+    multiple of the mesh size, the same full batch on every rank).  Per
+    stage the weights' maximum and sum, the evidence increment and the ESS
+    are all-reduced, and when the ESS collapses the systematic resampling
+    runs over the all-gathered weights and particles, each rank picking its
+    own block of the global stratified grid with the shared uniform; the
+    MALA moves stay local.  The result equals ``smc_sample`` over the full
+    population with the same generator or ``draws`` (full-population
+    draws; each rank takes its rows).  Returns (every rank's particles,
+    the log-evidence) on every rank."""
+    n = Flat(init_particles).ravel(init_particles).shape[0]
+    if n % mesh_size(mesh):
+        raise ValueError(f"smc_sample_sharded: {n} particles over {mesh_size(mesh)} ranks")
+    return _smc(log_prior, log_lik, init_particles, generator, mesh, n_stages=n_stages,
+                n_mala=n_mala, mala_step=mala_step, ess_threshold=ess_threshold, draws=draws,
+                trace=None)
+
+
+def _smc(log_prior, log_lik, init_particles, generator, mesh, *, n_stages, n_mala, mala_step,
+         ess_threshold, draws, trace):
     flat = Flat(init_particles)
-    parts = flat.ravel(init_particles).detach()
-    n, dim = parts.shape
+    parts_all = flat.ravel(init_particles).detach()
+    n, dim = parts_all.shape
+    rows = _rows(mesh, n)
+    parts = parts_all[rows]
     dev, f32 = parts.device, parts.dtype
     betas = torch.linspace(0.0, 1.0, n_stages + 1, dtype=f32)
-    ar = torch.arange(n, device=dev)
-    logw = torch.zeros((n,), dtype=f32, device=dev)
+    pos0 = torch.arange(n, device=dev)[rows].to(f32)  # this rank's slots of the global grid
+    logw = torch.zeros((parts.shape[0],), dtype=f32, device=dev)
     logZ = torch.zeros((), dtype=f32, device=dev)
     sq = math.sqrt(mala_step)
     for s in range(n_stages):
@@ -331,18 +428,20 @@ def smc_sample(log_prior: Callable, log_lik: Callable, init_particles,
             u_res, moves = draws(s)
             u_res = torch.as_tensor(u_res, dtype=f32, device=dev)
             moves = [tuple(torch.as_tensor(t, dtype=f32, device=dev) for t in mv) for mv in moves]
+        moves = [(z[rows], ua[rows]) for z, ua in moves]
         ll = _value(log_lik, flat, parts)
         ll = torch.where(torch.isfinite(ll), ll, torch.full_like(ll, -1e10))
         logw = logw + db * ll
-        m = logw.max()
+        m = all_reduce(logw.max(), mesh, "max")
         w = torch.exp(logw - m)
-        logZ = logZ + m + torch.log(w.mean())
-        w = w / w.sum()
-        ess = 1.0 / (w ** 2).sum()
+        sw = all_reduce(w.sum(), mesh)
+        logZ = logZ + m + torch.log(sw / n)
+        w = w / sw
+        ess = 1.0 / all_reduce((w ** 2).sum(), mesh)
         do_res = ess < ess_threshold * n
-        pos = (ar.to(f32) + u_res) / n
-        idx = torch.clamp(torch.searchsorted(torch.cumsum(w, 0), pos), max=n - 1)
-        parts = parts.index_select(0, torch.where(do_res, idx, ar))
+        idx = torch.clamp(torch.searchsorted(torch.cumsum(all_gather(w, mesh), 0),
+                                             (pos0 + u_res) / n), max=n - 1)
+        parts = torch.where(do_res, all_gather(parts, mesh).index_select(0, idx), parts)
         logw = torch.where(do_res, torch.zeros_like(logw), torch.log(w * n))
 
         logt = lambda tree: log_prior(tree) + b_next * log_lik(tree)
@@ -358,4 +457,4 @@ def smc_sample(log_prior: Callable, log_lik: Callable, init_particles,
             margins.append(torch.log(ua) - log_alpha)
         if trace is not None:
             trace.append((parts, logw, logZ, ess, margins))
-    return flat.unravel(parts), logZ
+    return flat.unravel(all_gather(parts, mesh)), logZ

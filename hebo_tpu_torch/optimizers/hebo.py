@@ -35,6 +35,22 @@ fits on a subsample and the posterior runs through CG.  It fits the model,
 takes the incumbent's posterior mean and runs ``EvolutionOpt`` with MACE's
 z drawn from a generator seeded by the observation count, all launched op
 by op.
+
+``HEBO(mesh=..., migrate_every=10)`` (a 1-D device mesh,
+``parallel/sharded.make_mesh``; hebo.py:56-78, :229-245) runs the fused
+program's SPMD form instead (``_sharded_program``, the JAX package's
+``make_fused_suggest_sharded``, sharded.py:153-278): every rank fits
+``n_restarts`` chains of its own, the first argmin of all ranks' losses is
+the fitted state on every rank, and each rank evolves an island of
+``pop / world`` points (``pop`` rounded up to a multiple of the world
+size, the incumbent in slot 0 of the first) with elite migration every
+``migrate_every`` generations; the islands' packed outputs are gathered
+and the host picks from them as on one card.  Every rank runs the same
+host code and returns the same suggestion.  The replicated draws (MACE's
+z, the acquisition's own) come from the generator seeded by the
+observation count; a rank's chains and its island draw from a generator
+seeded from (observation count, rank).  The route runs eagerly, op by op,
+with no CUDA graph.
 """
 
 from __future__ import annotations
@@ -56,6 +72,8 @@ from ..ops.chol_kernel import chol_factor, chol_winv
 from ..ops.gram import matern32_gram, matern32_gram_vjp
 from ..ops.pareto import nsga2_rank_crowd
 from ..ops.transforms import fit_power_transform, power_transform_y
+from ..parallel.sharded import (all_gather, island_evolve, mesh_rank, mesh_size, rank_generator,
+                                select_chain)
 from ..utils.device import resolve_device
 from ..utils.dtypes import pad_bucket
 from .base import AbstractOptimizer
@@ -80,6 +98,8 @@ class HEBO(AbstractOptimizer):
         scramble_seed: int = 0,
         pop: int = 100,
         iters: int = 100,
+        mesh=None,
+        migrate_every: int = 10,
         device="cuda",
     ):
         super().__init__(space, csv_save_path)
@@ -93,6 +113,8 @@ class HEBO(AbstractOptimizer):
         self.scramble_seed = scramble_seed
         self.pop = pop
         self.iters = iters
+        self.mesh = mesh
+        self.migrate_every = migrate_every
         self._sobol_count = 0
         self.model = None
         self._acq = None
@@ -136,7 +158,9 @@ class HEBO(AbstractOptimizer):
         use_fused = (type(self.model).__name__ == "GP"
                      and getattr(self.model, "inference", "map") == "map"
                      and pad_bucket(max(len(Xv), 2)) <= self.model.core.max_cholesky_size)
-        if use_fused:
+        if use_fused and self.mesh is not None:
+            pop_X, pop_F, mu_pop, var_pop = self._sharded_suggest(Xv, yt, kappa, fix_input)
+        elif use_fused:
             pop_X, pop_F, mu_pop, var_pop = self._fused_suggest(Xv, yt, kappa, fix_input)
         else:
             pop_X, pop_F, mu_pop, var_pop = self._generic_suggest(Xv, yt, kappa, fix_input)
@@ -197,16 +221,16 @@ class HEBO(AbstractOptimizer):
         return pop_X, pop_F, mu_pop, var_pop
 
     # ------------------------------------------------------- fused suggest
-    def _suggest_inputs(self, Xv, yt, kappa, fix_input):
+    def _suggest_inputs(self, Xv, yt, kappa, fix_input, pop: Optional[int] = None):
         """Host side of one suggest: the bucket, the column metadata and
         every per-suggest input packed into one float32 array (the JAX
         package's packing, hebo.py:342-367): [X (n_pad, D) | y (n_pad) |
         mask (n_pad) | x_lb (nd) | x_span (nd) | y_mean | y_std | κ |
-        init_pop (pop, D)]."""
+        init_pop (pop, D)]; ``pop`` defaults to ``self.pop``."""
         space = self.space
         n_pad = pad_bucket(max(len(Xv), 2))
         meta = _space_meta(space, fix_input)
-        init_pop = space.sobol_sample_opt(self.pop, seed=self.num_obs).astype(np.float32)
+        init_pop = space.sobol_sample_opt(pop or self.pop, seed=self.num_obs).astype(np.float32)
         for name, val in (fix_input or {}).items():
             p = space.params[name]
             c0 = space._col_of[name]
@@ -257,13 +281,8 @@ class HEBO(AbstractOptimizer):
         ``loop(step, n)`` runs the slice optimizer's coordinate step n
         times (``inference.slice_sample``)."""
         core, model, acq = self.model.core, self.model, self._acq
-        R, D, P = self.model.n_restarts, self.space.num_cols, self.pop
-        nd = len(core.numeric_dims)
-        parts = torch.split(inputs, [n_pad * D, n_pad, n_pad, nd, nd, 3, P * D])
-        data = GPData(X=parts[0].view(n_pad, D), y=parts[1].view(n_pad, 1),
-                      mask=parts[2] > 0.5, x_lb=parts[3], x_span=parts[4],
-                      y_mean=parts[5][0], y_std=parts[5][1])
-        kappa = parts[5][2]
+        R, P = self.model.n_restarts, self.pop
+        data, kappa, init = self._unpack(inputs, n_pad, P)
 
         shapes = _leaf_shapes(core, R)
         sizes = [R * core.total_cats * _emb_cols(core), R * core.d_feat,
@@ -278,15 +297,7 @@ class HEBO(AbstractOptimizer):
         )
         caches = core.posterior_cache_batched(samples, data)
         state = (samples, caches, data)
-
-        # incumbent: the best observed point's posterior mean, model frame
-        y_masked = torch.where(data.mask, data.y[:, 0], torch.full_like(data.y[:, 0], float("inf")))
-        xb = data.X.index_select(0, torch.argmin(y_masked).reshape(1))
-        mu_b, _ = model.predict_pure(state, xb)
-        noise_scale = torch.sqrt(torch.exp(pf.log_noise[0]) + core.noise_lb) * data.y_std
-        pr = AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale, z=z.view(P, 1),
-                       draw=draw.view(1, -1) if acq.n_normals else None)
-        init = parts[6].view(P, D).clone()
+        xb, pr = self._incumbent(state, pf, kappa, z.view(P, 1), draw)
         init[0] = xb[0]
         pop_X, pop_F = evolve_raw(
             init, lambda Xc: acq.eval_pure(model, state, pr, Xc), None, n_gens=self.iters,
@@ -295,6 +306,81 @@ class HEBO(AbstractOptimizer):
         mu_pop, var_pop = model.predict_pure(state, pop_X)
         out = torch.cat([pop_X, pop_F, mu_pop, var_pop], 1)
         return out, (data, pf, samples, caches)
+
+    def _unpack(self, inputs, n_pad: int, P: int):
+        """(data, κ, the initial population (P, D), a copy) from the packed
+        inputs (``_suggest_inputs``)."""
+        D, nd = self.space.num_cols, len(self.model.core.numeric_dims)
+        parts = torch.split(inputs, [n_pad * D, n_pad, n_pad, nd, nd, 3, P * D])
+        data = GPData(X=parts[0].view(n_pad, D), y=parts[1].view(n_pad, 1),
+                      mask=parts[2] > 0.5, x_lb=parts[3], x_span=parts[4],
+                      y_mean=parts[5][0], y_std=parts[5][1])
+        return data, parts[5][2], parts[6].view(P, D).clone()
+
+    def _incumbent(self, state, pf, kappa, z, draw):
+        """The best observed point (1, D) and the acquisition's parameters:
+        its posterior mean as τ (model frame), the noise scale of the
+        fitted params ``pf`` (leading axis 1), MACE's z and the
+        acquisition's own normals."""
+        data, core = state[2], self.model.core
+        y_masked = torch.where(data.mask, data.y[:, 0], torch.full_like(data.y[:, 0], float("inf")))
+        xb = data.X.index_select(0, torch.argmin(y_masked).reshape(1))
+        mu_b, _ = self.model.predict_pure(state, xb)
+        noise_scale = torch.sqrt(torch.exp(pf.log_noise[0]) + core.noise_lb) * data.y_std
+        return xb, AcqParams(tau=mu_b[0, 0], kappa=kappa, eps=1e-4, noise=noise_scale, z=z,
+                             draw=draw.view(1, -1) if self._acq.n_normals else None)
+
+    def _mesh_pop(self) -> int:
+        """``pop`` rounded up to a multiple of the world size (equal islands)."""
+        world = mesh_size(self.mesh)
+        return -(-self.pop // world) * world
+
+    def _sharded_program(self, n_pad, mt, inputs, z, draw, generator, fit_draws=None,
+                         island_draws=None):
+        """The device part of one suggest on the mesh (sharded.py:153-278):
+        this rank's ``n_restarts`` chains (``GPCore.fit_from``, from
+        ``generator`` or ``fit_draws`` = (init draws, pSGLD noise(step))),
+        the first argmin over every rank's chains (``select_chain``), the
+        caches, the incumbent, this rank's island (``island_evolve``, its
+        draws from ``generator`` or ``island_draws(round, generation)``)
+        and the islands' packed [pop_X | pop_F | μ | σ²] all-gathered.
+        ``z`` (pop / world, 1) and ``draw`` are the replicated draws.
+        Returns the packed output on every rank and (data, params,
+        samples, caches)."""
+        core, model, acq, mesh = self.model.core, self.model, self._acq, self.mesh
+        P = self._mesh_pop()
+        P_loc = P // mesh_size(mesh)
+        data, kappa, init = self._unpack(inputs, n_pad, P)
+        init_draws, noise = fit_draws if fit_draws is not None else (None, None)
+        p0 = core.init_params(data, model.n_restarts, generator, draws=init_draws)
+        pf, loss, samples = core.fit_from(p0, data, generator, noise=noise)
+        pf, samples = select_chain((pf, samples), loss, mesh, (0, 1))
+        caches = core.posterior_cache_batched(samples, data)
+        state = (samples, caches, data)
+        xb, pr = self._incumbent(state, pf, kappa, z, draw)
+        init[0] = xb[0]
+        r0 = mesh_rank(mesh) * P_loc
+        X, F = island_evolve(init[r0:r0 + P_loc], lambda Xc: acq.eval_pure(model, state, pr, Xc), mt,
+                             self.iters, self.migrate_every, mesh, generator=generator,
+                             draws=island_draws)
+        mu, var = model.predict_pure(state, X)
+        return all_gather(torch.cat([X, F, mu, var], 1), mesh), (data, pf, samples, caches)
+
+    @torch.no_grad()
+    def _sharded_suggest(self, Xv, yt, kappa, fix_input):
+        """The mesh route: inputs, draws, ``_sharded_program``, eagerly."""
+        dev, P = self.device, self._mesh_pop()
+        n_pad, meta, host = self._suggest_inputs(Xv, yt, kappa, fix_input, P)
+        t0 = time.time()
+        seed = self.num_obs % (1 << 30)
+        shared = torch.Generator(device=dev).manual_seed(seed)
+        z = torch.randn((P // mesh_size(self.mesh), 1), generator=shared, device=dev)
+        k = self._acq.n_normals
+        draw = torch.randn((1, k), generator=shared, device=dev) if k else None
+        out, state = self._sharded_program(n_pad, meta_tensors(meta, dev),
+                                           torch.as_tensor(host, device=dev), z, draw,
+                                           rank_generator(seed, self.mesh, dev))
+        return self._take(out, state, t0)
 
     def _device_suggest(self, n_pad, meta, host):
         """Inputs to the device, draws, the program; returns the packed
@@ -363,7 +449,12 @@ class HEBO(AbstractOptimizer):
     def _fused_suggest(self, Xv, yt, kappa, fix_input):
         n_pad, meta, host = self._suggest_inputs(Xv, yt, kappa, fix_input)
         t0 = time.time()
-        out, (data, pf, samples, caches) = self._device_suggest(n_pad, meta, host)
+        return self._take(*self._device_suggest(n_pad, meta, host), t0)
+
+    def _take(self, out, state, t0):
+        """Copy the packed output back, time the suggest since ``t0``, keep
+        the fitted state on the model; returns (pop_X rounded, pop_F, μ, σ²)."""
+        data, pf, samples, caches = state
         out = out.cpu().numpy()
         dt = time.time() - t0
         self.fit_time.append(dt)

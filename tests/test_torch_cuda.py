@@ -1010,3 +1010,107 @@ def test_gbdt_fit_on_card_equals_cpu(cuda):
                                    atol=1e-5 * cpu.leaf_w.abs().max().item())
     torch.testing.assert_close(forced.leaf_w.cpu(), cpu.leaf_w, rtol=0,
                                atol=1e-5 * cpu.leaf_w.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group on the card and its 1-D mesh (the mesh paths'
+    world on a one-card machine)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 -m pytest --noconftest -m gpu tests/test_torch_cuda.py)")
+    import torch.distributed as dist
+
+    from hebo_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield make_mesh(device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _matern_system(dev, N, seed=0):
+    """A GP train system: the Matérn-3/2 Gram of N points in [−1, 1]^6 at
+    lengthscale 0.5 plus noise 1e-3 on the diagonal."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.uniform(-1, 1, (1, N, 6)).astype(np.float32), device=dev) / 0.5
+    K = matern32_gram(X, X, torch.ones(1, device=dev))[0]
+    return (K + 1e-3 * torch.eye(N, device=dev)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,block", [(1024, 128), (256, 32)])
+def test_block_factor_on_card_equals_dense_ladder(nccl_mesh, N, block):
+    """The row-slab factor (K1a per diagonal block; a block narrower than a
+    tile assembles the tile inverses) and its W = L⁻¹ (K1b at the full
+    size) against K1's dense ladder at the same jitter: relative Frobenius
+    error ≤ 1e-3; N / block K1a launches, no library factor."""
+    from hebo_tpu_torch.ops.block_chol import block_ladder_factor
+    from hebo_tpu_torch.ops.chol import LADDER, batched_ladder_factor
+
+    K = _matern_system(torch.device("cuda"), N)
+    n0 = chol_kernel.chol_factor.launches
+    L, W, ok = block_ladder_factor(K, nccl_mesh, block=block)
+    assert chol_kernel.chol_factor.launches - n0 == N // block and bool(ok)
+    Ld, Wd, okd = batched_ladder_factor(K[None], LADDER)
+    assert bool(okd[0])
+    for got, want in ((L, Ld[0]), (W, Wd[0])):
+        assert (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_sharded_smc_on_card_equals_unsharded(nccl_mesh):
+    """SMC over the GP's NLL (K1 at (32, 128)) on the one-rank mesh against
+    the unsharded sampler with the same generator: particles and log
+    evidence within 1e-5."""
+    from hebo_tpu_torch.models.gp.gp import GPCore, make_data
+    from hebo_tpu_torch.models.gp.inference import smc_sample, smc_sample_sharded
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-1, 1, (100, 3)).astype(np.float32)
+    data = make_data(X, np.sin(3 * X).sum(1, keepdims=True), (0, 1, 2), 128, dev)
+    core = GPCore(numeric_dims=(0, 1, 2), cat_dims=(), num_categories=())
+    parts0 = core.init_params(data, 32, torch.Generator(device=dev).manual_seed(0))
+    lik = lambda p: -core.nll_batched(p, data)  # noqa: E731
+    kw = dict(n_stages=6)
+    a, za = smc_sample_sharded(core.log_prior, lik, parts0, torch.Generator(device=dev).manual_seed(3),
+                               nccl_mesh, **kw)
+    b, zb = smc_sample(core.log_prior, lik, parts0, torch.Generator(device=dev).manual_seed(3), **kw)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(za, zb, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_ppo_update_on_card_equals_cpu(nccl_mesh):
+    """One ``ppo_train`` iteration (2 Adam steps) on the one-rank mesh on the
+    card, its tasks factored by K1 at (4, 8), against the CPU port from the
+    same weights and draws: params within 1e-4 of each tensor's largest
+    |value|, but the zero-gradient biases (key projections, the logit
+    head), within Adam's reach of their start."""
+    from hebo_tpu_torch.meta.nap import TaskDraws
+    from hebo_tpu_torch.meta.ppo import NAPPolicy, RolloutDraws, ppo_train
+
+    rng = np.random.default_rng(2)
+    Bn, C, T, dx = 4, 8, 3, 2
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    draws = RolloutDraws(TaskDraws(X=torch.as_tensor(rng.uniform(-1, 1, (Bn, C, dx)).astype(np.float32)),
+                                   codes=None, log_ls=torch.full((Bn, 1, 1, 1), -0.5),
+                                   z=t(Bn, C), eps=t(Bn, C, 1)),
+                         torch.as_tensor(rng.gumbel(size=(T, Bn, C)).astype(np.float32)))
+    cpu = NAPPolicy(dx, 16, 2, 1, generator=torch.Generator().manual_seed(0))
+    card = NAPPolicy(dx, 16, 2, 1, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    kw = dict(batch=Bn, n_cand=C, horizon=T, n_iters=1, draws=lambda it: draws)
+    n0 = chol_kernel.chol_factor.launches
+    pc, rc = ppo_train(card, mesh=nccl_mesh, axis="pop", **kw)
+    assert chol_kernel.chol_factor.launches > n0
+    pp, rp = ppo_train(cpu, **kw)
+    start = dict(cpu.named_parameters())
+    for k, v in pp.items():
+        if ".attn.key.bias" in k or "logit_head.bias" in k:
+            assert (pc[k].cpu() - start[k]).abs().max().item() <= 2 * 3e-4 * (1 + 1e-3)
+        else:
+            torch.testing.assert_close(pc[k].cpu(), v, rtol=0, atol=1e-4 * v.abs().max().item())
+    np.testing.assert_allclose(rc, rp, rtol=1e-5, atol=1e-5)

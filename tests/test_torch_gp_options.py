@@ -387,10 +387,14 @@ def test_hebo_loop_and_route_of_each_option(model_name, conf, route):
 
 def test_hebo_model_defaults_and_unported_models():
     """gpy_wgp is the warped GP with 4 restarts, gpy_mlp the MLP kernel;
-    HEBO takes every registered model (rf among them), and the one option
-    still to port, a device mesh, names its slice."""
+    HEBO takes every registered model (rf among them), and a GP builds on a
+    device mesh (a gloo group of one rank here), its chain and particle
+    counts rounded up to the mesh size."""
+    import torch.distributed as dist
+
     from hebo_tpu_torch import HEBO
     from hebo_tpu_torch.models import get_model
+    from hebo_tpu_torch.parallel import make_mesh
 
     space = _space()
     wgp = get_model("gpy_wgp", space, device="cpu")
@@ -398,8 +402,14 @@ def test_hebo_model_defaults_and_unported_models():
     assert wgp.core.input_warp and wgp.n_restarts == 4 and wgp.core.kernel_name == "matern32"
     assert mlp.core.kernel_name == "mlp" and not mlp.core.input_warp
     assert HEBO(space, model_name="rf", device="cpu").model_name == "rf"
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        get_model("gp", space, device="cpu", mesh=object())
+    with pytest.raises(RuntimeError, match="no process group"):
+        make_mesh(device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        gp = get_model("gp", space, device="cpu", mesh=make_mesh(device="cpu"), n_chains=3)
+        assert gp.core.mesh is gp.mesh and gp.n_chains == 3 and gp.core._use_block_sharded(4096)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="unknown kernel"):
         get_model("gp", space, device="cpu", kernel="periodic")
 
