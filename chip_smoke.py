@@ -218,7 +218,36 @@
    comparisons run after it.  Every shape the phase launched is held
    against its plain version, as in phase i; the new K1 shapes are rows of
    the kernel timings.
-12. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+12. Drives latent-space BO (phase n, with the counts reset before it), each
+   loop at the JAX package's defaults:
+   (n1) ``LatentSpaceBO`` on pest control (25 stations × 5 choices, the
+        categorical VAE; latent 4, hidden 64, 200 VAE steps, retrain every
+        8): 16 Sobol points, then 4 × suggest(4) (two retrains);
+   (n2) ``ImageLatentBO`` at 40 × 40 (latent 8, 150 VAE steps) on
+        tests/test_decoders.py's band target scaled to 40 × 40: 16 init
+        suggest(1), then 4 × suggest(2) (one retrain);
+   (n3) ``ChemLatentBO`` (128 initial molecules of 24 tokens, latent 8,
+        300 VAE steps at construction), 3 × step(4).
+   Suggestions must be valid (codes in range and new, images in [0, 1],
+   molecules valence-valid and new) and the best no worse than the init
+   phase's; each suggest's wall is printed with its VAE-retrain, GP-fit,
+   acquisition and decode seconds and its launches per kernel.  Then each
+   VAE family trains 3 steps on the card and on the CPU from the same
+   weights with the same fed normals: every parameter within 1e-4 of its
+   tensor's largest |value|.  K2 (D 4 and 8) and K5 at the evolution's
+   (48, 1) / (96, 1), (32, 1) / (64, 1) and (64, 1) / (128, 1) must launch;
+   every shape launched is held against its plain version.
+13. Drives the task suite (phase o, with the counts reset before it):
+   builds ``native/`` (the AIG tool and the evaluation pool) with make;
+   ``run_hpob_eval`` on a ``SyntheticHPOBTask`` (3 dims, 512 rows) with the
+   port's HEBO (5 random, then 3 model rounds); ``BO_ALGOS["BOiLS"]`` on
+   the real ``BoilsTask`` (8 positions × 3 operators, K3's register route at
+   L 8) with 20 random warm observations, 2 × suggest(1); ``DrillsBaseline``
+   for 2 episodes; and one evaluation each of ``EDASeqOptTask``,
+   ``RNAInverseFoldTask``, ``LPSolveTask``, ``NASBenchTask``,
+   ``RobotPushTask`` and a ``CorruptedTask``, each finite of shape (1, 1).
+   Every shape launched is held against its plain version.
+14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -265,6 +294,14 @@ VARIANT_VJP_SHAPES = [(1, 32, 3072, 6), (1, 32, 32, 6), (1, 1024, 1024, 8)]
 # phase m's new K1 shapes: the block factor at block 128 and 64 (K1a), W of
 # the gathered factor at bucket 3072 (K1b); PPO's tasks at (16, 24)
 MESH_K1 = {"chol_factor": {(1, 128), (1, 64), (16, 24)}, "chol_winv": {(1, 3072)}}
+# phases n and o: the latent GPs (D 4 pest control, D 8 images and molecules)
+# at their fit buckets and the evolution's populations, and HEBO's inside
+# run_hpob_eval (D 3, bucket 8)
+LATENT_GRAM_SHAPES = [(1, 32, 32, 4), (1, 32, 48, 4), (1, 32, 32, 8), (1, 16, 32, 8),
+                      (1, 256, 256, 8), (1, 256, 64, 8), (1, 8, 8, 3), (1, 8, 48, 3)]
+LATENT_VJP_SHAPES = [(1, 32, 32, 4), (1, 32, 32, 8), (1, 256, 256, 8), (1, 8, 8, 3)]
+# phase o: BOiLS on BoilsTask, 8 positions over 3 operators (the register route)
+TASK_SSK_CASES = [(1, 32, 32, 8, 3, [(0.6, 0.7)]), (1, 32, 17, 8, 3, [(0.6, 0.7)])]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 64, 64, 25, 3, [(0.6, 0.7)])]
@@ -296,7 +333,8 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     SVI draws or gpy_wgp restarts at buckets 128 and 1024, 32 SMC
     particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
     Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``), phase j's
-    (``FAMILY_GRAM_SHAPES``) and phase k's (``VARIANT_GRAM_SHAPES``)."""
+    (``FAMILY_GRAM_SHAPES``), phase k's (``VARIANT_GRAM_SHAPES``) and
+    phases n and o's (``LATENT_GRAM_SHAPES``)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
@@ -304,7 +342,7 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
                        (1, 3072, 128, 6), (1, 7168, 7168, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
                        (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES + FAMILY_GRAM_SHAPES \
-            + VARIANT_GRAM_SHAPES:
+            + VARIANT_GRAM_SHAPES + LATENT_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -335,7 +373,8 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     128 and the large-N route's subsample bucket 2048, and the samplers' (4
     and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
     D 3 and 19, and the descents' query shapes), phase j's
-    (``FAMILY_VJP_SHAPES``) and phase k's (``VARIANT_VJP_SHAPES``), on random points and on a
+    (``FAMILY_VJP_SHAPES``), phase k's (``VARIANT_VJP_SHAPES``) and phases n
+    and o's (``LATENT_VJP_SHAPES``), on random points and on a
     self-Gram with coincident rows (repeated rows and the zero rows of a
     padded bucket); twice on the same inputs, which must give the same
     bits.  The self-Gram's points are scaled by √(6/D) above D = 6, so
@@ -347,14 +386,16 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6),
-                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES + VARIANT_VJP_SHAPES:
+                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES + VARIANT_VJP_SHAPES \
+            + LATENT_VJP_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
         g = torch.randn((B, N, M), generator=gen, device=dev)
         x = a * min(1.0, math.sqrt(6.0 / D))
-        x[:, N // 2: N // 2 + 8] = x[:, :8]
-        x[:, -16:] = 0.0
+        k = min(8, N // 4)  # 8 repeated and 16 zero rows; fewer at N < 32 (phase o's bucket 8)
+        x[:, N // 2: N // 2 + k] = x[:, :k]
+        x[:, -2 * k:] = 0.0
         pairs = [("random points", (a, b))] + ([("self-Gram, coincident rows", (x, x))] if N == M else [])
         for what, (p, q) in pairs:
             got, want = gram.matern32_gram_vjp(p, q, sc, g), gram.matern32_gram_vjp_plain(p, q, sc, g)
@@ -394,13 +435,14 @@ def check_chol(torch, ck, dev, gen, fails):
     and (2, 1024), and (2, 2048); BOCS's Gibbs sweep (1, 5051); RDUCB's
     structure learner (24, 256); NAP's meta-training tasks (16, 32); phase
     m's block factor at block 64 (1, 64), W of the gathered factor
-    (1, 3072) and PPO's tasks (16, 24).  Host
+    (1, 3072) and PPO's tasks (16, 24); phases n and o's small fits (1, 16)
+    and (1, 8).  Host
     dispatch is part of the time at the small shapes, for the kernels and
     the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
-                 (1, 3072), (16, 24)]:
+                 (1, 3072), (1, 16), (1, 8), (16, 24)]:  # a batch last: the NaN case below
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
@@ -483,14 +525,16 @@ def check_ssk(torch, ssk, device_us, dev, fails):
     shape just beyond the register budget (L = 12, the smem route), and
     phase i's pest control at L = 25 over 5 letters (the smem route): the
     fit at bucket 256, the interleaved search's one-flip neighbours (101)
-    and the GA's population (64)."""
+    and the GA's population (64); phase o's BOiLS on ``BoilsTask`` at L = 8
+    over 3 operators (``TASK_SSK_CASES``, the register route)."""
     cross_rows, self_rows = [], []
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
     cases = [(1, 256, 256, 11, 3, [(0.6, 0.7)]), (2, 256, 256, 11, 3, [(0.6, 0.7), (0.35, 0.9)]),
              (1, 209, 256, 11, 3, [(0.7, 0.6)]), (1, 209, 32, 11, 3, [(0.7, 0.6)]),
              (1, 32, 32, 11, 3, [(0.55, 0.8)]), (1, 256, 1, 11, 3, [(0.5, 0.5)]),
              (1, 13, 5, 6, 2, [(0.8, 0.3)]), (1, 256, 256, 12, 3, [(0.6, 0.7)])]
-    cases = [c + (20,) for c in cases] + [c + (5,) for c in MCBO_SSK_CASES]
+    cases = [c + (20,) for c in cases] + [c + (5,) for c in MCBO_SSK_CASES] \
+        + [c + (3,) for c in TASK_SSK_CASES]
     rng = np.random.default_rng(0)
     for B, N, M, L, P, decays, letters in cases:
         s1 = torch.as_tensor(rng.integers(0, letters, (N, L)), dtype=torch.int32, device=dev)
@@ -577,12 +621,13 @@ def check_pareto(torch, pareto, device_us, dev, fails):
     (200, 3), at the single objective of the MCBO GA, (64, 1) and (128, 1),
     and of BO's and Evolution's NSGA-II, (100, 1) and (200, 1), and at
     GeneralBO's M = 2 (ZDT1) and M = 4 (BNH, 2 objectives + 2
-    constraints), P 100 and 200: the same ranks and crowding bits as the
+    constraints), P 100 and 200, and phases n and o's evolutions, (48, 1),
+    (96, 1), (32, 1), (48, 3) and (96, 3): the same ranks and crowding bits as the
     plain version (``pareto_agrees``).  Timed on standard-normal
     objectives."""
     rows = []
     for P, M in ((100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1), (100, 2), (200, 2),
-                 (100, 4), (200, 4)):
+                 (100, 4), (200, 4), (48, 1), (96, 1), (32, 1), (48, 3), (96, 3)):
         pareto_agrees(torch, pareto, P, M, dev, fails, "")
         F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
         fn = lambda: pareto.nsga2_rank_crowd(F)
@@ -2161,6 +2206,232 @@ def run_mesh(torch, HEBO, DesignSpace, GP, wrappers, fails):
     return ranks[0]
 
 
+# ---------------------------------------------------------------- phase n
+def band_score(imgs, hw=(40, 40)):
+    """tests/test_decoders.py's band target at ``hw``: the squared distance
+    of the thresholded image to rows [6/16, 10/16) of the height set."""
+    H, W = hw
+    target = np.zeros((H, W), np.float32)
+    target[H * 6 // 16:H * 10 // 16, :] = 1.0
+    b = (imgs[..., 0] > 0.5).astype(np.float32)
+    return np.mean((b - target[None]) ** 2, axis=(1, 2)).reshape(-1, 1)
+
+
+def vae_case(kind, device, n=24, seed=5):
+    """A VAE family at the latent loops' widths and its training data (as
+    tests/test_torch_cuda.py's ``_vae_case``): pest control's categorical
+    VAE (25 columns × 5 codes, latent 4, hidden 64), the topology VAE at
+    40 × 40 (latent 8) and chem's sequence VAE (16 tokens, length 24,
+    latent 8); three steps of fed normals."""
+    from hebo_tpu_torch.latent import decoders, vae
+
+    rng = np.random.default_rng(seed)
+    if kind == "vae":
+        model, lat, train = vae.VAE(4, 25, 64, (5,) * 25, device=device), 4, vae.train_vae
+        X = rng.integers(0, 5, (n, 25)).astype(np.float32)
+    elif kind == "topology":
+        model, lat, train = decoders.TopologyVAE(8, (40, 40), device=device), 8, decoders.train_topology_vae
+        X = (rng.random((n, 40, 40, 1)) < 0.3).astype(np.float32)
+    else:
+        model, lat, train = decoders.SeqVAE(16, 24, 8, device=device), 8, decoders.train_seq_vae
+        X = rng.integers(0, 16, (n, 24)).astype(np.int32)
+    y = X.reshape(n, -1).mean(1, keepdims=True).astype(np.float32)
+    w = vae.rank_weights(y[:, 0]).astype(np.float32)
+    return model, train, X, y, w, rng.standard_normal((3, n, lat)).astype(np.float32)
+
+
+def vae_card_vs_cpu(torch, fails):
+    """Each VAE family: 3 Adam steps on the card and on the CPU from the
+    same weights with the same fed normals.  In float32 the losses must
+    agree within 1e-5 (relative); the parameters are held in float64, within
+    1e-4 of each tensor's largest |value|.  In float32, Adam's per-element
+    step g / (√v + ε) turns the rounding of a gradient that cancels to ~ε
+    (the sequence VAE's encoder GRU input weights: ~5e-9) into steps of
+    different sizes (0.54 against 0.45 of the learning rate), which is
+    rounding, not a difference of the computation."""
+    from hebo_tpu_torch.latent.vae import init_params
+
+    out = {}
+    for kind in ("vae", "topology", "seq"):
+        cpu, train, X, y, w, noise = vae_case(kind, "cpu")
+        card = vae_case(kind, "cuda")[0]
+        p0 = init_params(cpu)
+        _, lc = train(cpu, p0, X, y, w, n_steps=3, noise=noise)
+        _, lg = train(card, {k: v.cuda() for k, v in p0.items()}, X, y, w, n_steps=3, noise=noise)
+        loss_err = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+        p64 = {k: v.double() for k, v in p0.items()}
+        pc, _ = train(cpu, p64, X, y, w, n_steps=3, noise=noise)
+        pg, _ = train(card, {k: v.cuda() for k, v in p64.items()}, X, y, w, n_steps=3, noise=noise)
+        err = max(((pg[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-30)).item()
+                  for k, v in pc.items())
+        out[kind] = dict(float64_param_err_over_max=err, float32_loss_rel_err=loss_err,
+                         loss_cpu=lc.tolist(), loss_card=lg.tolist())
+        if not (err <= 1e-4 and loss_err <= 1e-5):
+            fails.append(f"phase n {kind}: 3 VAE steps on the card differ from the CPU's: {out[kind]}")
+    print("phase n VAE train, card against CPU (3 fed steps):", json.dumps(out), flush=True)
+    return out
+
+
+def phase_walls(opt, k):
+    return {f"{name}_s": getattr(opt, f"{name}_time")[-k:] for name in ("retrain", "fit", "acq", "decode")}
+
+
+def latent_phase(torch, DesignSpace, wrappers, fails):
+    """Phase n: LatentSpaceBO on pest control, ImageLatentBO at 40 × 40 and
+    ChemLatentBO, at the JAX package's defaults; returns the rows and the
+    shapes the kernels were launched at."""
+    from hebo_tpu_torch.latent import ImageLatentBO, LatentSpaceBO
+    from hebo_tpu_torch.latent.chem import ChemLatentBO, canonical_string, decode_tokens
+    from hebo_tpu_torch.tasks import PestControlTask
+
+    rows, sug, shapes = {}, Suggests(torch, wrappers), ShapeLog()
+    try:
+        pest = PestControlTask(n_stations=25)
+        opt = LatentSpaceBO(pest.space, n_init=16, device="cuda")
+        rec = opt.suggest(16)
+        opt.observe(rec, pest(rec))
+        init_best, log = opt.best_y, {}
+        for _ in range(4):
+            rec = sug(opt, 4, log)
+            check_rec(pest.space, rec, 4, "phase n1 LatentSpaceBO", fails, hist=pest.space.transform(opt.X))
+            opt.observe(rec, pest(rec))
+        rows["n1 LatentSpaceBO pest"] = dict(log, **phase_walls(opt, 4), n_retrains=opt._n_retrains,
+                                             n_obs=opt.num_obs, init_best=init_best, best=opt.best_y)
+        if opt._n_retrains < 2:
+            fails.append(f"phase n1: {opt._n_retrains} VAE retrain(s), want one after the first")
+        if not opt.best_y <= init_best:
+            fails.append("phase n1: the best y is worse than the init phase's")
+
+        bo = ImageLatentBO(device="cuda")
+        for _ in range(16):
+            imgs = bo.suggest(1)
+            bo.observe(imgs, band_score(imgs))
+        init_best, log = float(bo.y.min()), {}
+        for _ in range(4):
+            imgs = sug(bo, 2, log)
+            if not (imgs.shape == (2, 40, 40, 1) and np.isfinite(imgs).all() and imgs.min() >= 0
+                    and imgs.max() <= 1):
+                fails.append(f"phase n2 ImageLatentBO: images not (2, 40, 40, 1) in [0, 1]: {imgs.shape}")
+            bo.observe(imgs, band_score(imgs))
+        rows["n2 ImageLatentBO 40x40"] = dict(log, **phase_walls(bo, 4), init_best=init_best,
+                                              best=float(bo.y.min()), n_obs=len(bo.y))
+        if len(bo.retrain_time) != 1:
+            fails.append(f"phase n2: {len(bo.retrain_time)} VAE retrains, want 1")
+        if not float(bo.y.min()) <= init_best:
+            fails.append("phase n2: the best score is worse than the init phase's")
+
+        t0 = time.time()
+        chem = ChemLatentBO(device="cuda")
+        torch.cuda.synchronize()
+        init_s, init_best, n0 = time.time() - t0, chem.best_y, len(chem.tokens)
+        seen0 = {canonical_string(decode_tokens(t)) for t in chem.tokens}
+        log = {}
+        for _ in range(3):
+            before = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.time()
+            chem.step(4)
+            torch.cuda.synchronize()
+            log.setdefault("s_per_step", []).append(time.time() - t0)
+            log.setdefault("launches_per_step", []).append(
+                {k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]})
+        new = chem.tokens[n0:]
+        graphs = [decode_tokens(t) for t in new]
+        strs = [canonical_string(g) for g in graphs]
+        if not (len(new) > 0 and all(g.free_valence(i) >= 0 for g in graphs for i in range(len(g.atoms)))
+                and len(set(strs)) == len(strs) and not set(strs) & seen0):
+            fails.append(f"phase n3 ChemLatentBO: new molecules not valid and new ({len(new)} added)")
+        if not chem.best_y >= init_best:
+            fails.append("phase n3: the best y is worse than the initial set's")
+        rows["n3 ChemLatentBO"] = dict(log, init_s=init_s, **phase_walls(chem, 3), added=len(new),
+                                       init_best=init_best, best=chem.best_y)
+        for name, row in rows.items():
+            print(f"phase {name}:", json.dumps(row), flush=True)
+    finally:
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    want = [("K2 at D 4", "matern32_gram", lambda s: s[3] == 4), ("K2 at D 8", "matern32_gram", lambda s: s[3] == 8)]
+    want += [(f"K5 at {sh}", "nsga2_rank_crowd", lambda s, sh=sh: s == sh)
+             for sh in ((48, 1), (96, 1), (32, 1), (64, 1), (128, 1))]
+    for what, kernel, hit in want:
+        if not any(hit(s) for s in shapes.seen[kernel]):
+            fails.append(f"phase n: {what} never launched")
+    print("phase n shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
+# ---------------------------------------------------------------- phase o
+def tasks_phase(torch, DesignSpace, wrappers, fails):
+    """Phase o: the task suite's black boxes with device work on them:
+    ``run_hpob_eval`` with the port's HEBO, MCBO's BOiLS preset and the
+    DRiLLS agent on the real ``BoilsTask``, and one evaluation of each
+    other task; returns the rows and the shapes the kernels were launched
+    at."""
+    from hebo_tpu_torch import native as host_native
+    from hebo_tpu_torch.ops import ssk
+    from hebo_tpu_torch.optimizers.bo_builder import BO_ALGOS
+    from hebo_tpu_torch.tasks import (BoilsTask, CorruptedTask, DrillsBaseline, EDASeqOptTask,
+                                      LPSolveTask, NASBenchTask, RKHSTask, RNAInverseFoldTask,
+                                      RobotPushTask, SyntheticHPOBTask)
+    from hebo_tpu_torch.tasks.hpob import run_hpob_eval
+
+    rows, sug, shapes = {}, Suggests(torch, wrappers), ShapeLog()
+    try:
+        t0 = time.time()
+        host_native.ensure_built()
+        rows["native build"] = dict(s=time.time() - t0)
+
+        bench = SyntheticHPOBTask(dim=3, n_points=512, seed=0)
+        before = {k: w.launches for k, w in wrappers.items()}
+        t0 = time.time()
+        res = run_hpob_eval({"synthetic": {"gp0": bench}}, n_seeds=1, n_trials=8, n_init=5, device="cuda")
+        trace = res["synthetic"]["gp0"]["test0"]
+        rows["o1 run_hpob_eval"] = dict(s=time.time() - t0, trace=trace, launches={
+            k: w.launches - before[k] for k, w in wrappers.items() if w.launches > before[k]})
+        if not (len(trace) == 8 and all(b >= a for a, b in zip(trace, trace[1:]))
+                and bench.y_table.min() <= min(trace) and max(trace) <= bench.y_table.max()):
+            fails.append(f"phase o1 run_hpob_eval: trace not 8 monotone table values: {trace}")
+
+        task = BoilsTask()
+        opt = BO_ALGOS["BOiLS"].build_bo(task.space, n_init=10, seed=0, device="cuda")
+        warm_df = task.space.sample(20, seed=1)
+        opt.observe(warm_df, task(warm_df))
+        log = {}
+        for _ in range(2):
+            rec = sug(opt, 1, log)
+            check_rec(task.space, rec, 1, "phase o2 BOiLS", fails, hist=task.space.transform(opt.X))
+            y = task(rec)
+            if not np.isfinite(y).all():
+                fails.append("phase o2 BOiLS: QoR not finite")
+            opt.observe(rec, y)
+        rows["o2 BOiLS on BoilsTask"] = dict(log, **timers(opt, 2), best=opt.best_y, k3_routes={
+            str(sh): ssk.route(sh[3], sh[4]) for sh in sorted(shapes.seen["ssk_cross"])})
+        if not all(r.get("ssk_cross", 0) > 0 and r.get("ssk_self", 0) > 0 for r in log["launches_per_suggest"]):
+            fails.append("phase o2 BOiLS: a suggest launched no K3")
+
+        t0 = time.time()
+        out = DrillsBaseline(task, device="cuda").train(2)
+        rows["o3 DrillsBaseline"] = dict(s=time.time() - t0, **out)
+        if not (len(out["qor_trace"]) == 2 and np.isfinite(out["qor_trace"]).all()):
+            fails.append(f"phase o3 DRiLLS: {out}")
+
+        evals = {}
+        for name, t in (("EDASeqOptTask", EDASeqOptTask()), ("RNAInverseFoldTask", RNAInverseFoldTask()),
+                        ("LPSolveTask", LPSolveTask()), ("NASBenchTask", NASBenchTask()),
+                        ("RobotPushTask", RobotPushTask()), ("CorruptedTask", CorruptedTask(RKHSTask()))):
+            y = t(t.space.sample(1, seed=0))
+            evals[name] = y.tolist()
+            if not (y.shape == (1, 1) and np.isfinite(y).all()):
+                fails.append(f"phase o4 {name}: value {y} not finite of shape (1, 1)")
+        rows["o4 one evaluation each"] = evals
+        for name, row in rows.items():
+            print(f"phase {name}:", json.dumps(row), flush=True)
+    finally:
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    print("phase o shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
 def kernel_wrappers():
     """The kernels' wrappers, by name; each counts its launches."""
     from hebo_tpu_torch.ops import chol_kernel as ck
@@ -2254,8 +2525,14 @@ def main() -> int:
         "mesh": (lambda: mesh.update(run_mesh(torch, HEBO, DesignSpace, GP, wrappers, fails)),
                  ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                   "nsga2_rank_crowd")),
+        "latent": (lambda: latent.update(latent_phase(torch, DesignSpace, wrappers, fails)),
+                   ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                    "nsga2_rank_crowd")),
+        "tasks": (lambda: tasks.update(tasks_phase(torch, DesignSpace, wrappers, fails)),
+                  ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                   "ssk_cross", "ssk_self", "nsga2_rank_crowd")),
     }
-    mcbo, family, variants, families, mesh = {}, {}, {}, {}, {}
+    mcbo, family, variants, families, mesh, latent, tasks = {}, {}, {}, {}, {}, {}, {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -2270,8 +2547,9 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    for p in (mcbo, family, variants, families, mesh):
+    for p in (mcbo, family, variants, families, mesh, latent, tasks):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
+    vae_card_vs_cpu(torch, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
                   "chol_factor": [2, 1024], "chol_winv": [2, 1024],

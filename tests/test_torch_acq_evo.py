@@ -25,6 +25,16 @@ from hebo_tpu_torch.design_space import DesignSpace
 from hebo_tpu_torch.ops import pareto as tpar
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Fixed:
     """A model whose predictive (mu, var) is fixed."""
 

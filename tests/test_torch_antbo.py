@@ -48,6 +48,16 @@ REPO = Path(__file__).resolve().parent.parent
 N_OBS, N_PAD = 13, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return {k: np.asarray(v) for k, v in t._asdict().items() if v is not None}
 

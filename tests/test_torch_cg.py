@@ -48,6 +48,16 @@ from hebo_tpu_torch.models.gp.gp import GP
 from hebo_tpu_torch.ops import cg as tcg
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, rtol=1e-3):
     b = np.asarray(b)
     np.testing.assert_allclose(np.asarray(a), b, rtol=rtol, atol=rtol * np.abs(b).max())

@@ -231,8 +231,17 @@ def _rel(a, b):
 def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
     """Codes from an alphabet of A letters (4: dense matches, every step of
     the DP non-zero).  The route the shape takes, one launch per wrapper
-    call, both wrappers and the normalised Gram's decay gradients against
-    the plain version."""
+    call, the same bits from a second launch on the same inputs, both
+    wrappers against the plain version, and the normalised Gram's decay
+    gradients against the plain version's for four seeded cotangents w.
+
+    Each decay's gradient is a float32 sum of n = N·M terms t = w ⊙ ∂K/∂θ
+    (with the chain factor 2·λ_m for the match decay), many of them
+    cancelling.  Recursive summation of n terms errs by at most
+    (n − 1)·ε·Σ|t| (ε = 2⁻²³), so the kernel's and the plain version's sums
+    may differ by 2·(n − 1)·ε·Σ|t| (c = 2: one such bound for each side);
+    the elementwise tangents are held at 1e-4 above.  Σ|t| is taken from the
+    plain version's elementwise tangents."""
     rng = np.random.default_rng(B * N + M)
     s1 = torch.as_tensor(rng.integers(0, A, (N, L)), dtype=torch.int32, device=cuda)
     s2 = torch.as_tensor(rng.integers(0, A, (M, L)), dtype=torch.int32, device=cuda)
@@ -245,6 +254,9 @@ def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
     assert (ssk.ssk_cross.launches, ssk.ssk_self.launches) == (n0[0] + 1, n0[1] + 1)
     cross0 = ssk.ssk_cross_plain(s1, s2, md * md, gd, P)
     self0 = ssk.ssk_self_plain(s1, md * md, gd, P)
+    for again, first in ((ssk.ssk_cross(s1, s2, md * md, gd, P), cross),
+                         (ssk.ssk_self(s1, md * md, gd, P), self1)):
+        assert all(torch.equal(a, b) for a, b in zip(again, first))  # K3 sums in a fixed order
     for k, tol in enumerate((1e-5, 1e-4, 1e-4)):
         assert _rel(cross[k], cross0[k]) <= tol
         assert _rel(self1[k], self0[k]) <= tol
@@ -253,11 +265,15 @@ def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
     K = ssk.ssk_gram(s1.float(), s2.float(), md, gd, P)
     K0 = ssk.ssk_gram_plain(s1, s2, md, gd, P)
     assert (K - K0).abs().max().item() <= 1e-5
-    w = torch.randn(K.shape, device=cuda)
-    g = torch.autograd.grad((w * K).sum(), (md, gd))
-    g0 = torch.autograd.grad((w * K0).sum(), (md, gd))
-    for a, b in zip(g, g0):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    _, dK_dl, dK_dg = ssk._normalise(cross0, self0, ssk.ssk_self_plain(s2, md * md, gd, P))
+    n, eps = N * M, torch.finfo(torch.float32).eps
+    for seed in range(4):
+        w = torch.randn(K.shape, generator=torch.Generator(device=cuda).manual_seed(seed), device=cuda)
+        g = torch.autograd.grad((w * K).sum(), (md, gd), retain_graph=True)
+        g0 = torch.autograd.grad((w * K0).sum(), (md, gd), retain_graph=True)
+        terms = ((w * dK_dl).abs().sum((-2, -1)) * 2 * md.detach(), (w * dK_dg).abs().sum((-2, -1)))
+        for a, b, t in zip(g, g0, terms):
+            assert ((a - b).abs() <= 2 * (n - 1) * eps * t).all(), (seed, a, b, t)
 
 
 @pytest.mark.gpu
@@ -1114,3 +1130,52 @@ def test_ppo_update_on_card_equals_cpu(nccl_mesh):
         else:
             torch.testing.assert_close(pc[k].cpu(), v, rtol=0, atol=1e-4 * v.abs().max().item())
     np.testing.assert_allclose(rc, rp, rtol=1e-5, atol=1e-5)
+
+
+def _vae_case(kind, device, rng, n=24):
+    """A VAE family at the latent loops' widths (chip_smoke phase n) and its
+    training data: pest control's categorical VAE (25 columns × 5 codes,
+    latent 4), the topology VAE at 40 × 40 (latent 8) and chem's sequence
+    VAE (16 tokens, length 24, latent 8)."""
+    from hebo_tpu_torch.latent import decoders, vae
+
+    if kind == "vae":
+        model, lat = vae.VAE(4, 25, 64, (5,) * 25, device=device), 4
+        X = rng.integers(0, 5, (n, 25)).astype(np.float32)
+        train = vae.train_vae
+    elif kind == "topology":
+        model, lat = decoders.TopologyVAE(8, (40, 40), device=device), 8
+        X = (rng.random((n, 40, 40, 1)) < 0.3).astype(np.float32)
+        train = decoders.train_topology_vae
+    else:
+        model, lat = decoders.SeqVAE(16, 24, 8, device=device), 8
+        X = rng.integers(0, 16, (n, 24)).astype(np.int32)
+        train = decoders.train_seq_vae
+    y = X.reshape(n, -1).mean(1, keepdims=True).astype(np.float32)
+    w = vae.rank_weights(y[:, 0]).astype(np.float32)
+    return model, train, X, y, w, rng.standard_normal((3, n, lat)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vae", "topology", "seq"])
+def test_vae_train_steps_on_card_equal_cpu(cuda, kind):
+    """Three ``train_*`` Adam steps on the card from the CPU's initial
+    weights with the same fed normals: the float32 losses within 1e-5
+    (relative), and in float64 every parameter within 1e-4 of its tensor's
+    largest |value|.  (In float32, Adam's per-element step g / (√v + ε)
+    turns the rounding of a gradient that cancels to ~ε into steps of
+    different sizes: the sequence VAE's encoder GRU input weights, ~5e-9.)"""
+    from hebo_tpu_torch.latent.vae import init_params
+
+    cpu, train, X, y, w, noise = _vae_case(kind, "cpu", np.random.default_rng(5))
+    card = _vae_case(kind, cuda, np.random.default_rng(5))[0]
+    p0 = init_params(cpu)
+    _, lc = train(cpu, p0, X, y, w, n_steps=3, noise=noise)
+    _, lg = train(card, {k: v.to(cuda) for k, v in p0.items()}, X, y, w, n_steps=3, noise=noise)
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    p64 = {k: v.double() for k, v in p0.items()}
+    pc, _ = train(cpu, p64, X, y, w, n_steps=3, noise=noise)
+    pg, _ = train(card, {k: v.to(cuda) for k, v in p64.items()}, X, y, w, n_steps=3, noise=noise)
+    assert set(pg) == set(pc)
+    for k, v in pc.items():
+        torch.testing.assert_close(pg[k].cpu(), v, rtol=0, atol=1e-4 * v.abs().max().item())

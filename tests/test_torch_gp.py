@@ -29,6 +29,16 @@ from hebo_tpu_torch.ops import chol as tchol
 N_OBS, N_PAD = 13, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cores(**kw):
     args = dict(numeric_dims=(0, 1, 2), cat_dims=(3,), num_categories=(3,), n_steps=8, **kw)
     return JCore(**args), GPCore(**args)

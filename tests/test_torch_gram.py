@@ -34,6 +34,16 @@ from hebo_tpu_torch.ops.gram import (
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, N, M, D, duplicate=False):
     rng = np.random.default_rng(seed)
     x1 = rng.standard_normal((N, D)).astype(np.float32)

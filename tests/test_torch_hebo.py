@@ -9,6 +9,8 @@ de-duplicated against the history.
 
 import numpy as np
 import pandas as pd
+import pytest
+import torch
 
 from hebo_tpu.design_space import DesignSpace as JSpace
 from hebo_tpu.optimizers.hebo import HEBO as JHEBO
@@ -23,6 +25,16 @@ SPECS = [
     {"name": "c", "type": "cat", "categories": ["a", "b", "c"]},
 ]
 SMALL = dict(pop=20, iters=5, model_config={"num_epochs": 8})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _f(df):

@@ -40,6 +40,16 @@ SPECS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_pad_bucket_matches():
     for n in list(range(1, 2100, 7)) + [2048, 2049, 4000]:
         assert pad_bucket(n) == jpad(n)

@@ -36,6 +36,16 @@ from hebo_tpu_torch.ops.chol_kernel import (
 from hebo_tpu_torch.ops.gram import matern32_gram
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spd(rng, B, N):
     A = rng.normal(size=(B, N, N)).astype(np.float32)
     return A @ np.transpose(A, (0, 2, 1)) / N + 0.5 * np.eye(N, dtype=np.float32)

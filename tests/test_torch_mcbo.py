@@ -51,6 +51,16 @@ N_OBS, N_PAD = 13, 16
 T = torch.as_tensor
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _quick_jax_compiles():
     """The file's time is the JAX package's compiles: they run at XLA's

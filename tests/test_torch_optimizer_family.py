@@ -52,6 +52,16 @@ CONT = [{"name": "x0", "type": "num", "lb": -3, "ub": 3},
 SMALL = {"model_config": {"num_epochs": 10}, "pop": 16, "iters": 8}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _quick_jax_compiles():
     """The JAX package's compiles at XLA's lowest backend optimization

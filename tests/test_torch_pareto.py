@@ -17,6 +17,16 @@ from hebo_tpu.ops import pareto as jpar
 from hebo_tpu_torch.ops import pareto as tpar
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _objectives(P, M, levels, edge, seed):
     rng = np.random.default_rng(seed)
     F = (rng.integers(0, levels, (P, M)) / levels).astype(np.float32)

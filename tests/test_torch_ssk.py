@@ -27,6 +27,16 @@ from hebo_tpu_torch.ops import ssk
 DECAYS = [(0.6, 0.7), (0.4, 0.85)]  # a batch of two (match, gap) parameter sets
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The many small ops here run no faster on more threads, and the
+    test run's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _codes(n, L, V, seed):
     return np.random.default_rng(seed).integers(0, V, (n, L)).astype(np.int32)
 
