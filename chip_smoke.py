@@ -247,7 +247,39 @@
    ``RNAInverseFoldTask``, ``LPSolveTask``, ``NASBenchTask``,
    ``RobotPushTask`` and a ``CorruptedTask``, each finite of shape (1, 1).
    Every shape launched is held against its plain version.
-14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+14. Drives the config tree and the experiment runner (phase p, with the
+   counts reset before it): ``BOExperiments(from_string("hebo"), Ackley-6D)``
+   at HEBO's defaults and ``BOExperiments(from_string("gp_to__is__ei__basic"),
+   pest control 25 × 5)`` (its trust region), batch 8 with a checkpoint
+   after every round, to 48 evaluations; a second ``BOExperiments`` in the
+   same directory resumes to 64 and its first batch must equal the
+   uninterrupted optimizer's suggestion at 48 (on the card the resumed HEBO
+   captures a fresh graph where the uninterrupted one replays its own);
+   every name of ``config._SIMPLE_OPTIMIZERS`` builds through
+   ``OptimizerConfig.build`` and suggests once.  Seconds per suggest, per
+   save and per load and the CSV's rows are printed; K2, its VJP, K1a, K1b
+   and K5 must launch, and every shape launched is held against its plain
+   version.
+15. Drives the RL subprojects (phase q): SAC at its defaults on ``Pendulum``
+   with tests/test_rl.py's loop (6 × (150 environment steps, 60 updates of
+   batch 128)), ``GuidedSAC`` for 60 updates, ``SauteWrapper(PointGoal())``
+   for a 100-step episode with ``SimmerController``, ``DynamicsEnsemble`` at
+   its defaults on SAC's transitions and ``pessimistic_rollout`` (horizon 5,
+   256 starts) at β 2 and 0.  Every value must be finite, λ decayed, the
+   Sauté budget below 1 and the β-2 return at most the β-0 return + 0.1;
+   one SAC update and one guided update equal the CPU's from the same state
+   and normals (float32: parameters, targets and log α within 1e-5 of each
+   tensor's largest |value|, Adam's moments 1e-4).
+16. Drives SparsePO (phase r): ``TinyLM`` at its defaults (vocab 32) on 256
+   preference pairs of 64 tokens, ``train_sparse_po`` at its defaults for
+   each mask mode: the loss must fall, the accuracy exceed 0.8 (``learned``)
+   or 0.6, the mask means stay in (0, 1); the trained forward pass within
+   the CPU's largest |value| × 1e-5 (logits, the learned masks) or × 2e-4
+   (the MaPO statistic, a z-norm of the hidden norms), and three
+   steps with fed indices: the float32 losses within 1e-5 and, in float64,
+   every parameter within 1e-8 of max(its tensor's largest |value|, lr).
+   Phases q and r launch none of the port's kernels.
+17. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -270,6 +302,18 @@ FP32_PEAK = 67e12  # H100 SXM, FLOP/s outside the tensor cores (data sheet, 700 
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
 GRAM_TOL, VJP_TOL, L_TOL, W_TOL = 1e-5, 1e-4, 1e-4, 1e-3
 SSK_RAW_TOL, SSK_TAN_TOL, SSK_K_TOL = 1e-5, 1e-4, 1e-5
+# phases q and r, card against CPU in float32, relative to each tensor's
+# largest |value|: SAC's parameters, targets and log α, its Adam moments;
+# TinyLM's logits and learned masks, and the MaPO statistic, whose z-norm
+# divides the hidden norms' float32 rounding by their spread across tokens
+# (~1 % of the norm at the trained weights: 3.3e-5 and 4.7e-5 measured on
+# the card, then 2.5e-5 to 6.0e-5 over eight readings); after three float32
+# DPO steps, the share of TinyLM's parameter elements (leaves whose float64
+# gradient is at most PO_ZERO_GRAD of the largest left out) further apart
+# than PO_STEP_TOL of max(|p|, 1e-3) (the worst element 4.8e-5 on the
+# card: Adam amplifies the rounding of a gradient that cancels)
+SAC_TOL, SAC_MOMENT_TOL, PO_FWD_TOL, PO_ACT_TOL = 1e-5, 1e-4, 1e-5, 2e-4
+PO_STEP_TOL, PO_STEP_SHARE, PO_ZERO_GRAD = 1e-5, 1e-3, 1e-10
 # phase i's shapes, timed with the others: K2 and its VJP at the fits
 # (bucket 256; D 3 for the transformed-overlap GP on Ackley-53, 19 for the
 # HED GP) and the descents' query sets (8 interleaved starts, 16 bandit
@@ -300,6 +344,10 @@ MESH_K1 = {"chol_factor": {(1, 128), (1, 64), (16, 24)}, "chol_winv": {(1, 3072)
 LATENT_GRAM_SHAPES = [(1, 32, 32, 4), (1, 32, 48, 4), (1, 32, 32, 8), (1, 16, 32, 8),
                       (1, 256, 256, 8), (1, 256, 64, 8), (1, 8, 8, 3), (1, 8, 48, 3)]
 LATENT_VJP_SHAPES = [(1, 32, 32, 4), (1, 32, 32, 8), (1, 256, 256, 8), (1, 8, 8, 3)]
+# phase p: HEBO's fused suggest at the campaign's smallest and largest
+# buckets (8 and 64: fit, NSGA-II's predict); K1 at their fits (2, 8), (2, 64)
+EXPERIMENT_GRAM_SHAPES = [(2, 8, 8, 6), (2, 64, 64, 6), (1, 64, 100, 6)]
+EXPERIMENT_VJP_SHAPES = [(2, 8, 8, 6), (2, 64, 64, 6)]
 # phase o: BOiLS on BoilsTask, 8 positions over 3 operators (the register route)
 TASK_SSK_CASES = [(1, 32, 32, 8, 3, [(0.6, 0.7)]), (1, 32, 17, 8, 3, [(0.6, 0.7)])]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
@@ -334,7 +382,8 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
     particles); the Thompson draws' cross Gram (1, 1024, 512, 6) and joint
     Gram (1, 512, 512, 6); phase i's (``MCBO_GRAM_SHAPES``), phase j's
     (``FAMILY_GRAM_SHAPES``), phase k's (``VARIANT_GRAM_SHAPES``) and
-    phases n and o's (``LATENT_GRAM_SHAPES``)."""
+    phases n and o's (``LATENT_GRAM_SHAPES``) and phase p's
+    (``EXPERIMENT_GRAM_SHAPES``)."""
     rows = []
     for B, N, M, D in [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (1, 1024, 100, 6),
                        (2, 128, 128, 6), (1, 128, 128, 6), (1, 128, 100, 6),
@@ -342,7 +391,7 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
                        (1, 3072, 128, 6), (1, 7168, 7168, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6), (1, 512, 512, 6),
                        (4, 128, 128, 6), (1, 1024, 512, 6)] + MCBO_GRAM_SHAPES + FAMILY_GRAM_SHAPES \
-            + VARIANT_GRAM_SHAPES + LATENT_GRAM_SHAPES:
+            + VARIANT_GRAM_SHAPES + LATENT_GRAM_SHAPES + EXPERIMENT_GRAM_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -373,8 +422,9 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     128 and the large-N route's subsample bucket 2048, and the samplers' (4
     and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
     D 3 and 19, and the descents' query shapes), phase j's
-    (``FAMILY_VJP_SHAPES``), phase k's (``VARIANT_VJP_SHAPES``) and phases n
-    and o's (``LATENT_VJP_SHAPES``), on random points and on a
+    (``FAMILY_VJP_SHAPES``), phase k's (``VARIANT_VJP_SHAPES``), phases n
+    and o's (``LATENT_VJP_SHAPES``) and phase p's
+    (``EXPERIMENT_VJP_SHAPES``), on random points and on a
     self-Gram with coincident rows (repeated rows and the zero rows of a
     padded bucket); twice on the same inputs, which must give the same
     bits.  The self-Gram's points are scaled by √(6/D) above D = 6, so
@@ -387,7 +437,7 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
                        (4, 1024, 1024, 6), (32, 1024, 1024, 6),
                        (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES + VARIANT_VJP_SHAPES \
-            + LATENT_VJP_SHAPES:
+            + LATENT_VJP_SHAPES + EXPERIMENT_VJP_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -436,13 +486,13 @@ def check_chol(torch, ck, dev, gen, fails):
     structure learner (24, 256); NAP's meta-training tasks (16, 32); phase
     m's block factor at block 64 (1, 64), W of the gathered factor
     (1, 3072) and PPO's tasks (16, 24); phases n and o's small fits (1, 16)
-    and (1, 8).  Host
+    and (1, 8); phase p's HEBO fits at buckets 8 and 64, (2, 8) and (2, 64).  Host
     dispatch is part of the time at the small shapes, for the kernels and
     the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
-                 (1, 3072), (1, 16), (1, 8), (16, 24)]:  # a batch last: the NaN case below
+                 (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (16, 24)]:  # a batch last: the NaN case below
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L0, Wd0 = ck.chol_factor_plain(K)
@@ -2432,6 +2482,385 @@ def tasks_phase(torch, DesignSpace, wrappers, fails):
     return dict(rows=rows, shapes=seen)
 
 
+# ---------------------------------------------------------------- phase p
+def _timed(fn, log, key, sync):
+    """``fn`` wrapped to append each call's wall seconds to ``log[key]``."""
+    def wrapped(*a, **k):
+        t0 = time.time()
+        out = fn(*a, **k)
+        sync()
+        log.setdefault(key, []).append(time.time() - t0)
+        return out
+    return wrapped
+
+
+def busy(fn):
+    """``fn()`` once under torch.profiler (``bench/profile_suggest``'s
+    ``_device_profile``): its wall, device kernel seconds, busy share and
+    launches."""
+    from hebo_tpu_torch.bench.profile_suggest import _device_profile
+
+    p = _device_profile(fn)
+    return {k: p[k] for k in ("profiled_wall_s", "device_kernel_s", "device_busy_share", "kernel_launches",
+                              "host_kernel_launches", "graph_launches")}
+
+
+def experiment_phase(torch, wrappers, fails):
+    """Phase p: the config tree and the experiment runner on the card.
+    ``BOExperiments`` runs HEBO (``from_string("hebo")``, its defaults) on
+    Ackley-6D and the BoBuilder string ``gp_to__is__ei__basic`` (its trust
+    region) on pest control 25 × 5, batch 8 with a checkpoint after every
+    round, to 48 evaluations; a second ``BOExperiments`` in the same
+    directory resumes to 64, and its first batch must equal the
+    uninterrupted optimizer's at 48.  Then every simple name builds through
+    ``OptimizerConfig.build`` and suggests once.  Returns the rows and the
+    shapes the kernels were launched at."""
+    import tempfile
+
+    from hebo_tpu_torch.config import _SIMPLE_OPTIMIZERS, from_string
+    from hebo_tpu_torch.tasks import Ackley, PestControlTask
+    from hebo_tpu_torch.utils import checkpoint, experiment
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    batch, stop, end = 8, 48, 64
+    rows, shapes = {}, ShapeLog()
+    saved = experiment.save_optimizer, checkpoint.load_optimizer
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            cases = (("p1 HEBO Ackley-6D", from_string("hebo"), Ackley()),
+                     ("p2 gp_to__is__ei__basic pest 25x5", from_string("gp_to__is__ei__basic"),
+                      PestControlTask(n_stations=25)))
+            for name, cfg, task in cases:
+                io = {}
+                experiment.save_optimizer = _timed(saved[0], io, "save_s", sync)
+                checkpoint.load_optimizer = _timed(saved[1], io, "load_s", sync)
+                sub = str(Path(d) / name.split()[0])
+                before = {k: w.launches for k, w in wrappers.items()}
+                exp = experiment.BOExperiments(cfg, task, save_dir=sub, device=dev)
+                exp.optimizer.suggest = _timed(exp.optimizer.suggest, io, "s_per_suggest", sync)
+                log1 = exp.run(max_evals=stop, batch=batch)
+                uninterrupted = exp.optimizer.suggest(batch)
+                exp2 = experiment.BOExperiments(cfg, task, save_dir=sub, device=dev)
+                recs, suggest = [], exp2.optimizer.suggest
+                exp2.optimizer.suggest = lambda n, *a, **k: recs.append(suggest(n, *a, **k)) or recs[-1]
+                exp2.optimizer.suggest = _timed(exp2.optimizer.suggest, io, "s_per_suggest_resumed", sync)
+                log2 = exp2.run(max_evals=end, batch=batch, resume=True)
+                csv_rows = len(pd.read_csv(Path(sub) / "results.csv"))
+                same = bool(recs) and recs[0].equals(uninterrupted)
+                ys = np.array([r["y"] for r in log1.rows + log2.rows])
+                opt = exp2.optimizer
+                prof = busy(lambda: opt.suggest(batch))
+                rows[name] = dict(io, resumed_first_batch_equals_uninterrupted=same, csv_rows=csv_rows,
+                                  profiled_suggest=prof,
+                                  n_obs=opt.num_obs, best=opt.best_y, launches={
+                                      k: w.launches - before[k] for k, w in wrappers.items()
+                                      if w.launches > before[k]},
+                                  tr=None if not hasattr(getattr(opt, "tr_manager", None), "radius") else dict(
+                                      radius=opt.tr_manager.radius, fail_count=opt.tr_manager.fail_count,
+                                      succ_count=opt.tr_manager.succ_count,
+                                      center_set=opt.tr_manager.center is not None))
+                if not same:
+                    fails.append(f"phase {name}: the resumed optimizer's first batch differs from the "
+                                 "uninterrupted optimizer's at the same observations")
+                if not (len(log1.rows) == stop and len(log2.rows) == end - stop and opt.num_obs == end
+                        and csv_rows == end - stop and np.isfinite(ys).all()):
+                    fails.append(f"phase {name}: {len(log1.rows)} + {len(log2.rows)} evaluations, "
+                                 f"{opt.num_obs} observed, {csv_rows} CSV rows, finite {np.isfinite(ys).all()}")
+                X = task.space.transform(opt.X)
+                if not (np.isfinite(X).all() and (X >= task.space.opt_lb).all() and (X <= task.space.opt_ub).all()):
+                    fails.append(f"phase {name}: a suggestion lies outside the space")
+            experiment.save_optimizer, checkpoint.load_optimizer = saved
+            space = Ackley().space
+            built = {}
+            for n in sorted(_SIMPLE_OPTIMIZERS):
+                t0 = time.time()
+                opt = from_string(n).build(space, device=dev)
+                rec = opt.suggest() if n in ("cmaes", "evolution") else opt.suggest(8)
+                sync()
+                built[n] = dict(cls=type(opt).__name__, s=time.time() - t0, rows=len(rec))
+                if not (len(rec) >= 1 and np.isfinite(opt.space.transform(rec)).all()):
+                    fails.append(f"phase p3 {n}: its first suggestion is not finite")
+                if getattr(opt, "device", torch.device(dev)).type != torch.device(dev).type:
+                    fails.append(f"phase p3 {n}: built on {opt.device}, not {dev}")
+            rows["p3 every simple name, build + one suggest"] = built
+        for name, row in rows.items():
+            print(f"phase {name}:", json.dumps(row), flush=True)
+    finally:
+        experiment.save_optimizer, checkpoint.load_optimizer = saved
+        shapes.close()
+    seen = {k: sorted(v) for k, v in shapes.seen.items()}
+    print("phase p shapes launched:", json.dumps(seen), flush=True)
+    return dict(rows=rows, shapes=seen)
+
+
+# ---------------------------------------------------------------- phase q
+def _max_rel(a: dict, b: dict):
+    """The largest |a − b| over each tensor's largest |b|, by key."""
+    return max(((a[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-30)).item() for k, v in b.items())
+
+
+def sac_states_err(x, y):
+    """Parameters, targets and log α; Adam's moments apart."""
+    p = max(_max_rel(getattr(x, f), getattr(y, f)) for f in ("actor", "q1", "q2", "q1_targ", "q2_targ"))
+    p = max(p, (x.log_alpha.cpu() - y.log_alpha).abs().item() / max(abs(y.log_alpha.item()), 1e-30))
+    m = max(max(_max_rel(getattr(x, f).mu, getattr(y, f).mu), _max_rel(getattr(x, f).nu, getattr(y, f).nu))
+            for f in ("opt_actor", "opt_q", "opt_alpha"))
+    return p, m
+
+
+def _to(state, dev):
+    from hebo_tpu_torch.rl.sac import AdamState
+
+    mv = lambda d: {k: v.to(dev) for k, v in d.items()}
+    return state._replace(**{f: mv(getattr(state, f)) for f in ("actor", "q1", "q2", "q1_targ", "q2_targ")},
+                          log_alpha=state.log_alpha.to(dev),
+                          **{f: AdamState(getattr(state, f).count, mv(getattr(state, f).mu), mv(getattr(state, f).nu))
+                             for f in ("opt_actor", "opt_q", "opt_alpha")})
+
+
+def rl_phase(torch, fails):
+    """Phase q: SAC at its defaults (hidden 64, lr 3e-4, γ 0.99, τ 0.005)
+    on ``Pendulum`` with tests/test_rl.py's loop (6 cycles of 150
+    environment steps and 60 updates of batch 128), ``GuidedSAC`` for 60
+    updates, ``SauteWrapper(PointGoal())`` for a 100-step episode with
+    ``SimmerController`` updated from its cost, ``DynamicsEnsemble`` at its
+    defaults (5 members, hidden 64, 200 epochs) fitted on SAC's transitions
+    and ``pessimistic_rollout`` (horizon 5, 256 starts) at β 2 and β 0; then
+    one SAC update and one guided update on the card and on the CPU from the
+    same state with the same normals."""
+    from hebo_tpu_torch.rl import (SAC, DynamicsEnsemble, GuidedSAC, Pendulum, PointGoal, ReplayBuffer,
+                                   SauteWrapper, SimmerController, pessimistic_rollout)
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    cycles, n_env, n_upd, B = 6, 150, 60, 128
+    row = {}
+    env = Pendulum(device=dev)
+    sac = SAC(3, 1, 2.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = sac.init(gen)
+    buf = ReplayBuffer(3, 1, 20_000)
+    rng = np.random.default_rng(0)
+
+    def eval_return(state, n=100):
+        s, obs = env.reset(u=0.3)
+        total = torch.zeros((), device=dev)
+        for _ in range(n):
+            s, obs, r, _, _ = env.step(s, sac.act(state, obs[None], deterministic=True)[0])
+            total = total + r
+        return float(total)
+
+    r0 = eval_return(state)
+    env_s, upd_s = 0.0, 0.0
+    for it in range(cycles):
+        t0 = time.time()
+        s, obs = env.reset(gen)
+        for _ in range(n_env):
+            a = sac.act(state, obs[None], gen)[0]
+            s, nobs, r, c, d = env.step(s, a)
+            buf.add(obs.cpu().numpy(), a.cpu().numpy(), float(r), nobs.cpu().numpy(), float(d), float(c))
+            obs = nobs
+        env_s += time.time() - t0
+        t0 = time.time()
+        for _ in range(n_upd):
+            state = sac.update(state, buf.sample(rng, B), generator=gen)
+        sync()
+        upd_s += time.time() - t0
+    r1 = eval_return(state)
+    prof = busy(lambda: [sac.update(state, buf.sample(rng, B), generator=gen) for _ in range(10)])
+    leaves = [v for f in ("actor", "q1", "q2") for v in getattr(state, f).values()] + [state.log_alpha]
+    finite = all(bool(torch.isfinite(v).all()) for v in leaves)
+    row["q1 SAC Pendulum"] = dict(return_before=r0, return_after=r1, s_per_env_step=env_s / (cycles * n_env),
+                                  s_per_update=upd_s / (cycles * n_upd), alpha=math.exp(state.log_alpha.item()),
+                                  transitions=buf.n, profiled_10_updates=prof)
+    if not (finite and math.isfinite(r1)):
+        fails.append(f"phase q1 SAC: non-finite weights or return ({r1})")
+
+    guide = lambda o: -0.5 * o[..., 2:3]  # damp the angular velocity
+    region = lambda o: (o[..., 0] < 0).to(o.dtype)  # the lower half circle
+    gsac = GuidedSAC(3, 1, guide, region, act_limit=2.0, device=dev)
+    gstate = gsac.init(gen)
+    t0 = time.time()
+    for _ in range(n_upd):
+        gstate = gsac.update(gstate, buf.sample(rng, B), generator=gen)
+    sync()
+    a = gsac.act(gstate, torch.as_tensor(buf.obs[:B], device=dev), gen)
+    row["q2 GuidedSAC"] = dict(s_per_update=(time.time() - t0) / n_upd, lam=gsac.lam,
+                               actor_count=gstate.opt_actor.count)
+    if not (gsac.lam < 1.0 and bool(torch.isfinite(a).all())
+            and all(bool(torch.isfinite(v).all()) for v in gstate.actor.values())):
+        fails.append(f"phase q2 GuidedSAC: λ {gsac.lam} did not decay or a value is not finite")
+
+    saute = SauteWrapper(PointGoal(device=dev))
+    ctl = SimmerController(target_cost=1.0, budget_min=0.5, budget_max=5.0)
+    (s, z), obs = saute.reset(gen)
+    ep_cost, rew = torch.zeros((), device=dev), torch.zeros((), device=dev)
+    t0 = time.time()
+    act = torch.tensor([0.7, 0.7], device=dev)  # through the hazard towards the goal
+    for _ in range(100):
+        (s, z), obs, r, c, d = saute.step((s, z), act)
+        ep_cost, rew = ep_cost + c, rew + r
+    sync()
+    budget = ctl.update(float(ep_cost))
+    row["q3 Saute PointGoal + Simmer"] = dict(s_per_env_step=(time.time() - t0) / 100, episode_cost=float(ep_cost),
+                                              z_final=float(z), episode_reward=float(rew), simmer_budget=budget)
+    if not (float(z) < 1.0 and math.isfinite(float(rew)) and math.isfinite(budget)):
+        fails.append(f"phase q3 Sauté: budget z {float(z)} did not fall below 1, or a value is not finite")
+
+    n = buf.n
+    O, A, R, NO = buf.obs[:n], buf.act[:n], buf.rew[:n], buf.nobs[:n]
+    ens = DynamicsEnsemble(3, 1, device=dev)
+    t0 = time.time()
+    ens.fit(O, A, NO, R, generator=gen)
+    sync()
+    fit_s = time.time() - t0
+    nxt, rw = ens.predict_members(torch.as_tensor(O[:256], device=dev), torch.as_tensor(A[:256], device=dev))
+    mse = float(((nxt.mean(0) - torch.as_tensor(NO[:256], device=dev)) ** 2).mean())
+    policy = lambda o, g: sac.act(state, o, g)
+    obs0 = torch.as_tensor(O[rng.choice(n, min(256, n), replace=False)], device=dev)
+    t0 = time.time()
+    ro = {beta: pessimistic_rollout(ens, policy, obs0, horizon=5, beta=beta,
+                                    generator=torch.Generator(device=dev).manual_seed(1))
+          for beta in (2.0, 0.0)}
+    sync()
+    r_pess, r_mean = float(ro[2.0][2].mean()), float(ro[0.0][2].mean())
+    row["q4 PMDB"] = dict(fit_s=fit_s, rollout_s=(time.time() - t0) / 2, transitions=n, member_mean_mse=mse,
+                          return_beta2=r_pess, return_beta0=r_mean)
+    if not (all(bool(torch.isfinite(t).all()) for r in ro.values() for t in r) and math.isfinite(mse)):
+        fails.append("phase q4 PMDB: a rollout or prediction is not finite")
+    if not r_pess <= r_mean + 0.1:
+        fails.append(f"phase q4 PMDB: the β-2 return {r_pess} exceeds the β-0 return {r_mean} + 0.1")
+
+    # one update of each kind from the trained states, on the card and on
+    # the CPU, with the same batch and normals (float32)
+    batch = buf.sample(rng, B)
+    eps = tuple(rng.standard_normal((B, 1)).astype(np.float32) for _ in range(2))
+    errs = {}
+    for what, agent, st in (("sac", sac, state), ("guided", gsac, gstate)):
+        cpu = (SAC(3, 1, 2.0, device="cpu") if what == "sac" else
+               GuidedSAC(3, 1, guide, region, act_limit=2.0, device="cpu"))
+        cpu.lam = getattr(agent, "lam", None)
+        got = agent.update(st, batch, eps=eps)
+        want = cpu.update(_to(st, "cpu"), batch, eps=eps)
+        errs[what] = dict(zip(("params_rel_err", "moments_rel_err"), sac_states_err(got, want)))
+        if not (errs[what]["params_rel_err"] <= SAC_TOL and errs[what]["moments_rel_err"] <= SAC_MOMENT_TOL):
+            fails.append(f"phase q {what} update: card against CPU {errs[what]}")
+    row["q5 one update, card against CPU (float32)"] = errs
+    for name, r in row.items():
+        print(f"phase {name}:", json.dumps(r), flush=True)
+    return row
+
+
+# ---------------------------------------------------------------- phase r
+def sparse_po_phase(torch, fails):
+    """Phase r: ``TinyLM`` at its defaults (d_model 64, 4 heads, 2 layers,
+    max_len 64), vocab 32, on 256 preference pairs of 64 tokens;
+    ``train_sparse_po`` at its defaults (150 steps, batch 16, lr 1e-3, β
+    0.5, mask_l1 0.05) for each mask mode; then the forward pass of the
+    trained ``learned`` weights and three training steps with fed indices
+    on the card and on the CPU."""
+    from torch.func import functional_call
+
+    from hebo_tpu_torch.po import (TinyLM, make_pref_data, preference_accuracy, sparse_dpo_loss,
+                                   train_sparse_po)
+
+    dev, sync = "cuda", torch.cuda.synchronize
+    n_pairs, T, steps = 256, 64, 150
+    chosen, rejected = make_pref_data(n_pairs, T, 32, generator=torch.Generator(device=dev).manual_seed(0),
+                                      device=dev)
+    rows, trained = {}, {}
+    for mode in ("learned", "all_layers", "activation", "common"):
+        model = TinyLM(32, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        sync()
+        t0 = time.time()
+        params, info = train_sparse_po(model, chosen, rejected, n_steps=steps, mask_mode=mode,
+                                       generator=torch.Generator(device=dev).manual_seed(1))
+        sync()
+        wall = time.time() - t0
+        acc = preference_accuracy(model, params, info["ref_params"], chosen, rejected, mask_mode=mode)
+        loss, mm = info["loss"], info["mask_mean"]
+        rows[mode] = dict(s_per_step=wall / steps, accuracy=acc, loss_first10=float(loss[:10].mean()),
+                          loss_last10=float(loss[-10:].mean()), mask_mean_last=float(mm[-1]))
+        trained[mode] = (model, params)
+        ok = (np.isfinite(loss).all() and loss[-10:].mean() < loss[:10].mean()
+              and ((mm > 0) & (mm < 1)).all())
+        if not (ok and acc > (0.8 if mode == "learned" else 0.6)):
+            fails.append(f"phase r {mode}: {rows[mode]}")
+    model = TinyLM(32, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    rows["profiled_10_steps_learned"] = busy(
+        lambda: train_sparse_po(model, chosen, rejected, n_steps=10,
+                                generator=torch.Generator(device=dev).manual_seed(1)))
+    out = {"r1 train_sparse_po by mask mode": rows}
+
+    # the forward pass of every mode's trained weights on two token batches,
+    # on the card and on the CPU (float32)
+    cpu = TinyLM(32, device="cpu")
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    fwd, mapo = {}, []
+    for mode, (model, params) in trained.items():
+        for lo in (0, 4):
+            tok = torch.cat([chosen[lo:lo + 4], rejected[lo:lo + 4]])
+            with torch.no_grad():
+                lg, mg = functional_call(model, params, (tok,))
+                lc, mc = functional_call(cpu, {k: v.cpu() for k, v in params.items()}, (tok.cpu(),))
+            for k, e in dict(logits=rel(lg, lc), **{k: rel(mg[k], mc[k]) for k in mc}).items():
+                if k == "activation":
+                    mapo.append(e)
+                else:
+                    fwd[k] = max(fwd.get(k, 0.0), e)
+    if not (max(fwd.values()) <= PO_FWD_TOL and max(mapo) <= PO_ACT_TOL):
+        fails.append(f"phase r forward: card against CPU {fwd}, MaPO statistic {mapo}")
+    # three training steps of the trained ``learned`` weights with fed
+    # indices, two index sets.  float64: every parameter within 1e-8 of
+    # max(|p|, 1e-3).  float32: Adam scales each element's step to about lr
+    # whatever its gradient's size, so an element whose gradient cancels to
+    # its rounding takes a different step on each side.  So every element
+    # stays within Adam's bound (2 × 1.06 lr a step: |m̂| ≤ 1.06 √v̂ in three
+    # steps), and at most PO_STEP_SHARE of the elements exceed PO_STEP_TOL,
+    # the share counted without the leaves whose gradient is zero up to
+    # rounding (the CPU's float64 gradient at the first step at most
+    # PO_ZERO_GRAD of the largest leaf's: the attention key biases, to which
+    # the softmax is invariant, step on rounding alone).
+    _, params = trained["learned"]
+    m64 = TinyLM(32, device="cpu").to(torch.float64)
+    steps_err = []
+    for seed in (2, 3):
+        idx = np.random.default_rng(seed).integers(0, n_pairs, (3, 16))
+        p64 = {k: v.detach().cpu().double().requires_grad_(True) for k, v in params.items()}
+        loss0, _ = sparse_dpo_loss(m64, p64, {k: v.detach() for k, v in p64.items()},
+                                   chosen[idx[0]].cpu(), rejected[idx[0]].cpu())
+        g64 = dict(zip(p64, torch.autograd.grad(loss0, list(p64.values()), allow_unused=True)))
+        gmax = {k: None if g is None else g.abs().max().item() for k, g in g64.items()}
+        top = max(v for v in gmax.values() if v is not None)
+        rounding = sorted(k for k, v in gmax.items() if v is not None and v <= PO_ZERO_GRAD * top)
+        row = dict(idx_seed=seed, left_out={k: gmax[k] / top for k in rounding})
+        for dt in (torch.float32, torch.float64):
+            res = []
+            for d in (dev, "cpu"):
+                m = TinyLM(32, device=d).to(dt)
+                m.load_state_dict({k: v.to(d, dt) for k, v in params.items()})
+                res.append(train_sparse_po(m, chosen.to(d), rejected.to(d), n_steps=3, idx=idx))
+            (pg, ig), (pc, ic) = res
+            diff = {k: (pg[k].cpu() - v).abs() / v.abs().max().clamp(min=1e-3) for k, v in pc.items()}
+            held = [k for k in diff if k not in rounding]
+            row[str(dt)] = dict(
+                loss_rel_err=float(np.max(np.abs(ig["loss"] - ic["loss"]) / np.abs(ic["loss"]))),
+                params_rel_err=max(float(e.max()) for e in diff.values()),
+                max_abs_err=max(float((pg[k].cpu() - v).abs().max()) for k, v in pc.items()),
+                share_over_tol=(sum(int((diff[k] > PO_STEP_TOL).sum()) for k in held)
+                                / sum(diff[k].numel() for k in held)),
+                worst_held=max(held, key=lambda k: float(diff[k].max())),
+                worst_held_err=max(float(diff[k].max()) for k in held))
+        f32, f64 = row["torch.float32"], row["torch.float64"]
+        if not (f32["loss_rel_err"] <= 1e-5 and f32["share_over_tol"] <= PO_STEP_SHARE
+                and f32["max_abs_err"] <= 2 * 1.06 * 1e-3 * 3 and f64["params_rel_err"] <= 1e-8):
+            fails.append(f"phase r three steps: card against CPU {row}")
+        steps_err.append(row)
+    out["r2 card against CPU"] = dict(forward_rel_err=fwd, mapo_statistic_rel_err=mapo, three_steps=steps_err)
+    for name, r in out.items():
+        print(f"phase {name}:", json.dumps(r), flush=True)
+    return out
+
+
 def kernel_wrappers():
     """The kernels' wrappers, by name; each counts its launches."""
     from hebo_tpu_torch.ops import chol_kernel as ck
@@ -2531,8 +2960,16 @@ def main() -> int:
         "tasks": (lambda: tasks.update(tasks_phase(torch, DesignSpace, wrappers, fails)),
                   ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
                    "ssk_cross", "ssk_self", "nsga2_rank_crowd")),
+        "experiment": (lambda: experiment.update(experiment_phase(torch, wrappers, fails)),
+                       ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                        "nsga2_rank_crowd")),
+        # the RL and PO training loops run no kernel of the port (plain ops,
+        # as flax layers and jnp are in the JAX package)
+        "rl": (lambda: rl_phase(torch, fails), ()),
+        "sparse_po": (lambda: sparse_po_phase(torch, fails), ()),
     }
     mcbo, family, variants, families, mesh, latent, tasks = {}, {}, {}, {}, {}, {}, {}
+    experiment = {}
     by_path = {}
     for path, (drive, its_kernels) in paths.items():
         for w in wrappers.values():
@@ -2547,7 +2984,7 @@ def main() -> int:
         for k in its_kernels:
             if by_path[path][k] == 0:
                 fails.append(f"{k}: no launch on the {path} path")
-    for p in (mcbo, family, variants, families, mesh, latent, tasks):
+    for p in (mcbo, family, variants, families, mesh, latent, tasks, experiment):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
     vae_card_vs_cpu(torch, fails)
 

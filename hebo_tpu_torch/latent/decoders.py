@@ -18,8 +18,8 @@ port of ``hebo_tpu/latent/decoders.py``).
   EI in the latent box, decoded images out).
 
 ``train_topology_vae`` and ``train_seq_vae`` are ``n_steps`` Adam steps
-(``vae.adam_train``) with fed or drawn reparameterisation normals, on the
-device of the params.
+(``models.gp.tree.adam_train``) with fed or drawn reparameterisation
+normals, on the device of the params.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ from ..models import get_model
 from ..optimizers.base import timed
 from ..utils.device import resolve_device
 from ..utils.dtypes import pad_bucket
-from .vae import (_as, _device_of, _dtype_of, adam_train, flax_init, init_params, kl_term, metric_loss,
+from ..models.gp.tree import adam_train
+from .vae import (_as, _device_of, _dtype_of, flax_init, init_params, kl_term, metric_loss, normals,
                   rank_weights, sub_params)
 
 __all__ = [
@@ -152,7 +153,8 @@ def train_topology_vae(
         return (torch.mean(weights * (rec + beta * kl_term(mu, log_sigma)))
                 + metric_weight * metric_loss(mu, y, mask=mask))
 
-    return adam_train(params, loss_fn, n_steps, lr, noise, (len(X), model.latent_dim), generator)
+    return adam_train(params, loss_fn, n_steps, lr,
+                      normals(params, noise, (len(X), model.latent_dim), generator))
 
 
 def topology_encode(model: TopologyVAE, params: dict, X) -> np.ndarray:
@@ -299,7 +301,8 @@ def train_seq_vae(
         return (torch.mean(weights * (rec + beta * kl_term(mu, log_sigma)))
                 + metric_weight * metric_loss(mu, y, mask=mask))
 
-    return adam_train(params, loss_fn, n_steps, lr, noise, (len(tokens), model.latent_dim), generator)
+    return adam_train(params, loss_fn, n_steps, lr,
+                      normals(params, noise, (len(tokens), model.latent_dim), generator))
 
 
 def seq_encode(model: SeqVAE, params: dict, tokens) -> np.ndarray:

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..meta.nap import _Dense, _trunc_normal
-from ..models.gp.tree import adam_step
+from ..models.gp.tree import adam_train
 from ..utils.device import resolve_device
 
 __all__ = ["VAE", "train_vae", "rank_weights", "metric_loss"]
@@ -161,35 +161,17 @@ def kl_term(mu: torch.Tensor, log_sigma: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.sum(torch.exp(2 * log_sigma) + mu ** 2 - 1.0 - 2 * log_sigma, -1)
 
 
-def adam_train(params: dict, loss_fn: Callable, n_steps: int, lr: float,
-               noise: Optional[torch.Tensor], noise_shape: Tuple[int, ...],
-               generator: Optional[torch.Generator]):
-    """``n_steps`` Adam steps (optax's) of ``loss_fn(params, eps)``, where
-    step ``s``'s normals ``eps`` are ``noise[s]`` or a fresh draw of
-    ``noise_shape`` from ``generator`` (seeded with 0 when None).  Adam is
-    elementwise, so it steps all parameters as one flat vector (one
-    ``adam_step`` per step, not one per tensor: the categorical VAE has 62).
-    Returns (params, losses as numpy); the losses are read once, at the
-    end."""
+def normals(params: dict, noise: Optional[torch.Tensor], shape: Tuple[int, ...],
+            generator: Optional[torch.Generator]) -> Callable[[int], torch.Tensor]:
+    """Step ``s``'s reparameterisation normals for ``adam_train``:
+    ``noise[s]``, or a fresh draw of ``shape`` from ``generator`` (seeded
+    with 0 when None), in the params' float type and on their device."""
     dev, dt = _device_of(params), _dtype_of(params)
-    if noise is None and generator is None:
+    if noise is not None:
+        return lambda s: torch.as_tensor(noise[s], dtype=dt, device=dev)
+    if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    keys = list(params)
-    shapes, sizes = [params[k].shape for k in keys], [params[k].numel() for k in keys]
-    flat = torch.cat([params[k].detach().reshape(-1) for k in keys])
-    mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
-    unflat = lambda v: {k: t.view(sh) for k, t, sh in zip(keys, torch.split(v, sizes), shapes)}
-    losses = torch.empty((n_steps,), device=dev)
-    for s in range(n_steps):
-        eps = (torch.as_tensor(noise[s], dtype=dt, device=dev) if noise is not None
-               else torch.randn(noise_shape, generator=generator, dtype=dt, device=dev))
-        with torch.enable_grad():
-            cur = {k: t.detach().requires_grad_(True) for k, t in unflat(flat).items()}
-            loss = loss_fn(cur, eps)
-            grads = torch.autograd.grad(loss, list(cur.values()))
-        losses[s] = loss.detach()
-        flat, mu, nu = adam_step(flat, torch.cat([g.reshape(-1) for g in grads]), mu, nu, s + 1, lr)
-    return unflat(flat), losses.cpu().numpy()
+    return lambda s: torch.randn(shape, generator=generator, dtype=dt, device=dev)
 
 
 def _device_of(params: dict) -> torch.device:
@@ -248,4 +230,5 @@ def train_vae(
         elbo_term = torch.mean(weights * (rec + beta * kl_term(mu, log_sigma)))
         return elbo_term + metric_weight * metric_loss(mu, y, mask=metric_mask)
 
-    return adam_train(params, loss_fn, n_steps, lr, noise, (len(X), model.latent_dim), generator)
+    return adam_train(params, loss_fn, n_steps, lr,
+                      normals(params, noise, (len(X), model.latent_dim), generator))

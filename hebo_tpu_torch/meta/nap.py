@@ -54,15 +54,17 @@ def _trunc_normal(t: torch.Tensor, std: float, generator) -> torch.Tensor:
 
 
 class _Dense(nn.Linear):
-    """flax ``nn.Dense``: lecun-normal (truncated) kernel, zero bias, drawn
-    by ``reset`` from the model's generator (not at construction)."""
+    """flax ``nn.Dense``: lecun-normal (truncated) kernel, zero bias (none
+    with ``bias=False``), drawn by ``reset`` from the model's generator (not
+    at construction)."""
 
     def reset_parameters(self):
         pass
 
     def reset(self, generator):
         _trunc_normal(self.weight, 1.0 / math.sqrt(self.in_features), generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
 
 class _Embed(nn.Embedding):
@@ -88,14 +90,15 @@ class _LayerNorm(nn.Module):
 
 class _Attention(nn.Module):
     """flax ``MultiHeadDotProductAttention(num_heads, qkv_features=d)`` on
-    (h, h) with a key mask."""
+    (h, h) with a key mask ``key_ok`` (B, T) and / or a mask ``allowed``
+    broadcastable to (B, H, T, T) (a causal (T, T) one, say); True attends."""
 
     def __init__(self, d: int, n_heads: int, device=None):
         super().__init__()
         self.n_heads = n_heads
         self.query, self.key, self.value, self.out = (_Dense(d, d, device=device) for _ in range(4))
 
-    def forward(self, h, key_ok):
+    def forward(self, h, key_ok=None, allowed=None):
         B, T, d = h.shape
         H = self.n_heads
         hd = d // H
@@ -103,7 +106,10 @@ class _Attention(nn.Module):
         k = self.key(h).view(B, T, H, hd)
         v = self.value(h).view(B, T, H, hd)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        logits = logits.masked_fill(~key_ok[:, None, None, :], torch.finfo(logits.dtype).min)
+        if key_ok is not None:
+            logits = logits.masked_fill(~key_ok[:, None, None, :], torch.finfo(logits.dtype).min)
+        if allowed is not None:
+            logits = logits.masked_fill(~allowed, torch.finfo(logits.dtype).min)
         w = torch.softmax(logits, -1)
         return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, T, d))
 
@@ -117,8 +123,8 @@ class _Block(nn.Module):
         self.ff2 = _Dense(2 * d, d, device=device)
         self.ln2 = _LayerNorm(d, device)
 
-    def forward(self, h, key_ok):
-        h = self.ln1(h + self.attn(h, key_ok))
+    def forward(self, h, key_ok=None, allowed=None):
+        h = self.ln1(h + self.attn(h, key_ok, allowed))
         return self.ln2(h + self.ff2(F.gelu(self.ff1(h), approximate="tanh")))
 
 
@@ -274,9 +280,10 @@ def meta_train_np(model: TransformerNP, generator: Optional[torch.Generator] = N
 
 class _FlaxTree:
     """The leaves of a flax parameter tree (nested dicts of arrays, with or
-    without the top ``"params"`` level) by path, each to be taken once."""
+    without the top ``"params"`` level) by path, each to be taken once, as
+    ``dtype`` arrays."""
 
-    def __init__(self, flax_params):
+    def __init__(self, flax_params, dtype=np.float32):
         tree = flax_params.get("params", flax_params)
         self.leaves, self.used = {}, set()
 
@@ -285,7 +292,7 @@ class _FlaxTree:
                 for k, v in node.items():
                     walk(v, path + (k,))
             else:
-                self.leaves[path] = np.array(node, np.float32)
+                self.leaves[path] = np.array(node, dtype)
 
         walk(tree, ())
         self.top = {p[0] for p in self.leaves}

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .boosting import GBDT, Forest
 from .nn.deep_ensemble import DeepEnsemble, MLPParams
 from .nn.eac import EACEnsemble, EACParams
@@ -27,17 +28,19 @@ def _f32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
 
-def ensemble_from_jax(p, device="cpu"):
+def ensemble_from_jax(p, device="cuda"):
     """``MLPParams`` (w, b tuples) or ``GumbelParams`` (mlp, gate_logits)
     → the port's params of the same name on ``device``."""
+    device = resolve_device(device)
     if hasattr(p, "gate_logits"):
         return GumbelParams(mlp=ensemble_from_jax(p.mlp, device),
                             gate_logits=_f32(p.gate_logits, device))
     return MLPParams(tuple(_f32(w, device) for w in p.w), tuple(_f32(b, device) for b in p.b))
 
 
-def eac_from_jax(p, device="cpu") -> EACParams:
-    """``EACParams`` (emb, cell tuple, head_w, head_b) → the port's."""
+def eac_from_jax(p, device="cuda") -> EACParams:
+    """``EACParams`` (emb, cell tuple, head_w, head_b) → the port's on ``device``."""
+    device = resolve_device(device)
     return EACParams(emb=_f32(p.emb, device), cell=tuple(_f32(c, device) for c in p.cell),
                      head_w=_f32(p.head_w, device), head_b=_f32(p.head_b, device))
 

@@ -18,13 +18,14 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ...utils.device import resolve_device
 from .gp import GPCache, GPData, GPParams
 
 __all__ = ["params_from_jax", "data_from_jax", "cache_from_jax", "gp_from_jax", "svgp_from_jax",
            "model_from_jax"]
 
 
-def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
+def params_from_jax(d: Mapping[str, np.ndarray], device="cuda") -> GPParams:
     """``GPParams`` fields (``log_ls``, ``log_sc``, ``log_noise``, ``mean``,
     ``emb``, ``log_wa``, ``log_wb`` and, with heteroscedastic noise,
     ``noise_w``) → the port's batched ``GPParams``; a missing or ``None``
@@ -32,6 +33,7 @@ def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
 
     A stacked set (leading restart/sample axis, ``log_sc`` 1-D) keeps its
     axis; a single set (``log_sc`` 0-d) gets a batch axis of 1."""
+    device = resolve_device(device)
     single = np.ndim(d["log_sc"]) == 0
     leaves = []
     for f in GPParams._fields:
@@ -43,8 +45,9 @@ def params_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPParams:
     return GPParams(*leaves)
 
 
-def data_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPData:
+def data_from_jax(d: Mapping[str, np.ndarray], device="cuda") -> GPData:
     """``GPData`` fields → the port's ``GPData`` on ``device``."""
+    device = resolve_device(device)
     f32 = lambda k: torch.as_tensor(np.array(d[k], dtype=np.float32), device=device)
     return GPData(
         X=f32("X"), y=f32("y"),
@@ -53,9 +56,10 @@ def data_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPData:
     )
 
 
-def cache_from_jax(d: Mapping[str, np.ndarray], device="cpu") -> GPCache:
+def cache_from_jax(d: Mapping[str, np.ndarray], device="cuda") -> GPCache:
     """``GPCache`` fields (``L``, ``alpha``, ``ok``, ``Wf``; stacked per
     ensemble sample) → the port's ``GPCache`` on ``device``."""
+    device = resolve_device(device)
     f32 = lambda k: torch.as_tensor(np.array(d[k], dtype=np.float32), device=device)
     return GPCache(L=f32("L"), alpha=f32("alpha"),
                    ok=torch.as_tensor(np.array(d["ok"], dtype=bool), device=device),

@@ -6,11 +6,11 @@ skips it), and the Adam step that the MAP fit, SVI and the ensembles share."""
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence
+from typing import Any, Callable, List, Sequence
 
 import torch
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "Flat", "adam_step"]
+__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "Flat", "adam_step", "adam_train"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -83,3 +83,29 @@ def adam_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tens
     mhat = mu / (1 - b1 ** count)
     vhat = nu / (1 - b2 ** count)
     return p + (-lr * mhat / (torch.sqrt(vhat) + eps)), mu, nu
+
+
+def adam_train(params: dict, loss_fn: Callable, n_steps: int, lr: float, step_input: Callable[[int], Any]):
+    """``n_steps`` Adam steps (optax's) of ``loss_fn(params, step_input(s))``
+    on a dict of tensors; a parameter the loss does not reach gets a zero
+    gradient, which Adam leaves in place.  Adam is elementwise, so it steps
+    all parameters as one flat vector (one ``adam_step`` per step, not one
+    per tensor).  Returns (params, the losses (n_steps,) as numpy, read once
+    at the end)."""
+    keys = list(params)
+    shapes, sizes = [params[k].shape for k in keys], [params[k].numel() for k in keys]
+    flat = torch.cat([params[k].detach().reshape(-1) for k in keys])
+    mu, nu = torch.zeros_like(flat), torch.zeros_like(flat)
+    unflat = lambda v: {k: t.view(sh) for k, t, sh in zip(keys, torch.split(v, sizes), shapes)}
+    losses = torch.empty((n_steps,), dtype=flat.dtype, device=flat.device)
+    for s in range(n_steps):
+        inp = step_input(s)
+        with torch.enable_grad():
+            cur = {k: t.detach().requires_grad_(True) for k, t in unflat(flat).items()}
+            loss = loss_fn(cur, inp)
+            grads = torch.autograd.grad(loss, list(cur.values()), allow_unused=True)
+        losses[s] = loss.detach()
+        g = torch.cat([(torch.zeros_like(t) if gt is None else gt).reshape(-1)
+                       for t, gt in zip(cur.values(), grads)])
+        flat, mu, nu = adam_step(flat, g, mu, nu, s + 1, lr)
+    return unflat(flat), losses.cpu().numpy()

@@ -73,7 +73,7 @@ def _data(n_num, L=6, V=4):
     X = np.concatenate([rng.uniform(-1, 2, (N_OBS, n_num)), rng.integers(0, V, (N_OBS, L))], 1)
     y = (np.sin(3 * X[:, :1]) + (X[:, n_num:] == 1).sum(1, keepdims=True)).astype(np.float32)
     jd = _make_data(X, y, tuple(range(n_num)), N_PAD)
-    return jd, data_from_jax(_np(jd))
+    return jd, data_from_jax(_np(jd), device="cpu")
 
 
 def _jax_p0(jcore, jd, R=2, seed=0):
@@ -92,7 +92,7 @@ def test_gpcore_loss_and_gradient(cat_kernel, n_num):
     jd, td = _data(n_num)
     p0j, _ = _jax_p0(jcore, jd)
     lj, gj = jax.value_and_grad(lambda P: jnp.sum(jcore.loss_batched(P, jd)))(p0j)
-    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(_np(p0j))]
+    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(_np(p0j), device="cpu")]
     loss = tcore.loss_batched(GPParams(*leaves), td)
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jcore.loss_batched(p0j, jd)),
                                rtol=1e-4, atol=1e-4)
@@ -110,7 +110,7 @@ def test_gpcore_cache_and_predict_ensemble(cat_kernel, n_num):
     jd, td = _data(n_num)
     sj, _ = _jax_p0(jcore, jd, seed=5)  # two "samples"
     cj = jcore.posterior_cache_batched(sj, jd)
-    ts = params_from_jax(_np(sj))
+    ts = params_from_jax(_np(sj), device="cpu")
     ct = tcore.posterior_cache_batched(ts, td)
     np.testing.assert_array_equal(ct.ok.numpy(), np.asarray(cj.ok))
     for name in ("L", "alpha", "Wf"):
@@ -183,8 +183,8 @@ def test_constrained_local_search_identical():
     jm = jget_model("gp", jspace, cat_kernel="ssk", num_epochs=10).fit(X, y)
     tm = get_model("gp", tspace, cat_kernel="ssk", device="cpu")
     samples, caches, data = jm.state
-    tm.samples, tm.caches, tm.data = (params_from_jax(_np(samples)), cache_from_jax(_np(caches)),
-                                      data_from_jax(_np(data)))
+    tm.samples, tm.caches, tm.data = (params_from_jax(_np(samples), device="cpu"), cache_from_jax(_np(caches), device="cpu"),
+                                      data_from_jax(_np(data), device="cpu"))
     best = X[int(np.argmin(y[:, 0]))]
     jtr.register_center(best)
     ttr.register_center(best)

@@ -157,7 +157,7 @@ def _gp_data(n, n_pad, seed=0):
     y = (np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2 + 0.3 * X[:, 3:4]
          + 0.05 * rng.standard_normal((n, 1))).astype(np.float32)
     jd = _make_data(X, y, (0, 1, 2), n_pad)
-    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
 
 
 def _cores(**kw):
@@ -168,7 +168,7 @@ def _cores(**kw):
 def _samples(jcore, jd, S=2, seed=5):
     keys = jax.random.split(jax.random.PRNGKey(seed), S)
     sj = jax.vmap(lambda k: jcore.init_params(k, jd))(keys)
-    return sj, params_from_jax({k: np.asarray(v) for k, v in sj._asdict().items() if v is not None})
+    return sj, params_from_jax({k: np.asarray(v) for k, v in sj._asdict().items() if v is not None}, device="cpu")
 
 
 def _queries(n=9, seed=6):
@@ -200,7 +200,7 @@ def test_cg_posterior_cache_and_predict_ensemble():
     _close(ct.alpha.numpy(), cj.alpha)
     Xs = _queries()
     muj, varj = jax.jit(jcore.predict_ensemble)(sj, cj, jd, jnp.asarray(Xs))
-    from_jax = cache_from_jax({k: np.asarray(v) for k, v in cj._asdict().items() if v is not None})
+    from_jax = cache_from_jax({k: np.asarray(v) for k, v in cj._asdict().items() if v is not None}, device="cpu")
     from_jax = from_jax._replace(Kt=tcore._train_system(st, td)[0],
                                  Q=tcg.woodbury_factor(from_jax.L, tcore.noise_base(st)))
     for cache in (ct, from_jax):
@@ -292,7 +292,7 @@ def test_gp_fit_large_n_route(monkeypatch):
     assert tgp.fit_data.X.shape[0] == 128 and tgp.data.X.shape[0] == 384
     for name, v in seen["data_fit"]._asdict().items():
         np.testing.assert_array_equal(getattr(tgp.fit_data, name).numpy(), np.asarray(v), err_msg=name)
-    st = params_from_jax({k: np.asarray(v) for k, v in jgp.samples._asdict().items() if v is not None})
+    st = params_from_jax({k: np.asarray(v) for k, v in jgp.samples._asdict().items() if v is not None}, device="cpu")
     ct = tgp.core.posterior_cache_batched(st, tgp.data)
     np.testing.assert_array_equal(ct.ok.numpy(), np.asarray(jgp.caches.ok))
     assert (ct.res <= 1e-4).all()

@@ -1179,3 +1179,74 @@ def test_vae_train_steps_on_card_equal_cpu(cuda, kind):
     assert set(pg) == set(pc)
     for k, v in pc.items():
         torch.testing.assert_close(pg[k].cpu(), v, rtol=0, atol=1e-4 * v.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_sac_update_on_card_equals_cpu(cuda):
+    """One SAC update and one guided update on the card from the CPU's
+    initial weights, with the same batch and normals: parameters, targets
+    and log α within 1e-5 of each tensor's largest |value| (float32), Adam's
+    moments 1e-4."""
+    from hebo_tpu_torch.rl import SAC, GuidedSAC
+
+    rng = np.random.default_rng(0)
+    B = 128
+    batch = (rng.standard_normal((B, 3)).astype(np.float32), rng.standard_normal((B, 1)).astype(np.float32),
+             rng.standard_normal(B).astype(np.float32), rng.standard_normal((B, 3)).astype(np.float32),
+             (rng.random(B) < 0.1).astype(np.float32), np.zeros(B, np.float32))
+    eps = tuple(rng.standard_normal((B, 1)).astype(np.float32) for _ in range(2))
+    guide, region = (lambda o: -0.5 * o[..., 2:3]), (lambda o: (o[..., 0] < 0).to(o.dtype))
+    for make in (lambda d: SAC(3, 1, 2.0, device=d), lambda d: GuidedSAC(3, 1, guide, region, act_limit=2.0, device=d)):
+        cpu, card = make("cpu"), make(cuda)
+        s0 = cpu.init(torch.Generator().manual_seed(0))
+        want = cpu.update(s0, batch, eps=eps)
+        mv = lambda d: {k: v.to(cuda) for k, v in d.items()}
+        got = card.update(card.state_from(mv(s0.actor), mv(s0.q1), mv(s0.q2)), batch, eps=eps)
+        for f in ("actor", "q1", "q2", "q1_targ", "q2_targ"):
+            for k, v in getattr(want, f).items():
+                torch.testing.assert_close(getattr(got, f)[k].cpu(), v, rtol=0, atol=1e-5 * v.abs().max().item())
+        torch.testing.assert_close(got.log_alpha.cpu(), want.log_alpha, rtol=1e-5, atol=1e-9)
+        for f in ("opt_actor", "opt_q"):
+            for k, v in getattr(want, f).mu.items():
+                torch.testing.assert_close(getattr(got, f).mu[k].cpu(), v, rtol=0, atol=1e-4 * v.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_tinylm_forward_on_card_equals_cpu(cuda):
+    """TinyLM at its defaults (vocab 32) with weights perturbed off flax's
+    init (so the MaPO statistic is not rounding noise): logits and the
+    three mask outputs within 1e-5 of the CPU's largest |value|."""
+    from torch.func import functional_call
+
+    from hebo_tpu_torch.po import TinyLM
+
+    cpu = TinyLM(32, generator=torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    params = {k: v.detach() + 0.1 * torch.randn(v.shape, generator=g) for k, v in cpu.named_parameters()}
+    card = TinyLM(32, device=cuda)
+    tok = torch.randint(0, 32, (8, 64), generator=g)
+    with torch.no_grad():
+        lc, mc = functional_call(cpu, params, (tok,))
+        lg, mg = functional_call(card, {k: v.to(cuda) for k, v in params.items()}, (tok.to(cuda),))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-5 * lc.abs().max().item())
+    for k, v in mc.items():
+        torch.testing.assert_close(mg[k].cpu(), v, rtol=0, atol=1e-5 * v.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_resumed_hebo_on_card_suggests_as_uninterrupted(cuda, tmp_path):
+    """A HEBO restored from a checkpoint captures a fresh graph where the
+    uninterrupted one replays its own: the same suggestion, bit for bit."""
+    from hebo_tpu_torch import DesignSpace, HEBO
+    from hebo_tpu_torch.utils.checkpoint import load_optimizer, save_optimizer
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -2, "ub": 2} for i in range(4)])
+    f = lambda df: (df.values.astype(float) ** 2).sum(1, keepdims=True)
+    opt = HEBO(space, device=cuda, pop=32, iters=16, model_config={"num_epochs": 16})
+    for _ in range(6):
+        rec = opt.suggest(4)
+        opt.observe(rec, f(rec))
+    save_optimizer(opt, str(tmp_path / "c.ckpt"))
+    resumed = load_optimizer(HEBO(space, device=cuda, pop=32, iters=16, model_config={"num_epochs": 16}),
+                             str(tmp_path / "c.ckpt"))
+    assert opt.suggest(4).equals(resumed.suggest(4))

@@ -49,7 +49,7 @@ def _data():
     X = np.concatenate([rng.uniform(-1, 2, (N_OBS, 3)), rng.integers(0, 3, (N_OBS, 1))], 1)
     y = (np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2 + 0.3 * X[:, 3:4]).astype(np.float32)
     jd = _make_data(X, y, (0, 1, 2), N_PAD)
-    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
 
 
 def _np_params(p):
@@ -220,7 +220,7 @@ def test_loss_value_and_gradient():
     jd, td = _data()
     p0j, _ = _jax_p0(jcore, jd)
     lj, gj = jax.value_and_grad(lambda P: jnp.sum(jcore.loss_batched(P, jd)))(p0j)
-    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(_np_params(p0j))]
+    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(_np_params(p0j), device="cpu")]
     loss = tcore.loss_batched(GPParams(*leaves), td)
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(jcore.loss_batched(p0j, jd)),
                                rtol=1e-4, atol=1e-4)
@@ -245,7 +245,7 @@ def test_psgld_fit_with_fed_noise():
         k, ksub = jax.random.split(k)
         ks = jax.random.split(ksub, len(shapes))
         noise.append([np.asarray(jax.random.normal(kk, s, jnp.float32)) for kk, s in zip(ks, shapes)])
-    pf, loss, s = tcore.fit_from_batched(params_from_jax(_np_params(p0j)), td,
+    pf, loss, s = tcore.fit_from_batched(params_from_jax(_np_params(p0j), device="cpu"), td,
                                          noise=lambda i: noise[i])
     for name in ("log_ls", "log_sc", "log_noise", "mean", "emb"):
         np.testing.assert_allclose(getattr(pf, name).numpy(), np.asarray(getattr(pfj, name)),
@@ -260,7 +260,7 @@ def test_adam_fit_matches():
     jd, td = _data()
     p0j, _ = _jax_p0(jcore, jd, seed=4)
     pfj, lossj, _ = jcore.fit_from_batched(jax.random.PRNGKey(0), p0j, jd)
-    pf, loss, _ = tcore.fit_from_batched(params_from_jax(_np_params(p0j)), td)
+    pf, loss, _ = tcore.fit_from_batched(params_from_jax(_np_params(p0j), device="cpu"), td)
     for name in ("log_ls", "log_sc", "log_noise", "mean", "emb"):
         np.testing.assert_allclose(getattr(pf, name).numpy(), np.asarray(getattr(pfj, name)),
                                    atol=2e-3, err_msg=name)
@@ -272,7 +272,7 @@ def test_posterior_cache_and_predict_ensemble():
     jd, td = _data()
     sj, _ = _jax_p0(jcore, jd, seed=5)  # two "samples"
     cj = jcore.posterior_cache_batched(sj, jd)
-    ts = params_from_jax(_np_params(sj))
+    ts = params_from_jax(_np_params(sj), device="cpu")
     ct = tcore.posterior_cache_batched(ts, td)
     np.testing.assert_array_equal(ct.ok.numpy(), np.asarray(cj.ok))
     for name in ("L", "alpha", "Wf"):

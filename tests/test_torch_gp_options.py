@@ -59,7 +59,7 @@ def _data(seed=0):
     X = np.concatenate([rng.uniform(-1, 2, (N_OBS, 3)), rng.integers(0, 3, (N_OBS, 1))], 1)
     y = (np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2 + 0.3 * X[:, 3:4]).astype(np.float32)
     jd = _make_data(X, y, (0, 1, 2), N_PAD)
-    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    return jd, data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
 
 
 def _jax_p0(jcore, jd, R=2, seed=0, perturb=0.3):
@@ -121,7 +121,7 @@ def test_warped_features_and_heteroscedastic_noise():
     jcore, tcore = _cores(input_warp=True, heteroscedastic=True)
     jd, td = _data()
     pj = _jax_p0(jcore, jd, perturb=0.5)
-    pt = params_from_jax(_np(pj))
+    pt = params_from_jax(_np(pj), device="cpu")
     assert pt.noise_w.shape == (2, tcore.n_feat_dims + 1)
     fj = np.asarray(jax.vmap(lambda p: jcore.features(p, jd.X, jd))(pj))
     np.testing.assert_allclose(tcore.features(pt, td.X, td).numpy(), fj, rtol=1e-6, atol=1e-6)
@@ -152,7 +152,7 @@ def test_init_params_noise_w_and_params_from_jax():
         p0 = tcore.init_params(td, 2, draws=(np.stack(z_emb), np.stack(z_ls)))
         assert (p0.noise_w is None) == (not het) == (p0j.noise_w is None)
         conv = params_from_jax({k: (None if v is None else np.asarray(v))
-                                for k, v in p0j._asdict().items()})
+                                for k, v in p0j._asdict().items()}, device="cpu")
         assert (conv.noise_w is None) == (not het)
         for k, v in _np(p0j).items():
             np.testing.assert_allclose(getattr(p0, k).numpy(), v, rtol=1e-5, atol=1e-6, err_msg=k)
@@ -180,7 +180,7 @@ def test_loss_and_gradient_with_options(kernel, warp, het):
     jcore, tcore = _cores(kernel=kernel, input_warp=warp, heteroscedastic=het)
     jd, td = _data(seed=3)
     pj = _jax_p0(jcore, jd, seed=1)
-    pt = params_from_jax(_np(pj))
+    pt = params_from_jax(_np(pj), device="cpu")
     lj = np.asarray(jax.vmap(lambda p: jcore.loss(p, jd))(pj))
     np.testing.assert_allclose(tcore.loss_batched(pt, td).numpy(), lj, rtol=1e-4)
     if kernel == "matern12":
@@ -229,7 +229,7 @@ def test_fits_of_the_option_models(model, optimizer):
     key = jax.random.PRNGKey(11)
     pfj, lossj, sj = jcore.fit_from_batched(key, p0j, jd)
     noise = _psgld_noise(key, p0j, jcore.n_steps)
-    pf, loss, s = tcore.fit_from_batched(params_from_jax(_np(p0j)), td, noise=lambda i: noise[i])
+    pf, loss, s = tcore.fit_from_batched(params_from_jax(_np(p0j), device="cpu"), td, noise=lambda i: noise[i])
     for name, want in _np(pfj).items():
         np.testing.assert_allclose(getattr(pf, name).numpy(), want, rtol=0, atol=1e-4, err_msg=name)
     for name, want in _np(sj).items():
@@ -262,7 +262,7 @@ def test_slice_step_out_and_shrink_with_fed_uniforms():
     rng = np.random.default_rng(5)
     X = rng.uniform(-1, 2, (N_OBS, 2))
     jd = _make_data(X, np.sin(3 * X[:, :1]) + X[:, 1:] ** 2, (0, 1), N_PAD)
-    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
     p0j = _jax_p0(jcore, jd, R=2, seed=3, perturb=0.1)
     keys = jax.random.split(jax.random.PRNGKey(4), 2)
     want, jvals = [], []
@@ -289,7 +289,7 @@ def test_slice_step_out_and_shrink_with_fed_uniforms():
         evals.append(v.numpy())
         return v
 
-    st = slice_sample(logp, params_from_jax(_np(p0j)), n_samples=1, n_burnin=0, thinning=1,
+    st = slice_sample(logp, params_from_jax(_np(p0j), device="cpu"), n_samples=1, n_burnin=0, thinning=1,
                       uniforms=torch.as_tensor(uni))
     got = Flat(st, n_lead=2).ravel(st)[0].numpy()
     # per coordinate: 1 + 2·8 + 16 evaluations; the first sets the height

@@ -128,7 +128,7 @@ def test_svgp_neg_elbo_and_gradient(fitted):
     jm, tm = fitted["svgp"]
     p = jax.tree.map(lambda t: t * 0.97, jm.params)
     lj, gj = jax.jit(jax.value_and_grad(lambda P: jm.core.neg_elbo(P, jm.data)))(p)
-    gp = params_from_jax(_np(p.gp))
+    gp = params_from_jax(_np(p.gp), device="cpu")
     leaves = [t.requires_grad_(True) for t in tree_leaves(gp)]
     Z = T(np.asarray(p.Z))[None].requires_grad_(True)
     tp = SVGPParams(gp=type(gp)(*leaves, None), Z=Z)
@@ -172,10 +172,10 @@ def test_svgp_fit_from_the_jax_packages_draws(fitted):
     n_pad, F = jm.data.X.shape[0], core.n_feat_dims
     idx = np.asarray(jax.random.randint(k2, (core.num_inducing,), 0, n_pad))
     z = np.asarray(jax.random.normal(k2, (core.num_inducing, F), jnp.float32))
-    data = data_from_jax(_np(jm.data))
+    data = data_from_jax(_np(jm.data), device="cpu")
     p0 = tm.init_params(data, draws=((z_emb[None], z_ls[None]), idx, z))
     pf = tm.fit_params(p0, data)
-    for got, want in zip(tree_leaves(pf.gp), tree_leaves(params_from_jax(_np(jm.params.gp)))):
+    for got, want in zip(tree_leaves(pf.gp), tree_leaves(params_from_jax(_np(jm.params.gp), device="cpu"))):
         _close(got.numpy(), want.numpy(), 1e-4)
     _close(pf.Z[0].numpy(), np.asarray(jm.params.Z), 1e-4)
 
@@ -201,7 +201,7 @@ def test_dkl_features_and_loss_gradient(fitted):
     ft = tm.core.features(tm.samples, tm.data.X, tm.data)[0]
     _close(ft.numpy(), fj, 1e-4)
     lj, gj = jax.jit(jax.value_and_grad(lambda P: jnp.sum(jm.core.loss_batched(P, jm.data))))(jm.samples)
-    leaves = params_from_jax(_np(jm.samples))
+    leaves = params_from_jax(_np(jm.samples), device="cpu")
     leaves = type(leaves)(*[None if t is None else t.requires_grad_(True) for t in leaves])
     lt = tm.core.loss_batched(leaves, tm.data)
     _close(lt.detach().numpy(), [float(lj)], 1e-4)

@@ -51,7 +51,7 @@ def _ackley_gp():
          + 20 + math.e)[:, None]
     args = dict(numeric_dims=tuple(range(6)), cat_dims=(), num_categories=())
     jd = _make_data(X, y, tuple(range(6)), N_PAD)
-    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
     return JCore(**args), GPCore(**args), jd, td
 
 

@@ -54,7 +54,7 @@ def _setup(R=2, seed=0, **kw):
     rng = np.random.default_rng(seed)
     X = rng.uniform(-1, 2, (N_OBS, 2))
     jd = _make_data(X, np.sin(3 * X[:, :1]) + X[:, 1:] ** 2, (0, 1), N_PAD)
-    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
     keys = jax.random.split(jax.random.PRNGKey(seed), R)
     p0 = jax.vmap(lambda k: jcore.init_params(k, jd))(keys)
     return jcore, tcore, jd, td, p0
@@ -115,8 +115,8 @@ def test_leapfrog_trajectory():
     logp = lambda p: -jcore.loss(p, jd)
     grad_fn = jax.grad(logp)
     rng = np.random.default_rng(1)
-    flat = Flat(params_from_jax(_np(p0)))
-    q0 = flat.ravel(params_from_jax(_np(p0)))
+    flat = Flat(params_from_jax(_np(p0), device="cpu"))
+    q0 = flat.ravel(params_from_jax(_np(p0), device="cpu"))
     p_mom = torch.as_tensor(rng.standard_normal(q0.shape), dtype=torch.float32)
     inv_mass = torch.as_tensor(rng.uniform(0.5, 1.5, q0.shape), dtype=torch.float32)
     eps = torch.tensor([0.03, 0.05])
@@ -176,7 +176,7 @@ def test_hmc_transitions_dual_averaging_and_mass_switch(tap):
         jsteps.append(list(tap.carries))
     draws = _hmc_draws(keys, p0, n_warmup + n_samples, n_lf_max)
     trace = []
-    samples, acc = hmc_sample(lambda p: -tcore.loss_batched(p, td), params_from_jax(_np(p0)),
+    samples, acc = hmc_sample(lambda p: -tcore.loss_batched(p, td), params_from_jax(_np(p0), device="cpu"),
                               n_chains=2, draws=draws, trace=trace, **kw)
     stop = _near([t[5] for t in trace], "hmc") or len(trace)
     assert stop >= 7
@@ -216,7 +216,7 @@ def test_svi_elbo_gradient_and_steps(tap):
         eps.append(np.stack([_flat_normals(kk, pj) for kk in jax.random.split(ke, n_mc)]))
     final = np.stack([_flat_normals(kk, pj) for kk in jax.random.split(k, S)])
     trace = []
-    st, elbo = svi_fit(lambda p: -tcore.loss_batched(p, td), params_from_jax(_np(p0)),
+    st, elbo = svi_fit(lambda p: -tcore.loss_batched(p, td), params_from_jax(_np(p0), device="cpu"),
                        n_steps=n_steps, n_mc=n_mc, n_samples=S,
                        draws=(torch.as_tensor(np.asarray(eps)), torch.as_tensor(final)), trace=trace)
     flat = lambda t: np.concatenate([np.asarray(l).ravel() for l in jax.tree.leaves(t)])
@@ -263,7 +263,7 @@ def test_smc_systematic_resample_and_mala_move(tap):
         sched.append((float(jax.random.uniform(k_res, ())), moves))
     trace = []
     pt, logz = smc_sample(tcore.log_prior, lambda p: -tcore.nll_batched(p, td),
-                          params_from_jax(_np(parts0)), draws=lambda s: sched[s], trace=trace, **kw)
+                          params_from_jax(_np(parts0), device="cpu"), draws=lambda s: sched[s], trace=trace, **kw)
     assert float(trace[0][3]) < 0.5 * n  # resampled at stage 0
     stop = _near([t[4][0] for t in trace], "smc") or len(trace)
     flat = lambda t: np.concatenate([np.asarray(l).reshape(n, -1) for l in jax.tree.leaves(t)], -1)
@@ -389,12 +389,12 @@ def test_joint_sample_scaled_with_fed_z(route):
     rng = np.random.default_rng(8)
     X = rng.uniform(-1, 2, (20 if route == "cg" else N_OBS, 2))
     jd = _make_data(X, np.sin(3 * X[:, :1]) + X[:, 1:] ** 2, (0, 1), n_pad)
-    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()})
+    td = data_from_jax({k: np.asarray(v) for k, v in jd._asdict().items()}, device="cpu")
     pj = jax.tree.map(lambda t: t[0], jax.vmap(lambda k: jcore.init_params(k, jd))(
         jax.random.split(jax.random.PRNGKey(1), 1)))
     pj = pj._replace(log_noise=jnp.asarray(np.log(0.05), jnp.float32))
     cj = jcore.posterior_cache(pj, jd)
-    pt = params_from_jax(_np(pj))
+    pt = params_from_jax(_np(pj), device="cpu")
     ct = tcore.posterior_cache_batched(pt, td)
     Xs = rng.uniform(-1, 2, (9, 2)).astype(np.float32)
     key = jax.random.PRNGKey(3)

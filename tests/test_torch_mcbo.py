@@ -145,7 +145,7 @@ def _data(n_num, L=5, V=3):
     X = np.concatenate([rng.uniform(-1, 2, (N_OBS, n_num)), rng.integers(0, V, (N_OBS, L))], 1)
     y = (np.sin(3 * X[:, :1]) if n_num else 0.0) + (X[:, n_num:] == 1).sum(1, keepdims=True)
     jd = _make_data(X, np.asarray(y, np.float32), tuple(range(n_num)), N_PAD)
-    return jd, data_from_jax(_np(jd))
+    return jd, data_from_jax(_np(jd), device="cpu")
 
 
 def _jax_p0(jcore, jd, R=2, seed=0):
@@ -184,16 +184,16 @@ def test_gpcore_layout(gp_case):
     j, t = gp_case["jcore"], gp_case["tcore"]
     assert (t.d_feat, t.n_feat_dims, t.n_cat_param) == (j.d_feat, j.n_feat_dims, j.n_cat_param)
     assert {k: v.shape for k, v in gp_case["p"].items()} == {
-        k: tuple(v.shape) for k, v in params_from_jax(gp_case["p"])._asdict().items() if v is not None}
+        k: tuple(v.shape) for k, v in params_from_jax(gp_case["p"], device="cpu")._asdict().items() if v is not None}
 
 
 def test_gpcore_loss(gp_case):
-    loss = gp_case["tcore"].loss_batched(params_from_jax(gp_case["p"]), gp_case["td"])
+    loss = gp_case["tcore"].loss_batched(params_from_jax(gp_case["p"], device="cpu"), gp_case["td"])
     np.testing.assert_allclose(loss.numpy(), gp_case["loss"], rtol=1e-4, atol=1e-4)
 
 
 def test_gpcore_gradient(gp_case):
-    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(gp_case["p"])]
+    leaves = [None if t is None else t.requires_grad_(True) for t in params_from_jax(gp_case["p"], device="cpu")]
     loss = gp_case["tcore"].loss_batched(GPParams(*leaves), gp_case["td"])
     live = [(f, t) for f, t in zip(GPParams._fields, leaves) if t is not None]
     grads = torch.autograd.grad(loss.sum(), [t for _, t in live], allow_unused=True)
@@ -205,7 +205,7 @@ def test_gpcore_gradient(gp_case):
 
 def test_gpcore_cache_and_predict_ensemble(gp_case):
     tcore, td, cj = gp_case["tcore"], gp_case["td"], gp_case["cache"]
-    ts = params_from_jax(gp_case["p"])
+    ts = params_from_jax(gp_case["p"], device="cpu")
     ct = tcore.posterior_cache_batched(ts, td)
     np.testing.assert_array_equal(ct.ok.numpy(), np.asarray(cj.ok))
     for name in ("L", "alpha", "Wf"):
@@ -409,10 +409,10 @@ def fitted():
     jm = jget_model("gp", js, num_out=1, cat_kernel="transformed_overlap", num_epochs=10)
     jm.fit(X, y)
     tm = get_model("gp", ts, num_out=1, device="cpu", cat_kernel="transformed_overlap")
-    tm.params = params_from_jax(_np(jm.params))
-    tm.samples = params_from_jax(_np(jm.samples))
-    tm.caches = cache_from_jax(_np(jm.caches))
-    tm.data = data_from_jax(_np(jm.data))
+    tm.params = params_from_jax(_np(jm.params), device="cpu")
+    tm.samples = params_from_jax(_np(jm.samples), device="cpu")
+    tm.caches = cache_from_jax(_np(jm.caches), device="cpu")
+    tm.data = data_from_jax(_np(jm.data), device="cpu")
     return dict(js=js, ts=ts, X=X, jm=jm, tm=tm,
                 jp=jacq.AcqParams(tau=jnp.float32(-1.2), kappa=jnp.float32(2.0), key=jax.random.PRNGKey(20)),
                 tp=tacq.AcqParams(tau=-1.2, kappa=2.0, seed=20))

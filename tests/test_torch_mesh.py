@@ -129,8 +129,8 @@ def _case_gp(inp, mesh):
     from hebo_tpu_torch.models.gp import data_from_jax, params_from_jax
 
     m = get_model("gp", DesignSpace(SPACE), device="cpu", mesh=mesh, max_cholesky_size=256)
-    m.samples = params_from_jax(inp["gp_samples"])
-    m.data = data_from_jax(inp["gp_data"])
+    m.samples = params_from_jax(inp["gp_samples"], device="cpu")
+    m.data = data_from_jax(inp["gp_data"], device="cpu")
     m.caches = m.core.posterior_cache_batched(m.samples, m.data)
     mu, var = m.predict(inp["gp_Xq"])
     return dict(mu=mu, var=var, L=m.caches.L.numpy(), ok=m.caches.ok.tolist())
@@ -211,10 +211,10 @@ def _case_fused(inp, mesh):
                                                      fit_draws=fit_draws,
                                                      island_draws=island_draws)
         # the islands alone, on JAX's fitted state
-        samples = params_from_jax(inp["j_samples"])
-        state = (samples, cache_from_jax(inp["j_caches"]), data_from_jax(inp["j_data"]))
+        samples = params_from_jax(inp["j_samples"], device="cpu")
+        state = (samples, cache_from_jax(inp["j_caches"], device="cpu"), data_from_jax(inp["j_data"], device="cpu"))
         data, kappa, init_pop = opt._unpack(inputs, FUSED["n_pad"], FUSED["pop"])
-        xb, pr = opt._incumbent(state, params_from_jax(inp["j_pf"]), kappa, z, None)
+        xb, pr = opt._incumbent(state, params_from_jax(inp["j_pf"], device="cpu"), kappa, z, None)
         init_pop[0] = xb[0]
         X, F = island_evolve(init_pop[r * P_loc:(r + 1) * P_loc],
                              lambda Xc: opt._acq.eval_pure(opt.model, state, pr, Xc), mt,

@@ -164,7 +164,7 @@ def test_mlp_forward_on_carried_params(ensembles):
     jm = fitted["nll"][0]
     F = np.random.default_rng(0).standard_normal((24, jm.params.w[0].shape[1])).astype(np.float32)
     mus, vars_ = jax.vmap(lambda p: j_mlp_forward(p, jnp.asarray(F)))(jm.params)
-    tmu, tvar = mlp_forward(ensemble_from_jax(jm.params), T(F))
+    tmu, tvar = mlp_forward(ensemble_from_jax(jm.params, device="cpu"), T(F))
     _close(tmu.numpy(), mus, 1e-5)
     _close(tvar.numpy(), vars_, 1e-5)
 
@@ -176,7 +176,7 @@ def test_ensemble_fit_from_the_jax_init(ensembles, name):
     fitted, X, y = ensembles
     jm, init, model, conf = fitted[name]
     tm = get_model(model, DesignSpace(MIXED), device="cpu", seed=3, **SMALL, **conf)
-    tm.fit(X, y, init=ensemble_from_jax(init))
+    tm.fit(X, y, init=ensemble_from_jax(init, device="cpu"))
     assert tm._seed == jm._seed
     for a, b in zip(_tleaves(tm.params), _leaves(jm.params)):
         _close(a, b, 1e-4)
@@ -214,7 +214,7 @@ def test_gumbel_fit_with_fed_gumbels_and_feature_importance():
     init_mlp = jax.tree.map(lambda *a: jnp.stack(a), *inits)
     from hebo_tpu_torch.models.nn.ensembles_ext import GumbelParams
 
-    init = GumbelParams(mlp=ensemble_from_jax(init_mlp), gate_logits=torch.ones((E, d)))
+    init = GumbelParams(mlp=ensemble_from_jax(init_mlp, device="cpu"), gate_logits=torch.ones((E, d)))
     tm = get_model("gumbel", ts, device="cpu", seed=5, **conf)
     tm.fit(X, y, init=init, gumbels=T(np.stack(gumbels)))
     for a, b in zip(_tleaves(tm.params), _leaves(jm.params)):
@@ -264,7 +264,7 @@ def test_eac_forward_on_carried_params(eacs, cell):
     tm = get_model("eac", DesignSpace(CATONLY), device="cpu", cell=cell, **EAC_CONF)
     codes = jm._codes(X)
     mus, vars_ = jax.vmap(lambda p: jm._forward(p, jnp.asarray(codes)))(jm.params)
-    tmu, tvar = tm._forward(eac_from_jax(jm.params), tm._codes(X))
+    tmu, tvar = tm._forward(eac_from_jax(jm.params, device="cpu"), tm._codes(X))
     _close(tmu.numpy(), mus, 1e-5)
     _close(tvar.numpy(), vars_, 1e-5)
 
@@ -274,7 +274,7 @@ def test_eac_fit_from_the_jax_init(eacs, cell):
     fitted, X, y = eacs
     jm, init = fitted[cell]
     tm = get_model("eac", DesignSpace(CATONLY), device="cpu", cell=cell, seed=2, **EAC_CONF)
-    tm.fit(X, y, init=eac_from_jax(init))
+    tm.fit(X, y, init=eac_from_jax(init, device="cpu"))
     for a, b in zip(_tleaves(tm.params), _leaves(jm.params)):
         _close(a, b, 1e-4)
     for a, b in zip(tm.predict(X), jm.predict(X)):

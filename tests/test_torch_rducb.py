@@ -166,7 +166,7 @@ def test_loss_value_and_gradient(fitted):
     jm, tm, _, _ = fitted["tree"]
     p0 = jax.tree.map(lambda t: t[:1] * 0.9, jm.samples)
     lj, gj = jax.jit(jax.value_and_grad(lambda P: jnp.sum(jm.core.loss_batched(P, jm.data))))(p0)
-    leaves = params_from_jax(_np(p0))
+    leaves = params_from_jax(_np(p0), device="cpu")
     leaves = type(leaves)(*[None if t is None else t.requires_grad_(True) for t in leaves])
     loss = tm.core.loss_batched(leaves, tm.data)
     np.testing.assert_allclose(loss.detach().numpy(), [float(lj)], rtol=1e-4)
@@ -184,7 +184,7 @@ def test_init_params_with_fed_draws():
     key = jax.random.PRNGKey(5)
     pj = jm.core.init_params(key, jd)
     z_ls = jax.random.normal(jax.random.split(key)[1], (jm.core.d_feat,), jnp.float32)
-    pt = tm.core.init_params(data_from_jax(_np(jd)), 1, draws=(None, np.asarray(z_ls)[None]))
+    pt = tm.core.init_params(data_from_jax(_np(jd), device="cpu"), 1, draws=(None, np.asarray(z_ls)[None]))
     for f in ("log_ls", "log_sc", "log_noise", "mean", "log_wa", "log_wb"):
         np.testing.assert_allclose(getattr(pt, f)[0].numpy(), np.asarray(getattr(pj, f)), rtol=1e-6)
     assert pt.emb.shape == (1, 0, 0)
@@ -202,7 +202,7 @@ def test_dim_log_kernels_and_every_move():
     X, y = _additive()
     X = np.concatenate([X, np.random.default_rng(1).integers(0, 3, (len(X), 1))], 1).astype(np.float32)
     jd = _make_data(X, y, (0, 1, 2, 3), 64)
-    td = data_from_jax(_np(jd))
+    td = data_from_jax(_np(jd), device="cpu")
     nd, cd, M = (0, 1, 2, 3), (4,), 4
     Ldj = jax.jit(jst.dim_log_kernels, static_argnums=(3, 4))(jd.X, jd.x_lb, jd.x_span, nd, cd)
     jmll = jax.jit(jst.assignment_mll, static_argnums=4)
@@ -233,7 +233,7 @@ def _jax_gibbs_draws(key, D, M, n_sweeps):
 def test_learn_assignment_with_fed_draws(mgs, M, seed):
     X, y = _additive(seed=seed)
     jd = _make_data(X, y, (0, 1, 2, 3), 64)
-    td = data_from_jax(_np(jd))
+    td = data_from_jax(_np(jd), device="cpu")
     kw = dict(numeric_dims=(0, 1, 2, 3), cat_dims=(), M=M, max_group_size=mgs, n_sweeps=2)
     key = jax.random.PRNGKey(seed)
     zj, mj = jst.learn_assignment(key, jd.X, jd.y, jd.mask, jd.x_lb, jd.x_span, **kw)
