@@ -279,7 +279,28 @@
    steps with fed indices: the float32 losses within 1e-5 and, in float64,
    every parameter within 1e-8 of max(its tensor's largest |value|, lr).
    Phases q and r launch none of the port's kernels.
-17. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+17. Drives EM-LLM's episodic memory (phase s) at Llama-3-8B's attention
+   widths (8 key-value heads of 128) with EM-LLM's settings for it (local
+   window 4096, events of up to 128 tokens, 4 representatives, γ 1):
+   (s1) ``masked_attention`` at (Tq, Tk) = (512, 4096 + 4·3·128) within
+        1e-5 of the CPU's largest |output|, and a fully masked key set
+        within 1e-5 of the mean of V (masked logits are −1e9, not −inf);
+   (s2) a 256-event memory on the card and on the CPU from the same seeded
+        data: ``retrieve`` in both modes gives the same ids for 16 queries
+        and ``gather_kv`` the same bits;
+   (s3) ``segment_events`` on 8 seeded (512, 1024) chunks: the same spans,
+        but where the CPU's top-two scores of a boundary lie within 1e-6
+        relative (a tie; their count is printed);
+   (s4) one ``EMLLMAttention`` takes 128K tokens in 512-token chunks with a
+        needle chunk at one third and must recall it (the mean output above
+        3, tests/test_emllm.py's criterion); ingest ms per chunk (median,
+        p90), attend ms, ``retrieve`` ms in each mode, the memory's device
+        bytes and the busy share of one profiled ingest + attend;
+   (s5) ``retrieve_sharded`` at (E, F) = (4096, 1024) over NCCL at world
+        min(cards, 4) against the host's argsort.
+   Phase s launches none of the port's kernels (no ``pallas_call`` stands
+   behind the JAX package's EM-LLM).
+18. Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
    last, ``{"ok": true, "device": {...}}``.  Any failed check exits 1
    without the last line; no CUDA device exits 2.
 """
@@ -2861,6 +2882,225 @@ def sparse_po_phase(torch, fails):
     return out
 
 
+# ---------------------------------------------------------------- phase s
+# Llama-3-8B's attention widths (8 key-value heads of 128) and EM-LLM's
+# settings for it (Fountas et al. 2024): a local window of 4096 tokens,
+# events of up to 128 tokens, 4 representatives an event, γ = 1
+EM_H, EM_DH, EM_WINDOW, EM_EVENT, EM_K_SIM, EM_K_CONTIG = 8, 128, 4096, 128, 4, 1
+EM_CHUNK, EM_TOKENS = 512, 128 * 1024
+EM_ATT_TOL = 1e-5  # masked_attention, card against CPU, of the largest |output|
+EM_TIE = 1e-6  # segmentation: a boundary whose CPU top-two scores lie this close is a tie
+
+
+def _em_surprise(rng, n):
+    """Per-token surprise with a spike every 128 tokens of the chunk (at 128,
+    256 and 384 of 512), so the overflow segments into events of ~128."""
+    s = 0.1 * rng.random(n)
+    s[np.arange(EM_EVENT, n, EM_EVENT)] = 10.0
+    return s
+
+
+def _seg_agrees(trace_card, trace_cpu):
+    """(agree, ties): the boundaries picked on the card against the CPU's,
+    in sweep order; the first pick that parts must be a tie of the CPU's
+    top-two scores (then the sweeps part, and the rest is not compared)."""
+    for (bi, cand, sg), (bj, cand_c, sc) in zip(trace_card, trace_cpu):
+        if (bi, cand) != (bj, cand_c):
+            return False, 0
+        if int(np.argmax(sg)) != int(np.argmax(sc)):
+            top = np.sort(sc)[-2:]
+            return bool(top[1] - top[0] <= EM_TIE * abs(top[1])), 1
+    return len(trace_card) == len(trace_cpu), 0
+
+
+def _em_retrieve_rank(rank, world, store, out):
+    """One rank of s5 on a machine with several cards (spawned)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    sys.path.insert(0, str(ROOT))
+    from hebo_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(store, world), rank=rank, world_size=world)
+    try:
+        fails = []
+        res = em_sharded(torch, make_mesh(axis="mem", device="cuda"), fails)
+        Path(out, f"rank{rank}.json").write_text(json.dumps(dict(res, fails=fails)))
+    finally:
+        dist.destroy_process_group()
+
+
+def em_sharded(torch, mesh, fails, E=4096, F=1024, k=EM_K_SIM):
+    """s5 on one rank: ``retrieve_sharded`` over the mesh at (E, F) against
+    the host argsort, with its ms per call."""
+    from hebo_tpu_torch.emllm import retrieve_sharded
+
+    rng = np.random.default_rng(7)
+    reps = rng.standard_normal((E, F)).astype(np.float32)
+    q = rng.standard_normal(F).astype(np.float32)
+    rd, qd = torch.as_tensor(reps, device="cuda"), torch.as_tensor(q, device="cuda")
+    got = retrieve_sharded(mesh, rd, qd, k_sim=k, axis="mem").cpu().numpy()
+    want = np.argsort(-(reps.astype(np.float64) @ q))[:k]
+    ms = cuda_ms(torch, lambda: retrieve_sharded(mesh, rd, qd, k_sim=k, axis="mem"), 20)
+    if got.tolist() != want.tolist():
+        fails.append(f"phase s5: retrieve_sharded {got.tolist()} against the host's {want.tolist()}")
+    return dict(world=mesh.size(), E=E, F=F, ids=got.tolist(), ms=ms)
+
+
+def emllm_phase(torch, fails):
+    """Phase s: EM-LLM's episodic memory on the card at Llama-3-8B's
+    attention widths.  s1 ``masked_attention`` at (Tq, Tk) = (512, 4096 +
+    4·3·128) against the CPU, and a fully masked key set (the mean of V);
+    s2 a 256-event memory on the card and on the CPU: ``retrieve`` in both
+    modes for 16 queries, the same ids, ``gather_kv`` bit for bit; s3
+    ``segment_events`` on 8 chunks (512, 1024) against the CPU; s4 one
+    ``EMLLMAttention`` streams 128K tokens in 512-token chunks with a
+    needle chunk at one third and recalls it; s5 ``retrieve_sharded`` at
+    world min(cards, 4) over NCCL.  Runs none of the port's kernels."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from hebo_tpu_torch.emllm import EMLLMAttention, EpisodicKVMemory, masked_attention, segment_events
+
+    dev, sync = torch.device("cuda"), torch.cuda.synchronize
+    H, Dh, out = EM_H, EM_DH, {}
+    # s1: the attention of one 512-token query block over the window and
+    # 4 · 3 retrieved events (k_sim 4 with both neighbours)
+    g = torch.Generator().manual_seed(11)
+    Tq, Tk = EM_CHUNK, EM_WINDOW + 4 * 3 * EM_EVENT
+    q, k, v = (torch.randn((n, H, Dh), generator=g) for n in (Tq, Tk, Tk))
+    mask = torch.rand(Tk, generator=g) < 0.9
+    qd, kd, vd, md = (t.to(dev) for t in (q, k, v, mask))
+    cpu = masked_attention(q, k, v, mask)
+    card = masked_attention(qd, kd, vd, md)
+    err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+    none = masked_attention(qd, kd, vd, torch.zeros_like(md))
+    err_none = float((none - vd.mean(0)).abs().max() / vd.abs().max())
+    flops = 2 * 2 * H * Tq * Tk * Dh
+    nbytes = 4 * (2 * Tq * H * Dh + 2 * Tk * H * Dh) + Tk
+    ms = cuda_ms(torch, lambda: masked_attention(qd, kd, vd, md), 20)
+    out["s1 masked_attention"] = dict(shape=[Tq, Tk, H, Dh], rel_err=err, fully_masked_err=err_none, ms=ms,
+                                      bound_ms=bound(flops, nbytes)[0], tflops=flops / ms * 1e-9)
+    if not (err <= EM_ATT_TOL and err_none <= EM_ATT_TOL):
+        fails.append(f"phase s1: masked_attention {out['s1 masked_attention']}")
+
+    # s2: a 256-event memory from seeded data on the card and on the CPU
+    rng = np.random.default_rng(12)
+    mems = [EpisodicKVMemory(event_len=EM_EVENT, device=d) for d in (dev, "cpu")]
+    while len(mems[1]) < 256:
+        K = rng.standard_normal((EM_CHUNK, H, Dh)).astype(np.float32)
+        V = rng.standard_normal((EM_CHUNK, H, Dh)).astype(np.float32)
+        cuts = np.sort(rng.choice(np.arange(16, EM_CHUNK - 16), 3, replace=False))
+        edges = [0, *cuts.tolist(), EM_CHUNK]
+        spans = list(zip(edges[:-1], edges[1:]))[: 256 - len(mems[1])]
+        for mem in mems:
+            mem.add_events(K, V, spans)
+    same, gaps = True, []
+    for i in range(16):
+        qq = rng.standard_normal((32, H, Dh)).astype(np.float32)
+        for mode in ("reps", "full"):
+            ids = [m.retrieve(qq, EM_K_SIM, EM_K_CONTIG, mode=mode) for m in mems]
+            sc = np.sort(mems[1].scores(qq, mode).numpy())[::-1]
+            gaps.append(float((sc[EM_K_SIM - 1] - sc[EM_K_SIM]) / abs(sc[EM_K_SIM - 1])))
+            kv = [m.gather_kv(ids[0]) for m in mems]
+            same &= ids[0] == ids[1] and all(torch.equal(a.cpu(), b) for a, b in zip(*kv))
+    qq = torch.as_tensor(rng.standard_normal((EM_CHUNK, H, Dh)).astype(np.float32), device=dev)
+    out["s2 memory, 256 events"] = dict(
+        same_ids_and_kv=same, min_rel_gap_at_k=min(gaps),
+        retrieve_ms={m: cuda_ms(torch, lambda: mems[0].retrieve(qq, EM_K_SIM, EM_K_CONTIG, mode=m), 10)
+                     for m in ("reps", "full")})
+    if not same:
+        fails.append(f"phase s2: retrieve / gather_kv card against CPU {out['s2 memory, 256 events']}")
+    del mems
+
+    # s3: segmentation of 8 seeded (512, 1024) chunks
+    spans_same, ties, n_bounds = 0, 0, 0
+    for c in range(8):
+        keys = rng.standard_normal((EM_CHUNK, H * Dh)).astype(np.float32)
+        s = _em_surprise(rng, EM_CHUNK) + (rng.random(EM_CHUNK) > 0.98) * 5.0
+        tr = [[], []]
+        sp = [segment_events(torch.as_tensor(keys, device=d), s, min_event=EM_EVENT // 4, trace=t)
+              for d, t in ((dev, tr[0]), ("cpu", tr[1]))]
+        n_bounds += len(tr[1])
+        ok, tie = _seg_agrees(*tr)
+        spans_same += sp[0] == sp[1]
+        ties += tie
+        if not (sp[0] == sp[1] or (ok and tie)):
+            fails.append(f"phase s3: chunk {c} spans {sp[0]} on the card, {sp[1]} on the CPU")
+    out["s3 segment_events"] = dict(chunks=8, boundaries=n_bounds, same_spans=spans_same, ties=ties)
+
+    # s4: the full-width stream
+    att = EMLLMAttention(H, Dh, local_window=EM_WINDOW, event_len=EM_EVENT, k_sim=EM_K_SIM,
+                         k_contig=EM_K_CONTIG, device=dev)
+    gd = torch.Generator(device=dev).manual_seed(13)
+    n_chunks, needle_at = EM_TOKENS // EM_CHUNK, EM_TOKENS // EM_CHUNK // 3
+    walls = []
+    sync()
+    t_all = time.time()
+    for c in range(n_chunks):
+        K = 0.1 * torch.randn((EM_CHUNK, H, Dh), generator=gd, device=dev)
+        V = 0.1 * torch.randn((EM_CHUNK, H, Dh), generator=gd, device=dev)
+        if c == needle_at:
+            K[:, :, 1] += 8.0
+            V.fill_(7.0)
+        s = _em_surprise(rng, EM_CHUNK)
+        sync()
+        t0 = time.time()
+        att.ingest(K, V, s)
+        sync()
+        walls.append(time.time() - t0)
+    stream_s = time.time() - t_all
+    Q = torch.zeros((1, H, Dh), device=dev)
+    Q[:, :, 1] = 8.0
+    ids = att.memory.retrieve(Q, EM_K_SIM, EM_K_CONTIG)
+    got = att.attend(Q)
+    recall = float(got.mean())
+    attend_ms = cuda_ms(torch, lambda: att.attend(Q), 10)
+    qb = 0.1 * torch.randn((EM_CHUNK, H, Dh), generator=gd, device=dev)
+    retrieve_ms = {m: cuda_ms(torch, lambda: att.memory.retrieve(qb, EM_K_SIM, EM_K_CONTIG, mode=m), 5)
+                   for m in ("reps", "full")}
+    kbuf = att.memory._k
+    K = 0.1 * torch.randn((EM_CHUNK, H, Dh), generator=gd, device=dev)
+    prof = busy(lambda: (att.ingest(K, K, _em_surprise(rng, EM_CHUNK)), att.attend(qb)))
+    out["s4 EMLLMAttention, 128K tokens"] = dict(
+        tokens=EM_TOKENS, chunk=EM_CHUNK, events=len(att.memory), needle_chunk=needle_at,
+        retrieved_ids=ids, recall_mean=recall, stream_s=stream_s,
+        ingest_ms_median=1e3 * float(np.median(walls)), ingest_ms_p90=1e3 * float(np.percentile(walls, 90)),
+        attend_ms=attend_ms, retrieve_ms_512_queries=retrieve_ms,
+        memory_bytes=sum(t.numel() * t.element_size() for t in (kbuf, att.memory._v, att.memory._reps)),
+        memory_capacity_events=kbuf.shape[0], device_bytes_allocated=torch.cuda.memory_allocated(),
+        profiled_ingest_and_attend=prof)
+    if not (np.isfinite(got.cpu().numpy()).all() and recall > 3.0):
+        fails.append(f"phase s4: the needle was not recalled: {out['s4 EMLLMAttention, 128K tokens']}")
+    del att, kbuf
+
+    # s5: the sharded similarity stage, one NCCL rank per card (at most 4)
+    world = min(torch.cuda.device_count(), 4)
+    if world == 1:
+        from hebo_tpu_torch.parallel import make_mesh
+
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            out["s5 retrieve_sharded"] = em_sharded(torch, make_mesh(axis="mem", device="cuda"), fails)
+        finally:
+            dist.destroy_process_group()
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            torch.multiprocessing.start_processes(_em_retrieve_rank, args=(world, str(Path(d) / "store"), d),
+                                                  nprocs=world, join=True, start_method="spawn")
+            ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(world)]
+        for r, res in enumerate(ranks):
+            fails.extend(f"rank {r}: {f}" for f in res.pop("fails"))
+        out["s5 retrieve_sharded"] = ranks[0]
+    for name, r in out.items():
+        print(f"phase {name}:", json.dumps(r), flush=True)
+    return out
+
+
 def kernel_wrappers():
     """The kernels' wrappers, by name; each counts its launches."""
     from hebo_tpu_torch.ops import chol_kernel as ck
@@ -2967,6 +3207,9 @@ def main() -> int:
         # as flax layers and jnp are in the JAX package)
         "rl": (lambda: rl_phase(torch, fails), ()),
         "sparse_po": (lambda: sparse_po_phase(torch, fails), ()),
+        # EM-LLM's memory path is torch products (jnp and numpy in the JAX
+        # package, no pallas_call behind them)
+        "emllm": (lambda: emllm_phase(torch, fails), ()),
     }
     mcbo, family, variants, families, mesh, latent, tasks = {}, {}, {}, {}, {}, {}, {}
     experiment = {}

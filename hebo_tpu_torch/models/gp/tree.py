@@ -8,6 +8,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, List, Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["tree_leaves", "tree_map", "tree_unflatten", "Flat", "adam_step", "adam_train"]
@@ -77,12 +78,18 @@ class Flat:
 def adam_step(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
               lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     """One step of ``optax.adam(lr)`` (bias-corrected moments) on a
-    descent gradient g; returns (p, mu, nu)."""
+    descent gradient g; returns (p, mu, nu).  As optax, the bias corrections
+    1 − βᵗ are taken in the parameters' float type (for float32, numpy
+    float32 scalars, which give XLA's ``1 - decay**count`` bit for bit) and
+    the update is (m̂ / (√v̂ + ε)) · (−lr), then added."""
     mu = b1 * mu + (1 - b1) * g
     nu = b2 * nu + (1 - b2) * g ** 2
-    mhat = mu / (1 - b1 ** count)
-    vhat = nu / (1 - b2 ** count)
-    return p + (-lr * mhat / (torch.sqrt(vhat) + eps)), mu, nu
+    if p.dtype == torch.float64:
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+    else:
+        one, t = np.float32(1), np.float32(count)
+        c1, c2 = float(one - np.float32(b1) ** t), float(one - np.float32(b2) ** t)
+    return p + (mu / c1) / (torch.sqrt(nu / c2) + eps) * (-lr), mu, nu
 
 
 def adam_train(params: dict, loss_fn: Callable, n_steps: int, lr: float, step_input: Callable[[int], Any]):

@@ -180,6 +180,23 @@ def test_svgp_fit_from_the_jax_packages_draws(fitted):
     _close(pf.Z[0].numpy(), np.asarray(jm.params.Z), 1e-4)
 
 
+@pytest.mark.parametrize("epochs", [5, 50])
+def test_svgp_gradient_terms_bound_float32(epochs):
+    """The card check's bound (``bench/svgp_grad_probe.gradient_terms``) on
+    the CPU: each leaf's float64 gradient is at most M, the sum of its
+    terms' magnitudes, and the CPU's float32 gradient lies within
+    (n − 1)·ε₃₂·M of the float64 one."""
+    from hebo_tpu_torch.bench import svgp_grad_probe as probe
+
+    m = probe.fit(0, epochs, device="cpu")
+    g64, M = probe.gradient_terms(m)
+    _, g32 = probe.gradient(m, "cpu")
+    n = m.params.Z.shape[1] * (m.data.X.shape[0] + m.params.Z.shape[1])
+    for k in probe.LEAVES:
+        assert bool((g64[k].abs() <= M[k] * (1 + 1e-9)).all()), k
+        assert bool(((g32[k].double() - g64[k]).abs() <= (n - 1) * probe.EPS32 * M[k]).all()), k
+
+
 @pytest.mark.parametrize("spec", [CONT, MIXED, CATONLY], ids=["cont", "mixed", "cat"])
 def test_svgp_cross_product(spec):
     """tests/test_models.py's SVGP case in the port."""

@@ -280,15 +280,17 @@ def _rank_main(rank, world, store, in_path, out_dir, cases):
         dist.destroy_process_group()
 
 
-def spawn(world, inputs, cases, tmp: Path, timeout=SPAWN_TIMEOUT):
+def spawn(world, inputs, cases, tmp: Path, timeout=SPAWN_TIMEOUT, main=None):
     """Run ``cases`` on ``world`` spawned ranks; their results, by rank.
     Ranks still running at ``timeout`` seconds are killed and the test
-    fails."""
+    fails.  ``main`` (default ``_rank_main``) is the ranks' function, of
+    ``_rank_main``'s arguments; it must save ``rank{r}.pt`` in its out
+    directory."""
     d = tmp / f"world{world}"
     d.mkdir()
     torch.save(inputs, d / "in.pt")
     ctx = torch.multiprocessing.start_processes(
-        _rank_main, args=(world, str(d / "store"), str(d / "in.pt"), str(d), tuple(cases)),
+        main or _rank_main, args=(world, str(d / "store"), str(d / "in.pt"), str(d), tuple(cases)),
         nprocs=world, join=False, start_method="spawn")
     deadline = time.time() + timeout
     try:
