@@ -24,9 +24,13 @@
    matrix that keeps its outputs) against its plain version, the ladder
    (every rung launched) against the host-decided ladder at the fit's
    shape, bit for bit, and the time of a rung that every matrix skips.
-   K5 (nondominated rank + crowding) at NSGA-II's (100, 3) and (200, 3)
-   and the MCBO GA's single objective (64, 1) and (128, 1), with ties, duplicate rows, ±inf and NaN objectives and invalid rows:
-   the same ranks and crowding bits as its plain version, with device µs.
+   K5 (nondominated rank, crowding, NSGA-II key and survivor order) at
+   NSGA-II's (100, 3) and (200, 3), the MCBO GA's single objective (64, 1)
+   and (128, 1), the family's and the latent loops' shapes and chains of
+   200 fronts at M = 2 and 3, with ties, duplicate rows, ±inf and NaN
+   objectives and invalid rows: the same ranks, crowding bits, keys and
+   order as its plain version (``nsga2_key``, a stable argsort), with
+   device µs.
    K3 runs at every AntBO shape and one beyond its register budget, with
    its route and device µs per launch (torch.profiler) beside ms per call.
    Checks NaN propagation of the factorization on a batch with one non-PSD
@@ -43,7 +47,10 @@
        3 on the eager CUDA path, with walls and launches per suggest; each
        suggest after the capture must add exactly 50 K2 VJP, 200 K5 and
        107 + 107 K1 launches (51 NLL ladders of 2 rungs and the cache's 5,
-       every rung launched).
+       every rung launched).  In (a) and (b) one more suggest on the graph
+       path runs under torch.profiler: its device time, K5's device ms and
+       the sort kernels' (fewer sort launches than generations, as NSGA-II
+       takes its keys and survivors' order from K5).
    Each phase ends with one suggest on each path at the same seed, which
    must give the same suggestion.  Every suggestion must be finite and
    inside the box, and every pSGLD step's Gram gradient must have gone
@@ -649,13 +656,17 @@ def check_ssk(torch, ssk, device_us, dev, fails):
     return cross_rows, self_rows
 
 
-def pareto_inputs(torch, P, M, edge, dev, seed):
+def pareto_inputs(torch, P, M, edge, dev, seed, chain=False):
     """F (P, M) on a coarse grid (ties in every objective), with duplicate
-    rows and, with ``edge``, ±inf and NaN entries."""
+    rows and, with ``edge``, ±inf and NaN entries; with ``chain``, row i is
+    (r_i, ..., r_i) for a permutation r, so every point is its own front."""
     rng = np.random.default_rng(seed)
-    F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
-    F[3] = F[4]
-    F[10] = F[11] = F[12]
+    if chain:
+        F = np.repeat(rng.permutation(P).astype(np.float32)[:, None], M, 1)
+    else:
+        F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
+        F[3] = F[4]
+        F[10] = F[11] = F[12]
     if edge:
         F[20, 1 % M] = F[21, 1 % M] = np.inf
         F[22, 0] = -np.inf
@@ -666,19 +677,24 @@ def pareto_inputs(torch, P, M, edge, dev, seed):
     return torch.as_tensor(F, device=dev)
 
 
-def pareto_agrees(torch, pareto, P, M, dev, fails, what):
-    """K5 at (P, M) against its plain version bit for bit, on tied inputs
-    with and without the edge values, with and without a valid mask."""
+def pareto_agrees(torch, pareto, P, M, dev, fails, what, chain=False):
+    """K5 at (P, M) against its plain version bit for bit, on tied (or
+    chained) inputs with and without the edge values, with and without a
+    valid mask: rank and crowding (``nsga2_rank_crowd``), and rank,
+    crowding, key and the order of the first P // 2 (``nsga2_select``)."""
     for edge in (False, True) if P > 40 else (False,):
-        F = pareto_inputs(torch, P, M, edge, dev, P + edge)
+        F = pareto_inputs(torch, P, M, edge, dev, P + edge, chain)
         for valid in (None, torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25,
                                             device=dev)):
             r, c = pareto.nsga2_rank_crowd(F, valid)
             r0, c0 = pareto.nsga2_rank_crowd_plain(F, valid)
-            if not (torch.equal(r, r0) and same_bits(torch, c, c0)):
-                fails.append(f"nsga2_rank_crowd {(P, M)}{what} edge={edge} masked={valid is not None}: "
-                             f"ranks equal {torch.equal(r, r0)}, crowding bits equal "
-                             f"{same_bits(torch, c, c0)}")
+            got, want = pareto.nsga2_select(F, P // 2, valid), pareto.nsga2_select_plain(F, P // 2, valid)
+            same = {"ranks": torch.equal(r, r0) and torch.equal(got[0], want[0]),
+                    "crowding bits": same_bits(torch, c, c0) and same_bits(torch, got[1], want[1]),
+                    "keys": torch.equal(got[2], want[2]), "order": torch.equal(got[3], want[3])}
+            if not all(same.values()):
+                fails.append(f"nsga2_rank_crowd {(P, M)}{what} chain={chain} edge={edge} "
+                             f"masked={valid is not None}: equal {same}")
 
 
 def same_bits(torch, a, b):
@@ -693,25 +709,39 @@ def check_pareto(torch, pareto, device_us, dev, fails):
     and of BO's and Evolution's NSGA-II, (100, 1) and (200, 1), and at
     GeneralBO's M = 2 (ZDT1) and M = 4 (BNH, 2 objectives + 2
     constraints), P 100 and 200, and phases n and o's evolutions, (48, 1),
-    (96, 1), (32, 1), (48, 3) and (96, 3): the same ranks and crowding bits as the
-    plain version (``pareto_agrees``).  Timed on standard-normal
-    objectives."""
+    (96, 1), (32, 1), (48, 3) and (96, 3), and on chains of 200 fronts at
+    M = 2 and 3 (the peel's worst case): the same ranks, crowding bits,
+    keys and survivor order as the plain version (``pareto_agrees``).
+    Timed as survival calls it, ``nsga2_select(F, P // 2)``, on
+    standard-normal objectives (a chain's rows on the chain)."""
     rows = []
-    for P, M in ((100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1), (100, 2), (200, 2),
-                 (100, 4), (200, 4), (48, 1), (96, 1), (32, 1), (48, 3), (96, 3)):
-        pareto_agrees(torch, pareto, P, M, dev, fails, "")
-        F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
-        fn = lambda: pareto.nsga2_rank_crowd(F)
-        # operations: the domination compares (<=, <) and the crowding
-        # scans' (neighbour, span) over every pair and objective
-        bms, by = bound(4 * P * P * M, 4 * (P * M + 2 * P))
-        r, c = fn()
-        r0, c0 = pareto.nsga2_rank_crowd_plain(F)
+    cases = [(P, M, False) for P, M in ((100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1),
+                                        (100, 2), (200, 2), (100, 4), (200, 4), (48, 1), (96, 1),
+                                        (32, 1), (48, 3), (96, 3))]
+    for P, M, chain in cases + [(200, 2, True), (200, 3, True)]:
+        pareto_agrees(torch, pareto, P, M, dev, fails, "", chain)
+        if chain:
+            F = pareto_inputs(torch, P, M, False, dev, P, chain=True)
+        else:
+            F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
+        fn = lambda: pareto.nsga2_select(F, P // 2)
+        got = fn()
+        want = pareto.nsga2_select_plain(F, P // 2)
+        # operations on this run's fronts: the domination compares (<= both
+        # ways, each pair once, every objective), the peel's word ops (each
+        # front tests every point's row), the crowding's placement within
+        # each front per objective and the order's, and the ordinal's
+        # compares over every pair; bytes: F in, rank, crowding, key and
+        # order out
+        sizes = torch.bincount(got[0].long()).double()
+        fronts = int(got[0].max().item()) + 1
+        ops = P * P * M + fronts * P * -(-P // 32) + int((sizes ** 2).sum().item()) * (M + 1) + P * P
+        bms, by = bound(ops, 4 * (P * M + 3 * P) + 8 * (P // 2))
         rows.append(dict(
-            shape=[P, M], fronts=int(r.max().item()) + 1,
-            max_abs_err=float((c - c0).abs().nan_to_num(0.0).max().item()),
+            shape=[P, M], chain=chain, fronts=fronts,
+            max_abs_err=float((got[1] - want[1]).abs().nan_to_num(0.0).max().item()),
             ms=cuda_ms(torch, fn, 1000), device_us=device_us(torch, fn, 200, "nsga2_rank_crowd")[0],
-            plain_ms=cuda_ms(torch, lambda: pareto.nsga2_rank_crowd_plain(F), 50),
+            plain_ms=cuda_ms(torch, lambda: pareto.nsga2_select_plain(F, P // 2), 50),
             bound_ms=bms, bound_by=by, library_ms=None,
         ))
     print("kernel nsga2_rank_crowd: library_ms null, no single PyTorch call computes "
@@ -857,6 +887,22 @@ def graph_vs_eager(torch, opt, what, fails):
         fails.append(f"{what}: the graph path's suggestion differs from the eager path's")
 
 
+def k5_and_sorts(suggest, n_gens, what, fails):
+    """One suggest on the graph path under torch.profiler: its device
+    seconds, K5's and the sort kernels' device ms and launches.  NSGA-II
+    takes its keys and survivor order from K5, so fewer sorts than
+    generations must run."""
+    from hebo_tpu_torch.bench.profile_suggest import _device_profile, _k5_and_sorts
+
+    p = _device_profile(suggest)
+    out = {"device_kernel_s": p["device_kernel_s"], "profiled_wall_s": p["profiled_wall_s"],
+           **_k5_and_sorts(p["by_name"])}
+    if out["sort_launches"] >= n_gens:
+        fails.append(f"{what}: {out['sort_launches']} sort kernels in a suggest of {n_gens} "
+                     f"NSGA-II generations")
+    return out
+
+
 def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
@@ -877,7 +923,8 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
         fails.append(f"phase a: best {opt.best_y} does not beat the init phase's {init_best}")
     a = dict(n_obs=opt.num_obs, init_best=init_best, best=opt.best_y, suggests=len(times),
              s_per_suggest_median=float(np.median(times)), s_first=times[0], s_all=times,
-             graphs=sorted(k[0] for k in opt._graphs))
+             graphs=sorted(k[0] for k in opt._graphs),
+             profiled_suggest=k5_and_sorts(lambda: opt.suggest(8), opt.iters, "phase a", fails))
     print("phase a (Ackley-6D b8, Sobol init -> 120 obs, bucket 128, graph path):", json.dumps(a),
           flush=True)
     graph_vs_eager(torch, opt, "phase a", fails)
@@ -919,7 +966,8 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
         if not bool(opt.model.caches.ok.all()):
             fails.append(f"phase b {path}: posterior factorization failed")
     opt._use_graphs = True
-    b.update(n_obs=opt.num_obs, bucket=int(opt.model.data.X.shape[0]), best=opt.best_y)
+    b.update(n_obs=opt.num_obs, bucket=int(opt.model.data.X.shape[0]), best=opt.best_y,
+             profiled_suggest=k5_and_sorts(lambda: opt.suggest(8), opt.iters, "phase b", fails))
     print("phase b (Ackley-6D b8, 800 warm obs, bucket 1024):", json.dumps(b), flush=True)
     graph_vs_eager(torch, opt, "phase b", fails)
     return a, b

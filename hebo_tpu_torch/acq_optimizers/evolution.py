@@ -11,8 +11,8 @@ The JAX package draws each generation's random numbers from split keys.
 Here they come from a ``torch.Generator`` on the device, or from a
 ``draws(gen) → GenDraws`` callable, so that a test can feed the JAX draws
 and a captured CUDA graph can read them from buffers filled before replay.
-On CUDA, each generation's rank and crowding are one launch of kernel K5
-(``ops/pareto.nsga2_rank_crowd``).
+On CUDA, the tournament's keys and the survivors' order are each one launch
+of kernel K5 (``ops/pareto.nsga2_select``): no sort per generation.
 
 ``EvolutionOpt`` is the host-side wrapper with the reference API
 (evolution.py:191-276), which HEBO's generic route drives: a Sobol initial
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..acquisitions.acq import AcqParams
-from ..ops.pareto import nsga2_key, nsga2_rank_crowd
+from ..ops.pareto import nsga2_select
 
 __all__ = ["EvolveSpaceMeta", "EvolutionOpt", "GenDraws", "MetaTensors", "evolve_raw",
            "draw_generation", "meta_tensors"]
@@ -174,7 +174,7 @@ def evolve_raw(
     F = evaluate(X)
     for g in range(n_gens):
         dr = draws(g) if draws is not None else draw_generation(P, D, generator, dev)
-        skey = nsga2_key(*nsga2_rank_crowd(F))
+        skey = nsga2_select(F)[2]
         sel = dr.sel.long()
         win = torch.where(skey[sel[0]] <= skey[sel[1]], sel[0], sel[1])
         mate = torch.roll(win, 1)
@@ -187,7 +187,7 @@ def evolve_raw(
         Fc = evaluate(child)
         Xall = torch.cat([X, child], 0)
         Fall = torch.cat([F, Fc], 0)
-        order = torch.argsort(nsga2_key(*nsga2_rank_crowd(Fall)), stable=True)[:P]
+        order = nsga2_select(Fall, P)[3]
         X, F = Xall[order], Fall[order]
     return _round_discrete(X, mt), F
 

@@ -6,6 +6,7 @@
     python3 -m hebo_tpu_torch.bench.profile_suggest --hmc [--obs 800]
     python3 -m hebo_tpu_torch.bench.profile_suggest --mcbo BOCS [Casmopolitan ...] [--obs 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --general zdt1 [bnh] [--obs 200]
+    python3 -m hebo_tpu_torch.bench.profile_suggest --bo [--obs 200]
     python3 -m hebo_tpu_torch.bench.profile_suggest --variant svgp [dkl deep_ensemble gbdt nap] [--obs 3000]
 
 For each observation count (and, for HEBO, each path: ``graph``, the
@@ -24,7 +25,8 @@ graph; its wall is reported as ``first_s``), then
   device kernel time (its share of the wall time is the busy share), the
   device kernels (a graph's nodes count as kernels), the host's launch
   calls (``cudaLaunchKernel`` and its kin) and graph launches apart, the
-  top kernels by device time; kernel K5's launches and device ms; kernel
+  top kernels by device time; kernel K5's launches and device ms, and the
+  sort kernels' (every kernel whose name holds "sort") by name; kernel
   K1's rungs that every matrix skipped, with their device launches, apart
   from the rungs that factor; kernel K1's device kernels
   with their launches per ``chol_factor`` call, kernel K3's ``ssk_cross`` and
@@ -65,6 +67,8 @@ epochs; NSGA-II pop 100 × 100) on ZDT1 (30 variables, 2 objectives) or BNH
 ``chip_smoke.py``, warm-started with 200 Sobol observations, a warm-up
 ``suggest(4)``, one timed, and one profiled as above, each with its fit,
 acquisition (NSGA-II) and EHVI seconds, and K5's and K2's launches.  With
+``--bo``, ``BO`` at chip_smoke phase j1's setting (Ackley-6D, 200 Sobol
+observations, suggest(1), eager), timed and profiled as ``--general``.  With
 ``--variant MODEL ...``, HEBO's generic route as ``--large-n`` with
 ``HEBO(model_name=MODEL)`` (chip_smoke phase k's and l's setting: 800
 Sobol observations, 3000 for ``svgp``; NAP's meta-training, in the
@@ -208,12 +212,23 @@ def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
     finally:
         rungs.close()
     by_name = prof.pop("by_name")
-    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
-    k5_n, k5_ms = sum(n for n, _ in k5), sum(ms for _, ms in k5)
+    k5 = _k5_and_sorts(by_name)
     return {"n_obs": n_obs, "bucket": bucket, "path": path, "device": torch.cuda.get_device_name(0),
-            **phases, **prof, **k1_rungs,
-            "k5_launches": k5_n, "k5_device_ms": k5_ms, "k5_us_per_launch": 1e3 * k5_ms / max(k5_n, 1),
+            **phases, **prof, **k1_rungs, **k5,
+            "k5_us_per_launch": 1e3 * k5["k5_device_ms"] / max(k5["k5_launches"], 1),
             "k2": _k2_block(by_name, calls, bucket)}
+
+
+def _k5_and_sorts(by_name) -> dict:
+    """Kernel K5's launches and device ms in the profiled suggest, and those
+    of the sort kernels (every device kernel whose name holds "sort"), by
+    name and summed."""
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    sorts = {k: (n, ms) for k, (n, ms) in by_name.items() if "sort" in k.lower()}
+    return {"k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "sort_launches": sum(n for n, _ in sorts.values()),
+            "sort_device_ms": sum(ms for _, ms in sorts.values()),
+            "sort_kernels": {k[:80]: {"n": n, "ms": ms} for k, (n, ms) in sorts.items()}}
 
 
 def _k2_counts(by_name, calls) -> dict:
@@ -281,7 +296,6 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name:
         k1.close()
     by_name = prof.pop("by_name")
     pcg_ms = prof.pop("range_device_ms").get("pcg_solve", 0.0)
-    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
     model = opt.model
     data = getattr(model, "data", None)  # None: a surrogate that is not a GP
     fit_data = getattr(model, "fit_data", None) or data
@@ -300,7 +314,7 @@ def profile_generic(n_obs: int, n_timed: int = 3, model_config=None, model_name:
             **prof,
             "pcg_solves": len(pcg_calls), "pcg_device_ms": pcg_ms,
             "pcg_share_of_device": pcg_ms * 1e-3 / max(prof["device_kernel_s"], 1e-12),
-            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            **_k5_and_sorts(by_name),
             "k2": None if fit_data is None else _k2_block(by_name, calls, int(fit_data.X.shape[0]))}
 
 
@@ -354,14 +368,12 @@ def profile_mcbo(name: str, n_obs: int = 200) -> dict:
         k1.close()
     by_name = prof.pop("by_name")
     prof.pop("range_device_ms")
-    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
     model = opt.model
     return {"preset": name, "n_obs": n_obs,
             "bucket": int(model.data.X.shape[0]) if hasattr(model, "data") else None,
             "device": torch.cuda.get_device_name(0), **phases,
             "profiled_fit_s": opt.fit_time[-1], "profiled_acq_s": opt.acq_time[-1], **prof,
-            "k1_calls_by_batch": k1.take(),
-            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "k1_calls_by_batch": k1.take(), **_k5_and_sorts(by_name),
             "k2": _k2_counts(by_name, calls)}
 
 
@@ -398,14 +410,45 @@ def profile_general(problem: str, n_obs: int = 200) -> dict:
     prof = _device_profile(step)
     by_name = prof.pop("by_name")
     prof.pop("range_device_ms")
-    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
     return {"problem": problem, "n_obs": n_obs, "gps": len(opt.model.models),
             "bucket": int(opt.model.models[0].data.X.shape[0]), "dims": space.num_cols,
             "device": torch.cuda.get_device_name(0), **phases,
             "profiled_fit_s": opt.fit_time[-1], "profiled_acq_s": opt.acq_time[-1],
-            "profiled_ehvi_s": opt.ehvi_time[-1], **prof,
-            "k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
+            "profiled_ehvi_s": opt.ehvi_time[-1], **prof, **_k5_and_sorts(by_name),
             "k2": _k2_counts(by_name, calls)}
+
+
+def profile_bo(n_obs: int = 200) -> dict:
+    """``BO`` at chip_smoke phase j1's setting: its defaults (``GP.fit``,
+    ``EvolutionOpt`` pop 100 × 100, eager) on Ackley-6D with ``n_obs``
+    Sobol observations, a warm-up ``suggest(1)``, one timed and one
+    profiled, with K5's and the sort kernels' launches and device ms."""
+    from ..optimizers import BO
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = BO(space, device="cuda")
+    warm = space.inverse_transform(space.sobol_sample_opt(n_obs, seed=1))
+    opt.observe(warm, _ackley(warm))
+
+    def step():
+        rec = opt.suggest(1)
+        torch.cuda.synchronize()
+        opt.observe(rec, _ackley(rec))
+
+    t0 = time.perf_counter()
+    step()  # warm-up: builds/loads kernels, cuBLAS handles
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step()
+    phases = {"first_s": first_s, "suggest_s": time.perf_counter() - t0,
+              "fit_s": opt.fit_time[-1], "acq_s": opt.acq_time[-1]}
+    prof = _device_profile(step)
+    by_name = prof.pop("by_name")
+    prof.pop("range_device_ms")
+    return {"optimizer": "BO", "n_obs": n_obs, "device": torch.cuda.get_device_name(0), **phases,
+            "profiled_fit_s": opt.fit_time[-1], "profiled_acq_s": opt.acq_time[-1], **prof,
+            **_k5_and_sorts(by_name)}
 
 
 _RANGES = ("pcg_solve",)
@@ -481,6 +524,8 @@ def main():
                          "svgp 3000)")
     ap.add_argument("--general", nargs="+", default=None, choices=["zdt1", "bnh"],
                     help="profile GeneralBO on these problems at chip_smoke phase j2's setting")
+    ap.add_argument("--bo", action="store_true",
+                    help="profile BO (GP.fit, EvolutionOpt) at chip_smoke phase j1's setting")
     ap.add_argument("--obs", type=int, nargs="+", default=None,
                     help="observation counts (default 112 800; with --antbo 28 200; with --mcbo "
                          "and --general 200)")
@@ -490,6 +535,10 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_suggest: needs a CUDA device")
+    if args.bo:
+        for n in args.obs or [200]:
+            print(json.dumps(profile_bo(n)), flush=True)
+        return
     if args.general:
         for problem in args.general:
             for n in args.obs or [200]:

@@ -1,227 +1,557 @@
-// Nondominated rank and NSGA-II crowding distance in one launch (kernel K5).
+// NSGA-II nondominated rank, crowding distance, sort key and survivor order
+// in one launch (kernel K5).
 //
 // Replaces hebo_tpu/ops/pareto.py::nondominated_rank (:45-78, an XLA
-// while_loop over the (P, P) domination matrix) and crowding_distance
-// (:81-141, per-objective lexsorts and segment min/max).  The JAX package
-// has no pallas_call here: XLA keeps the peel loop on the device.  The
-// port's plain version peels with a host test (ops/pareto.py), so on the
-// card this kernel keeps the loop on the device, as the JAX program does,
-// and a captured graph can hold it.
+// while_loop over the (P, P) domination matrix), crowding_distance
+// (:81-127, per-objective lexsorts and segment min/max) and nsga2_key
+// (:130-141, an argsort of an argsort), and the stable argsort of that key
+// that survival takes (acq_optimizers/evolution.py).  The JAX package has
+// no pallas_call here: XLA keeps the peel loop and the sorts on the device.
 //
-// Input F (N, M) float32 (N = P for the tournament, 2P for survival),
-// an optional valid (N,) bool mask.  Output rank (N,) int32 (0 = Pareto
-// front, N for a point never peeled) and crowd (N,) float32, equal to the
-// plain version bit for bit:
-//   D[i][j]   i dominates j: all(F_i <= F_j) and any(F_i < F_j) with IEEE
-//             compares (a NaN compares false); with the mask, an invalid
-//             row dominates nothing and every valid row dominates it;
-//   peel t    the points with no unpeeled dominator get rank t, and each
-//             remaining point loses one count per peeled dominator, until
-//             every point has a rank (at most N peels);
-//   crowding  per objective m, in the order (rank, f, index) with NaN after
-//             every number and -0 equal to +0 (the stable sorts' order),
-//             d_m = (f_next - f_prev) / span for a point with a neighbour
-//             of its front on both sides, else 1e30; span = max(f_max -
-//             f_min, 1e-12) over the point's front, NaN if the front holds
-//             a NaN in m; crowd = inf if any d_m >= 1e30, else
-//             (d_0 + d_1 + ... ) / M summed in objective order with each
-//             d_m clamped to at most 1e30 (a NaN passes through).
+// Input F (N, M) float32 (N = P for the tournament, 2P for survival), an
+// optional valid (N,) bool mask, n_keep.  Outputs, equal to the plain
+// version (ops/pareto.py: nsga2_rank_crowd_plain, nsga2_key, a stable
+// argsort) bit for bit:
+//   rank  (N,) int32: D[i][j] (i dominates j) is all(F_i <= F_j) and
+//         any(F_i < F_j) with IEEE compares (a NaN compares false); with the
+//         mask an invalid row dominates nothing and every valid row
+//         dominates it.  Front t is the points with no dominator left after
+//         fronts 0..t-1 are peeled (rank N for a point never peeled: none
+//         is, as domination has no cycle).
+//   crowd (N,) float32: per objective m, in the order (rank, f, index) with
+//         NaN after every number and -0 equal to +0, d_m = (f_next -
+//         f_prev) / span for a point with a neighbour of its front on both
+//         sides, else 1e30; span = max(f_max - f_min, 1e-12) over the
+//         front, NaN if the front holds a NaN in m; crowd = inf if any d_m
+//         >= 1e30, else (d_0 + d_1 + ...) / M summed in objective order with
+//         each d_m clamped to at most 1e30 (a NaN passes through).
+//   key   (N,) float32, optional: rank * N + ordinal, the ordinal being the
+//         point's place in the stable descending order of crowd (NaN as
+//         -inf).  The keys are distinct integers below 2^24.
+//   order (n_keep,) int64, optional: order[k] is the point with exactly k
+//         keys below its own, i.e. torch.argsort(key, stable=True)[:n_keep].
 //
-// What bounds it on an H100: neither bytes nor FLOPs.  At N = 200, M = 3
-// it reads 2.4 KB and does ~120k compares for the domination matrix and as
-// many for the crowding neighbours: well under a microsecond of one SM.
-// The time is the launch, the chain of peels (CTA barriers per front) and
-// the latency of the scans.  So one CTA of 1024 threads does it all in
-// shared memory:
-//   dom   N x ceil(N/32) words: bit i of word (j, i/32) says i dominates j
-//         (200 x 7 words, 5.6 KB at N = 200);
-//   peel  a thread per point tests "unpeeled with no dominator left"; the
-//         front is a bitset built with shared atomicOr, and each remaining
-//         point subtracts popc(dom_j & front) per word;
-//   crowd a thread per (point, objective) counts the points of its front
-//         before it in the (f, index) order: that is its place in the
-//         front's sorted run, which the peel laid out (front t starts
-//         where front t-1 ends).  Each thread writes itself there, and
-//         then reads its neighbours and the run's ends (min and max; a
-//         NaN sorts last, so a front with a NaN gets a NaN span).  A
-//         thread per point sums its M gaps in objective order.  O(N^2 M)
-//         independent compares, no sort and no reduction chain.  (Two
-//         earlier versions searched for the neighbours directly: a thread
-//         per point, ~200 us at N = 200, and a warp per (point, objective)
-//         with shuffle reductions, ~114 us: both waiting on dependent
-//         shared loads and shuffles on one SM.)
+// What bounds it on an H100: latency, not bytes or FLOPs.  At N = 200, M = 3
+// it reads 2.4 KB and does ~240k compares: well under a microsecond of one
+// SM's instruction throughput.  The time is the launch, the chain of peels
+// (one per front, each waiting on the last), the barriers between phases
+// and the dependent loads of one thread per point.  v3 (one CTA of 1024
+// threads, three CTA barriers, a serial count and a dominator count per
+// front, an O(N^2 M) crowding placement) took 22.3 us at (100, 3), 45.9 at
+// (200, 3), 97.7 at (100, 1) and 220.9 at (200, 1), and the callers then
+// sorted its output three times per generation (PERF.md, the K5 row).  This
+// version:
+// one CTA of 512 threads, all in shared memory.  The per-point passes take
+// a thread per point (at the NSGA-II loops' N <= 256 half the threads wait
+// there); the dom tiles spread over 16 warps, which measured faster than 8
+// (256 threads) and than 32 (1024, whose barriers wait on more warps).  The
+// code is compact (one instantiation per M in 2..4 for dom, per register
+// width for the peel): a launch inside HEBO's graph finds the instruction
+// cache cold.
+//   load   F as rows padded to 2 or 4 floats (one vector load per point;
+//          zero rows up to a multiple of 32), valid once as a bitmask;
+//   dom    N x WS words (WS = W | 1 for conflict-free row reads, W =
+//          ceil(N/32)): bit i of dom[j][w] says point 32w+i dominates j.  A
+//          warp takes a pair of words (a <= b): each lane holds one point i
+//          of word a in registers and walks the 32 points j of word b;
+//          all(F_i <= F_j) and all(F_j <= F_i) give both directions (with
+//          one of them true no NaN is involved, so any(<) is the other's
+//          negation): one __ballot_sync gives dom[j][a], another the
+//          reverse, which a 32 x 32 bit transpose turns into dom[i][b]; the
+//          valid mask applies to whole words after the 32 steps.  Half the
+//          tiles, half the compares of a full sweep.
+//   peel   (M >= 2) warp 0 alone, no CTA barrier: the unpeeled set is a
+//          bitmask held by every lane, each lane owns points j = lane (mod
+//          32) with their dom rows, ranks and slots in registers (N <= 256;
+//          shared memory beyond), a point is in the front when dom[j] &
+//          unpeeled is zero, __ballot_sync gives the front's words and
+//          __popc of the ballots where the front starts (start[t]) and
+//          each member's slot (memb: front by front, in index order).
+//   rank at M = 1: no peel.  With one objective i dominates j exactly when
+//          f_i < f_j, so a valid number's rank is the count of distinct
+//          valid numbers below it (-0 and +0 one value, +-inf as numbers), a
+//          valid NaN's is 0 and an invalid row's is 1 + the largest valid
+//          rank (0 when no row is valid).  Two O(N^2) passes of independent
+//          compares on order keys (first of its value, rank), then a count
+//          per rank, a one-warp scan into start and a cursor per rank for
+//          the slots.
+//   crowd  per objective: each member counts the members of its front
+//          below it in (f's order key, point), 64-bit keys with no NaN
+//          branch, O(sum of front sizes^2); then reads its neighbours and
+//          the run's ends.  The sum runs in objective order.
+//   key    each point counts the points before it in (crowding descending,
+//   order  point), O(N^2) on 64-bit keys, two a load; then the members of
+//          its front of smaller ordinal: its place in the key order.  No
+//          sort.
+// About 2M + 6 CTA barriers per launch, none per front.  The O(N^2) loops
+// load 16 bytes at a time into independent counts: a dependent chain of
+// loads or adds per element is what v1-v3 lost their time to.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNaNKey = 0xffffffffu;
 constexpr float kBig = 1e30f;
+constexpr int kSmemMax = 232448;  // dynamic shared memory one H100 CTA may use
+constexpr int kNMax = 4096;       // rank * N + ordinal stays below 2^24: exact in float32
 constexpr int kStaticSmemLimit = 48 * 1024;
 
-// a before b in the order of torch.argsort / jnp.argsort on floats: NaN
-// after every number; equal values (including -0 and +0) tie.
-__device__ __forceinline__ bool f_before(float a, float b) {
-  if (isnan(a)) return false;
-  if (isnan(b)) return true;
-  return a < b;
+// An unsigned key in the order of torch.argsort on floats: -0 as +0, NaN
+// after +inf, every NaN equal.
+__device__ __forceinline__ unsigned order_key(float f) {
+  if (isnan(f)) return kNaNKey;
+  const unsigned u = __float_as_uint(f == 0.f ? 0.f : f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__device__ __forceinline__ bool key_before(float fa, int a, float fb, int b) {
-  if (f_before(fa, fb)) return true;
-  if (f_before(fb, fa)) return false;
-  return a < b;
+// Row stride of F in shared memory: one 8- or 16-byte load per point.
+__host__ __device__ __forceinline__ int row_stride(int M) { return M == 3 ? 4 : M; }
+// Every array in shared memory starts on 16 bytes (uint4 loads).
+__host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
+
+struct Lt { __device__ bool operator()(unsigned a, unsigned b) const { return a < b; } };
+struct Eq { __device__ bool operator()(unsigned a, unsigned b) const { return a == b; } };
+
+// #{lo <= k < hi : cmp(a[k], x)}, a 16-byte aligned: uint4 loads and four
+// independent counts, so the loop waits on no load and no add.
+template <class Cmp>
+__device__ __forceinline__ int count_range(const unsigned* a, int lo, int hi, unsigned x, Cmp cmp) {
+  int c0 = 0, c1 = 0, c2 = 0, c3 = 0, k = lo;
+  for (; k < hi && (k & 3); ++k) c0 += cmp(a[k], x);
+#pragma unroll 4
+  for (; k + 4 <= hi; k += 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + k);
+    c0 += cmp(v.x, x);
+    c1 += cmp(v.y, x);
+    c2 += cmp(v.z, x);
+    c3 += cmp(v.w, x);
+  }
+  for (; k < hi; ++k) c1 += cmp(a[k], x);
+  return c0 + c1 + c2 + c3;
+}
+
+// #{lo <= k < hi : a[k] < x}, a 16-byte aligned: two keys a load, two
+// counts.
+__device__ __forceinline__ int count_lt64(const unsigned long long* a, int lo, int hi,
+                                          unsigned long long x) {
+  int c0 = 0, c1 = 0, k = lo;
+  if (k < hi && (k & 1)) c1 += a[k++] < x;
+#pragma unroll 4
+  for (; k + 2 <= hi; k += 2) {
+    const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(a + k);
+    c0 += v.x < x;
+    c1 += v.y < x;
+  }
+  if (k < hi) c0 += a[k] < x;
+  return c0 + c1;
+}
+
+template <int MR>
+__device__ __forceinline__ void load_row(const float* Fr, int i, float* f) {
+  if constexpr (MR == 2) {
+    const float2 v = reinterpret_cast<const float2*>(Fr)[i];
+    f[0] = v.x, f[1] = v.y;
+  } else {
+    const float4 v = reinterpret_cast<const float4*>(Fr)[i];
+    f[0] = v.x, f[1] = v.y, f[2] = v.z;
+    if constexpr (MR == 4) f[3] = v.w;
+  }
+}
+
+// Transposes the 32 x 32 bit matrix held one row a lane (bit c of lane r's
+// word is element (r, c)): five rounds of swapping off-diagonal blocks.
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  const unsigned masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu, 0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int r = 0, s = 16; r < 5; ++r, s >>= 1) {
+    const unsigned m = masks[r], y = __shfl_xor_sync(kFull, x, s);
+    x = (lane & s) ? (x & ~m) | ((y & ~m) >> s) : (x & m) | ((y & m) << s);
+  }
+  return x;
+}
+
+// dom: a warp per pair of words (a <= b).  MR = M for M in 2..4 (the row in
+// registers, one vector load per j, the 32 steps unrolled), 0 for any M
+// (rolled).  Each step is compares and two ballots: col, bits i dominating
+// j (dom[j][a]), kept by lane j; row, bits i that j dominates, kept by lane
+// j and transposed into dom[i][b] after the 32 steps.  The mask is applied
+// to whole words after the loop (an invalid row dominates nothing and
+// every valid row dominates it); rows past N are zero-padded and masked
+// the same way.
+template <int MR>
+__device__ void build_dom(const float* Fr, const unsigned* vm, unsigned* dom, int N, int M,
+                          int W, int WS, int warp, int lane) {
+  const int units = W * (W + 1) / 2;
+  const int MP = MR == 2 ? 2 : MR > 0 ? 4 : M;
+  for (int u = warp; u < units; u += kWarps) {
+    int a = 0, rem = u;
+    while (rem >= W - a) rem -= W - a, ++a;
+    const int b = a + rem;
+    const int i = 32 * a + lane;
+    float fi[MR > 0 ? MR : 1];
+    if constexpr (MR > 0) load_row<MR>(Fr, i, fi);
+    const float* Fb = Fr + 32 * b * MP;
+    unsigned col_j = 0u, row_j = 0u;
+    auto step = [&](int jj) {
+      bool le_ij = true, le_ji = true;
+      if constexpr (MR > 0) {
+        float fj[MR];
+        load_row<MR>(Fb, jj, fj);
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          le_ij = le_ij && (fi[m] <= fj[m]);
+          le_ji = le_ji && (fj[m] <= fi[m]);
+        }
+      } else {
+        for (int m = 0; m < M; ++m) {
+          const float x = Fr[i * M + m], y = Fb[jj * M + m];
+          le_ij = le_ij && (x <= y);
+          le_ji = le_ji && (y <= x);
+        }
+      }
+      // with one of le_ij, le_ji true no NaN is involved, so any(<) is the
+      // other's negation
+      const unsigned col = __ballot_sync(kFull, le_ij && !le_ji);  // i dominates j
+      const unsigned row = __ballot_sync(kFull, le_ji && !le_ij);  // j dominates i
+      col_j = lane == jj ? col : col_j;
+      row_j = lane == jj ? row : row_j;
+    };
+    if constexpr (MR > 0) {
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) step(jj);
+    } else {
+#pragma unroll 1
+      for (int jj = 0; jj < 32; ++jj) step(jj);
+    }
+    // lane l is point j = 32b + l here; the words over i in word a
+    const unsigned va = vm[a], in_a = 32 * a + 32 <= N ? kFull : (1u << (N - 32 * a)) - 1u;
+    const bool vj = (vm[b] >> lane) & 1u;
+    if (32 * b + lane < N) dom[(32 * b + lane) * WS + a] = vj ? col_j & va : va;
+    if (a != b) {
+      row_j = vj ? (row_j & va) | (in_a & ~va) : 0u;
+      const unsigned row_i = transpose32(row_j, lane);  // lane l is point 32a + l: bits j in b
+      if (32 * a + lane < N) dom[(32 * a + lane) * WS + b] = row_i;
+    }
+  }
+}
+
+// The peel by one warp, the dom rows of its points, their ranks and slots in
+// registers (N <= 32 WR).  Per front: the hit test, a ballot per word, and
+// the members' ranks and slots by select.
+template <int WR>
+__device__ void peel_regs(const unsigned* dom, int* rk, int* memb, int* start, int N, int W,
+                          int WS, int lane) {
+  unsigned Um[WR], d[WR][WR];
+  int rank[WR], slot[WR];
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int k = 0; k < WR; ++k) {
+    const int j = 32 * k + lane, left = N - 32 * k;
+    Um[k] = left >= 32 ? kFull : left > 0 ? (1u << left) - 1u : 0u;
+    rank[k] = N, slot[k] = 0;
+#pragma unroll
+    for (int w = 0; w < WR; ++w) d[k][w] = (j < N && w < W) ? dom[j * WS + w] : 0u;
+  }
+  int s = 0;
+  for (int t = 0; s < N; ++t) {
+    unsigned fr[WR];
+#pragma unroll
+    for (int k = 0; k < WR; ++k) {
+      unsigned hit = 0u;
+#pragma unroll
+      for (int w = 0; w < WR; ++w) hit |= d[k][w] & Um[w];
+      fr[k] = __ballot_sync(kFull, ((Um[k] >> lane) & 1u) && hit == 0u);
+    }
+    int c = s;
+#pragma unroll
+    for (int k = 0; k < WR; ++k) {
+      const bool in = (fr[k] >> lane) & 1u;
+      rank[k] = in ? t : rank[k];
+      slot[k] = in ? c + __popc(fr[k] & lt) : slot[k];
+      c += __popc(fr[k]);
+      Um[k] &= ~fr[k];
+    }
+    if (lane == 0) start[t] = s, start[t + 1] = c;
+    if (c == s) {
+      // nothing peeled (it cannot happen: domination has no cycle): the
+      // rest take rank N, as in the plain version, and the last run
+#pragma unroll
+      for (int k = 0; k < WR; ++k) {
+        slot[k] = (Um[k] >> lane) & 1u ? c + __popc(Um[k] & lt) : slot[k];
+        c += __popc(Um[k]);
+      }
+      if (lane == 0) start[N] = s, start[N + 1] = N;
+      break;
+    }
+    s = c;
+  }
+#pragma unroll
+  for (int k = 0; k < WR; ++k) {
+    const int j = 32 * k + lane;
+    if (j < N) rk[j] = rank[k], memb[slot[k]] = j;
+  }
+}
+
+// The peel by one warp for N > 256: dom rows and the unpeeled set (Um, W
+// words) in shared memory, the front's words staged in fw.
+__device__ void peel_smem(const unsigned* dom, unsigned* Um, unsigned* fw, int* rk, int* memb,
+                          int* start, int N, int W, int WS, int lane) {
+  const unsigned lt = (1u << lane) - 1u;
+  for (int k = lane; k < W; k += 32) {
+    const int left = N - 32 * k;
+    Um[k] = left >= 32 ? kFull : (1u << left) - 1u;
+  }
+  for (int j = lane; j < N; j += 32) rk[j] = N;
+  __syncwarp();
+  int s = 0;
+  for (int t = 0; s < N; ++t) {
+    int c = s;
+    for (int k = 0; k < W; ++k) {
+      bool in = false;
+      if ((Um[k] >> lane) & 1u) {
+        const unsigned* row = dom + (32 * k + lane) * WS;
+        unsigned hit = 0u;
+        for (int w = 0; w < W; ++w) hit |= row[w] & Um[w];
+        in = hit == 0u;
+      }
+      const unsigned f = __ballot_sync(kFull, in);
+      if (in) rk[32 * k + lane] = t, memb[c + __popc(f & lt)] = 32 * k + lane;
+      c += __popc(f);
+      if (lane == 0) fw[k] = f;
+    }
+    __syncwarp();
+    for (int k = lane; k < W; k += 32) Um[k] &= ~fw[k];
+    if (lane == 0) start[t] = s, start[t + 1] = c;
+    __syncwarp();
+    if (c == s) {
+      // nothing peeled (it cannot happen): the rest keep rank N, last run
+      for (int k = 0; k < W; ++k) {
+        const unsigned f = Um[k];
+        if ((f >> lane) & 1u) memb[c + __popc(f & lt)] = 32 * k + lane;
+        c += __popc(f);
+      }
+      if (lane == 0) start[N] = s, start[N + 1] = N;
+      break;
+    }
+    s = c;
+  }
+}
+
+// M = 1: the closed-form rank, then the members' slots by a count per rank
+// (start, zeroed by the caller) and a cursor per rank.  Scratch in the
+// union region: hk, gk (order keys), cur (N + 1 counters).
+__device__ void rank_one_objective(const float* Fr, const unsigned* vm, int* rk, int* memb,
+                                   int* start, unsigned* U, int N, int W, int tid, int warp,
+                                   int lane) {
+  unsigned* hk = U;                                      // valid ? key : NaN's
+  unsigned* gk = hk + align4(N);                         // key at its value's first index
+  int* cur = reinterpret_cast<int*>(gk + align4(N));     // N + 1
+  for (int i = tid; i < N; i += kThreads) {
+    hk[i] = ((vm[i >> 5] >> (i & 31)) & 1u) ? order_key(Fr[i]) : kNaNKey;
+    cur[i] = 0;
+  }
+  if (tid == 0) cur[N] = 0;
+  __syncthreads();
+  int firsts = 0;
+  for (int i = tid; i < N; i += kThreads) {
+    const unsigned x = hk[i];
+    const bool first = x != kNaNKey && count_range(hk, 0, i, x, Eq()) == 0;
+    gk[i] = first ? x : kNaNKey;
+    firsts += first;
+  }
+  if (firsts) atomicAdd(cur + N, firsts);
+  __syncthreads();
+  const int distinct = cur[N];
+  bool any_valid = false;
+  for (int w = 0; w < W; ++w) any_valid = any_valid || vm[w] != 0u;
+  for (int i = tid; i < N; i += kThreads) {
+    const unsigned x = hk[i];
+    int r = 0;
+    if (!((vm[i >> 5] >> (i & 31)) & 1u)) r = any_valid ? max(distinct, 1) : 0;
+    else if (x != kNaNKey) r = count_range(gk, 0, N, x, Lt());
+    rk[i] = r;
+    atomicAdd(start + r + 1, 1);
+  }
+  __syncthreads();
+  // start[r] = #{rank < r}: an inclusive scan of the counts by one warp
+  if (warp == 0) {
+    int carry = 0;
+    for (int base = 1; base <= N + 1; base += 32) {
+      const int k = base + lane;
+      int v = k <= N + 1 ? start[k] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, v, o);
+        v += lane >= o ? y : 0;
+      }
+      if (k <= N + 1) start[k] = v + carry;
+      carry += __shfl_sync(kFull, v, 31);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < N; i += kThreads) {
+    const int r = rk[i];
+    memb[start[r] + atomicAdd(cur + r, 1)] = i;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
 nsga2_rank_crowd(const float* __restrict__ F, const unsigned char* __restrict__ valid,
-                 int* __restrict__ rank_out, float* __restrict__ crowd_out, int N, int M) {
+                 int* __restrict__ rank_out, float* __restrict__ crowd_out,
+                 float* __restrict__ key_out, long long* __restrict__ order_out, int n_keep,
+                 int N, int M) {
   extern __shared__ float4 smem4[];
-  const int W = (N + 31) / 32;
-  unsigned* dom = reinterpret_cast<unsigned*>(smem4);  // N * W
-  unsigned* front = dom + (size_t)N * W;                // W
-  float* Fs = reinterpret_cast<float*>(front + W);      // N * M
-  int* rk = reinterpret_cast<int*>(Fs + (size_t)N * M);  // N
-  int* ndom = rk + N;                                   // N
-  float* gap = reinterpret_cast<float*>(ndom + N);      // N * M: d_m per point
-  int* order = reinterpret_cast<int*>(gap + (size_t)N * M);  // M * N: sorted runs
-  int* start = order + (size_t)N * M;                   // N + 2: where front t starts
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = (N + 31) / 32, WS = W | 1, MP = row_stride(M);
+  float* Fr = reinterpret_cast<float*>(smem4);                        // 32W * MP, zero past N
+  unsigned* vm = reinterpret_cast<unsigned*>(Fr + align4(32 * W * MP));  // W: valid bits
+  unsigned* Um = vm + W;                                              // W: unpeeled (N > 256)
+  unsigned* fw = Um + W;                                              // W: a front's words
+  int* rk = reinterpret_cast<int*>(vm + align4(3 * W));               // N: rank by point
+  int* memb = rk + align4(N);                                         // N: points front by front
+  int* start = memb + align4(N);                                      // N + 2: where front t starts
+  unsigned* U = reinterpret_cast<unsigned*>(start + align4(N + 2));   // union, smem_words()
 
-  for (int e = tid; e < N * M; e += kThreads) Fs[e] = F[e];
-  for (int j = tid; j < N; j += kThreads) rk[j] = -1;
-  if (tid == 0) start[0] = 0;
+  for (int e = tid; e < N * M; e += kThreads) {
+    const int i = e / M;
+    Fr[i * MP + e - i * M] = F[e];
+  }
+  for (int e = N * MP + tid; e < 32 * W * MP; e += kThreads) Fr[e] = 0.f;  // rows past N
+  for (int w = warp; w < W; w += kWarps) {
+    const int i = 32 * w + lane;
+    const unsigned bits = __ballot_sync(kFull, i < N && (valid == nullptr || valid[i]));
+    if (lane == 0) vm[w] = bits;
+  }
+  for (int r = tid; r < N + 2; r += kThreads) start[r] = 0;
   __syncthreads();
 
-  // domination bitsets, one (j, word) per thread step
-  for (int e = tid; e < N * W; e += kThreads) {
-    const int j = e / W, w = e % W;
-    const bool vj = valid == nullptr || valid[j];
-    unsigned bits = 0u;
-    const int i_end = min(32 * w + 32, N);
-    for (int i = 32 * w; i < i_end; ++i) {
-      bool d;
-      if (valid != nullptr && !valid[i]) {
-        d = false;
-      } else if (!vj) {
-        d = true;
-      } else {
-        bool le = true, lt = false;
-        for (int m = 0; m < M; ++m) {
-          const float a = Fs[i * M + m], b = Fs[j * M + m];
-          le = le && (a <= b);
-          lt = lt || (a < b);
-        }
-        d = le && lt;
-      }
-      bits |= (unsigned)d << (i - 32 * w);
+  if (M == 1) {
+    rank_one_objective(Fr, vm, rk, memb, start, U, N, W, tid, warp, lane);
+  } else {
+    unsigned* dom = U;
+    switch (M) {
+      case 2: build_dom<2>(Fr, vm, dom, N, M, W, WS, warp, lane); break;
+      case 3: build_dom<3>(Fr, vm, dom, N, M, W, WS, warp, lane); break;
+      case 4: build_dom<4>(Fr, vm, dom, N, M, W, WS, warp, lane); break;
+      default: build_dom<0>(Fr, vm, dom, N, M, W, WS, warp, lane); break;
     }
-    dom[e] = bits;
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
-    int c = 0;
-    for (int w = 0; w < W; ++w) c += __popc(dom[j * W + w]);
-    ndom[j] = c;
-  }
-
-  // peel fronts until every point has one (at most N peels)
-  for (int t = 0; t < N; ++t) {
-    for (int w = tid; w < W; w += kThreads) front[w] = 0u;
     __syncthreads();
-    for (int j = tid; j < N; j += kThreads)
-      if (rk[j] < 0 && ndom[j] == 0) atomicOr(&front[j >> 5], 1u << (j & 31));
-    __syncthreads();
-    if (tid == 0) {
-      int c = 0;
-      for (int w = 0; w < W; ++w) c += __popc(front[w]);
-      start[t + 1] = start[t] + c;
+    if (warp == 0) {
+      if (W <= 2) peel_regs<2>(dom, rk, memb, start, N, W, WS, lane);
+      else if (W <= 4) peel_regs<4>(dom, rk, memb, start, N, W, WS, lane);
+      else if (W <= 7) peel_regs<7>(dom, rk, memb, start, N, W, WS, lane);  // survival at P 100
+      else if (W <= 8) peel_regs<8>(dom, rk, memb, start, N, W, WS, lane);
+      else peel_smem(dom, Um, fw, rk, memb, start, N, W, WS, lane);
     }
-    int left = 0;
-    for (int j = tid; j < N; j += kThreads) {
-      if (front[j >> 5] >> (j & 31) & 1u) {
-        rk[j] = t;
-      } else if (rk[j] < 0) {
-        int c = 0;
-        for (int w = 0; w < W; ++w) c += __popc(dom[j * W + w] & front[w]);
-        ndom[j] -= c;
-        left = 1;
-      }
-    }
-    if (!__syncthreads_or(left)) break;
   }
-  __syncthreads();
-  // a point never peeled (none is, as domination has no cycle) takes rank
-  // N, as in the plain version, and its own run after the peeled ones
-  if (tid == 0) {
-    int done = 0;
-    for (int j = 0; j < N; ++j) done += rk[j] >= 0;
-    start[N] = done;
-    start[N + 1] = N;
-  }
-  for (int j = tid; j < N; j += kThreads)
-    if (rk[j] < 0) rk[j] = N;
   __syncthreads();
 
-  // crowding: each (point, objective) finds its place in its front's run
-  // of the (f, index) order ...
-  for (int pj = tid; pj < N * M; pj += kThreads) {
-    const int j = pj / M, m = pj % M;
-    const int r = rk[j];
-    const float fj = Fs[pj];
-    int before = 0;
-    for (int k = 0; k < N; ++k)
-      before += (rk[k] == r) & key_before(Fs[k * M + m], k, fj, j);
-    order[m * N + start[r] + before] = j;
-    reinterpret_cast<int*>(gap)[pj] = start[r] + before;  // this thread's, read below
+  // crowding, one objective at a time, in slot order p (member memb[p]); a
+  // front's run is the order of the keys (f's order key, point)
+  unsigned long long* uk = reinterpret_cast<unsigned long long*>(U);  // N
+  int* run = reinterpret_cast<int*>(U + align4(2 * N));  // N: the (rank, f, point) order
+  int* pos = run + align4(N);                            // N: each slot's place in run
+  float* sum = reinterpret_cast<float*>(pos + align4(N));  // N: sum of clamped d_m
+  int* edge = reinterpret_cast<int*>(sum + align4(N));     // N: some d_m >= 1e30
+  int* fb = edge + align4(N);                              // N: the slot's front, s | e << 16
+  auto key_of = [&](int j, int m) {
+    return (unsigned long long)order_key(Fr[j * MP + m]) << 32 | (unsigned)j;
+  };
+  for (int p = tid; p < N; p += kThreads) {
+    const int j = memb[p], r = rk[j];
+    uk[p] = key_of(j, 0);
+    fb[p] = start[r] | start[r + 1] << 16;
   }
   __syncthreads();
-  // ... and reads its neighbours and the run's ends there
-  for (int pj = tid; pj < N * M; pj += kThreads) {
-    const int j = pj / M, m = pj % M;
-    const int r = rk[j];
-    const int* run = order + m * N;
-    const int lo = start[r], hi = start[r + 1] - 1;
-    const int p = reinterpret_cast<const int*>(gap)[pj];
-    float d = kBig;
-    if (p > lo && p < hi) {
-      float span = __fsub_rn(Fs[run[hi] * M + m], Fs[run[lo] * M + m]);  // NaN sorts last
-      span = span < 1e-12f ? 1e-12f : span;  // torch.clamp(min=): NaN stays NaN
-      d = __fdiv_rn(__fsub_rn(Fs[run[p + 1] * M + m], Fs[run[p - 1] * M + m]), span);
+  for (int m = 0; m < M; ++m) {
+    for (int p = tid; p < N; p += kThreads) {
+      const int s = fb[p] & 0xffff, e = fb[p] >> 16;
+      const int x = s + count_lt64(uk, s, e, uk[p]);
+      run[x] = memb[p];
+      pos[p] = x;
     }
-    gap[pj] = d;
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += kThreads) {
-    float sum = 0.f;
-    bool boundary = false;
-    for (int m = 0; m < M; ++m) {
-      const float d = gap[j * M + m];
-      boundary = boundary || d >= kBig;
+    __syncthreads();
+    for (int p = tid; p < N; p += kThreads) {
+      const int s = fb[p] & 0xffff, e = fb[p] >> 16, x = pos[p];
+      float d = kBig;
+      if (x > s && x < e - 1) {
+        float span = __fsub_rn(Fr[run[e - 1] * MP + m], Fr[run[s] * MP + m]);  // NaN sorts last
+        span = span < 1e-12f ? 1e-12f : span;  // torch.clamp(min=): NaN stays NaN
+        d = __fdiv_rn(__fsub_rn(Fr[run[x + 1] * MP + m], Fr[run[x - 1] * MP + m]), span);
+      }
       const float c = d > kBig ? kBig : d;  // torch.clamp(max=): NaN stays NaN
-      sum = m == 0 ? c : __fadd_rn(sum, c);
+      sum[p] = m == 0 ? c : __fadd_rn(sum[p], c);
+      edge[p] = (m == 0 ? 0 : edge[p]) | (d >= kBig);
+      if (m + 1 < M) uk[p] = key_of(memb[p], m + 1);
     }
+    __syncthreads();
+  }
+
+  // outputs by point; in slot order, the key of the crowding's descending
+  // order, ties by point (stable, as torch.argsort)
+  unsigned long long* ck = uk;  // N (uk, run and pos are dead)
+  int* ords = run;              // N: each slot's ordinal
+  for (int p = tid; p < N; p += kThreads) {
+    const int j = memb[p];
+    const float c = edge[p] ? INFINITY : __fdiv_rn(sum[p], (float)M);
+    crowd_out[j] = c;
     rank_out[j] = rk[j];
-    crowd_out[j] = boundary ? INFINITY : __fdiv_rn(sum, (float)M);
+    ck[p] = (unsigned long long)~order_key(isnan(c) ? -INFINITY : c) << 32 | (unsigned)j;
+  }
+  if (key_out == nullptr) return;
+  __syncthreads();
+  // ordinal: the points before in that order
+  for (int p = tid; p < N; p += kThreads) {
+    const int o = count_lt64(ck, 0, N, ck[p]), j = memb[p];
+    ords[p] = o;
+    key_out[j] = __fadd_rn(__fmul_rn((float)rk[j], (float)N), (float)o);
+  }
+  if (order_out == nullptr || n_keep <= 0) return;
+  __syncthreads();
+  // order: the fronts before, then the members of the front of lower ordinal
+  for (int p = tid; p < N; p += kThreads) {
+    const int s = fb[p] & 0xffff, e = fb[p] >> 16;
+    const int x = s + count_range(reinterpret_cast<const unsigned*>(ords), s, e, ords[p], Lt());
+    if (x < n_keep) order_out[x] = memb[p];
   }
 }
 
-size_t smem_bytes(int N, int M) {
-  const size_t W = (N + 31) / 32;
-  return 4 * ((size_t)N * W + W + 3 * (size_t)N * M + 3 * (size_t)N + 2);
+// Shared memory words: F's rows, the valid bits, Um and fw, rank, memb,
+// start, and the union of dom (M >= 2), M = 1's scratch and the crowding's
+// arrays.
+size_t smem_words(int N, int M) {
+  const int W = (N + 31) / 32, WS = W | 1;
+  const size_t dom = M >= 2 ? (size_t)N * WS : 0;
+  const size_t one = 2 * (size_t)align4(N) + N + 1;
+  const size_t crowd = (size_t)align4(2 * N) + 5 * (size_t)align4(N);
+  const size_t u = dom > crowd ? dom : crowd;
+  return (size_t)align4(32 * W * row_stride(M)) + align4(3 * W) + 2 * (size_t)align4(N) +
+         align4(N + 2) + (u > one ? u : one);
 }
 
 size_t g_smem_set[32] = {};  // dynamic shared memory allowed so far, per device
 
 }  // namespace
 
-// K5.  F (N, M) float32, valid (N,) bool or null -> rank (N,) int32,
-// crowd (N,) float32.  Returns the first error (attribute or launch).
+// Whether K5 takes (N, M): its shared memory fits one CTA and its keys are
+// exact.
+extern "C" int hebo_nsga2_fits(int N, int M) {
+  return N >= 0 && N <= kNMax && M >= 1 && 4 * smem_words(N, M) <= (size_t)kSmemMax;
+}
+
+// K5.  F (N, M) float32, valid (N,) bool or null -> rank (N,) int32, crowd
+// (N,) float32, and unless null key (N,) float32 and order (n_keep,) int64.
+// Returns the first error (size, attribute or launch).
 extern "C" int hebo_nsga2_rank_crowd(const float* F, const unsigned char* valid, int* rank,
-                                     float* crowd, int N, int M, void* stream) {
+                                     float* crowd, float* key, long long* order, int n_keep,
+                                     int N, int M, void* stream) {
   if (N == 0) return 0;
-  if (M < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(N, M);
+  if (!hebo_nsga2_fits(N, M)) return (int)cudaErrorInvalidValue;
+  const size_t smem = 4 * smem_words(N, M);
   if (smem > (size_t)kStaticSmemLimit) {
     int dev = 0;
     int err = (int)cudaGetDevice(&dev);
@@ -234,6 +564,7 @@ extern "C" int hebo_nsga2_rank_crowd(const float* F, const unsigned char* valid,
       g_smem_set[dev] = smem;
     }
   }
-  nsga2_rank_crowd<<<1, kThreads, smem, (cudaStream_t)stream>>>(F, valid, rank, crowd, N, M);
+  nsga2_rank_crowd<<<1, kThreads, smem, (cudaStream_t)stream>>>(F, valid, rank, crowd, key, order,
+                                                                n_keep, N, M);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hebo_ssk_route": [_I, _I],
     },
     "pareto": {
-        "hebo_nsga2_rank_crowd": [_P, _P, _P, _P, _I, _I, _P],
+        "hebo_nsga2_rank_crowd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "hebo_nsga2_fits": [_I, _I],
     },
 }
 

@@ -13,19 +13,25 @@ EHVI selection uses, are plain PyTorch on every device.
 
 On the card, rank and crowding come from kernel K5 (``csrc/pareto.cu``,
 ``nsga2_rank_crowd``), which peels every front on the device as the JAX
-``while_loop`` does (:55-77), with no host sync.  On the CPU the plain
-version peels with a host test made once every ``_PEEL_CHUNK`` peels
-(extra peels past the last front change nothing).
+``while_loop`` does (:55-77), with no host sync; ``nsga2_select`` takes from
+the same launch the NSGA-II key (``nsga2_key``, :130-141) and the survivors'
+order (a stable argsort of the key), so an NSGA-II generation sorts
+nothing.  On the CPU the plain version peels with a host test made once
+every ``_PEEL_CHUNK`` peels (extra peels past the last front change
+nothing).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import native
 
 __all__ = ["domination_matrix", "nondominated_rank", "crowding_distance", "nsga2_key",
-           "nsga2_rank_crowd", "nsga2_rank_crowd_plain", "pareto_mask", "hypervolume_mc"]
+           "nsga2_rank_crowd", "nsga2_rank_crowd_plain", "nsga2_select", "nsga2_select_plain",
+           "fits", "pareto_mask", "hypervolume_mc"]
 
 _PEEL_CHUNK = 4
 
@@ -129,35 +135,74 @@ def nsga2_rank_crowd(F: torch.Tensor, valid: torch.Tensor | None = None):
     on a CPU tensor.  ``valid`` (P,) bool marks the rows that take part."""
     if F.device.type == "cpu":
         return nsga2_rank_crowd_plain(F, valid)
+    return _launch(F, valid, None, False)[:2]
+
+
+def nsga2_select_plain(F: torch.Tensor, n_keep: int | None = None,
+                       valid: torch.Tensor | None = None):
+    """Plain version of ``nsga2_select``."""
+    rank, crowd = nsga2_rank_crowd_plain(F, valid)
+    key = nsga2_key(rank, crowd)
+    order = None if n_keep is None else torch.argsort(key, stable=True)[:n_keep]
+    return rank, crowd, key, order
+
+
+def nsga2_select(F: torch.Tensor, n_keep: int | None = None, valid: torch.Tensor | None = None):
+    """(rank (P,) int32, crowding (P,) float32, NSGA-II key (P,) float32,
+    order (n_keep,) int64 or None) of F (P, M): the key is ``nsga2_key`` of
+    the rank and crowding, the order ``torch.argsort(key, stable=True)``'s
+    first ``n_keep`` (None without ``n_keep``).  Kernel K5 on a CUDA
+    tensor, one launch and no sort; the plain version on a CPU tensor."""
+    if F.device.type == "cpu":
+        return nsga2_select_plain(F, n_keep, valid)
+    return _launch(F, valid, n_keep, True)
+
+
+@functools.lru_cache(maxsize=None)
+def fits(P: int, M: int) -> bool:
+    """Whether kernel K5 takes F (P, M): its shared memory fits one CTA and
+    its keys stay exact in float32 (``csrc/pareto.cu::hebo_nsga2_fits``;
+    builds the kernel)."""
+    return bool(native.load("pareto").hebo_nsga2_fits(P, M))
+
+
+def _launch(F, valid, n_keep, with_key):
     native.require_cuda("nsga2_rank_crowd", F)
     if F.dim() != 2:
         raise ValueError(f"nsga2_rank_crowd: expected F (P, M), got {tuple(F.shape)}")
     P, M = F.shape
-    words = -(-P // 32)
-    if 4 * (P * words + words + 3 * P * M + 3 * P + 2) > _SMEM_MAX:
-        raise ValueError(f"nsga2_rank_crowd: P = {P}, M = {M} needs more shared memory than one SM has")
+    if not fits(P, M):
+        raise ValueError(f"nsga2_rank_crowd: P = {P}, M = {M}: more shared memory than one SM "
+                         "has, or keys rank * P + ordinal past 2^24 (P > 4096)")
     if valid is not None:
         if valid.device != F.device or valid.dtype != torch.bool or valid.shape != (P,):
             raise ValueError("nsga2_rank_crowd: valid must be a (P,) bool tensor on F's device")
         valid = valid.contiguous()
-    rank = torch.empty(P, dtype=torch.int32, device=F.device)
-    crowd = torch.empty(P, dtype=torch.float32, device=F.device)
+    dev = F.device
+    rank = torch.empty(P, dtype=torch.int32, device=dev)
+    crowd = torch.empty(P, dtype=torch.float32, device=dev)
+    key = torch.empty(P, dtype=torch.float32, device=dev) if with_key else None
+    order = None
+    if with_key and n_keep is not None:
+        order = torch.empty(min(n_keep, P), dtype=torch.int64, device=dev)
     lib = native.load("pareto")
-    err = native.call(lib.hebo_nsga2_rank_crowd, F.device, F.data_ptr(),
+    err = native.call(lib.hebo_nsga2_rank_crowd, dev, F.data_ptr(),
                       None if valid is None else valid.data_ptr(), rank.data_ptr(),
-                      crowd.data_ptr(), P, M)
+                      crowd.data_ptr(), None if key is None else key.data_ptr(),
+                      None if order is None else order.data_ptr(),
+                      0 if order is None else order.numel(), P, M)
     native.check(err, "nsga2_rank_crowd")
     nsga2_rank_crowd.launches += 1
-    return rank, crowd
+    return rank, crowd, key, order
 
 
 nsga2_rank_crowd.launches = 0
-_SMEM_MAX = 232448  # dynamic shared memory one H100 CTA may use
 
 
 def nsga2_key(rank: torch.Tensor, crowd: torch.Tensor) -> torch.Tensor:
     """Scalar sort key: ascending rank, then descending crowding (exact, via
-    the ordinal position of the crowding value)."""
+    the ordinal position of the crowding value).  Plain on every device:
+    on the card ``nsga2_select`` takes it from K5's launch."""
     P = rank.shape[0]
     c = torch.where(torch.isnan(crowd), torch.full_like(crowd, -float("inf")), crowd)
     crowd_ord = torch.argsort(torch.argsort(-c, stable=True), stable=True)

@@ -3,8 +3,9 @@
 calls: ``suggest`` mates the survivors (binary tournament on rank and
 crowding, SBX + polynomial mutation, categorical crossover and reset, the
 operators of ``acq_optimizers/evolution.py``) and ``observe`` keeps the
-best ``pop`` of survivors and offspring.  Rank and crowding are kernel K5
-on the card.  The draws of each generation come from a generator on the
+best ``pop`` of survivors and offspring.  The tournament's keys and the
+survivors' order are kernel K5 on the card (``ops/pareto.nsga2_select``),
+with no sort.  The draws of each generation come from a generator on the
 device seeded 0, or are fed (``_mate``'s ``draws``).
 """
 
@@ -18,7 +19,7 @@ import torch
 from ..acq_optimizers.evolution import (GenDraws, MetaTensors, _cat_ops, _poly_mutation,
                                         _round_discrete, _sbx_crossover, _space_meta,
                                         draw_generation, meta_tensors)
-from ..ops.pareto import nsga2_key, nsga2_rank_crowd
+from ..ops.pareto import nsga2_select
 from ..utils.device import resolve_device
 from .base import AbstractOptimizer
 
@@ -28,7 +29,7 @@ __all__ = ["Evolution"]
 def _mate(X: torch.Tensor, F: torch.Tensor, mt: MetaTensors, dr: GenDraws) -> torch.Tensor:
     """One round of mating of the population X (P, D) with objectives F
     (P, M) → P offspring, rounded (evolution.py:39-57)."""
-    skey = nsga2_key(*nsga2_rank_crowd(F))
+    skey = nsga2_select(F)[2]
     sel = dr.sel.long()
     win = torch.where(skey[sel[0]] <= skey[sel[1]], sel[0], sel[1])
     p1, p2 = X[win], X[torch.roll(win, 1)]
@@ -40,7 +41,7 @@ def _mate(X: torch.Tensor, F: torch.Tensor, mt: MetaTensors, dr: GenDraws) -> to
 
 def _survive(X_all: torch.Tensor, F_all: torch.Tensor, pop_size: int):
     """The best ``pop_size`` rows by rank, then crowding (evolution.py:60-65)."""
-    order = torch.argsort(nsga2_key(*nsga2_rank_crowd(F_all)), stable=True)[:pop_size]
+    order = nsga2_select(F_all, pop_size)[3]
     return X_all[order], F_all[order]
 
 

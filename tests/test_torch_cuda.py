@@ -11,9 +11,11 @@ diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
 Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
 version's (W by doubling vs forward substitution); SSK raw totals
 1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
-recursions vs dense D-matrix products), on both of K3's routes.  K5 (rank
-and crowding) exactly: the same ranks and the same crowding bits as its plain
-version, NaN where NaN.  K1 with the ladder's jitter and skip: the same bits
+recursions vs dense D-matrix products), on both of K3's routes.  K5 (rank,
+crowding, NSGA-II key and survivor order) exactly: the same ranks, crowding
+bits, keys and order as its plain version, NaN where NaN, and NSGA-II's
+population after 20 generations through it the same as through the plain
+version.  K1 with the ladder's jitter and skip: the same bits
 as the ladder that adds the jitter before K1 and decides on the host.  HEBO's
 suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
 at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
@@ -288,18 +290,24 @@ def test_chol_resident_api_on_card(cuda):
     torch.testing.assert_close(W.cpu(), W0, rtol=0, atol=1e-3)
 
 
-def _pareto_inputs(P, M, edge, seed, device):
+def _pareto_inputs(P, M, edge, seed, device, chain=False):
+    """F (P, M) on a coarse grid (ties in every objective) with duplicate
+    rows and, with ``edge``, ±inf and NaN entries; with ``chain``, row i is
+    (r_i, ..., r_i) for a permutation r, so every point is its own front."""
     rng = np.random.default_rng(seed)
-    F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
-    F[3] = F[4]
-    F[10] = F[11] = F[12]
+    if chain:
+        F = np.repeat(rng.permutation(P).astype(np.float32)[:, None], M, 1)
+    else:
+        F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
+        F[3 % P] = F[4 % P]
+        F[10 % P] = F[11 % P] = F[12 % P]
     if edge:
-        F[20, 1 % M] = F[21, 1 % M] = np.inf
-        F[22, 0] = -np.inf
-        F[23] = -np.inf
-        F[30, 2 % M] = np.nan
-        F[31] = np.nan
-        F[40] = ([np.inf, -np.inf, 0.5] * 2)[:M]
+        F[20 % P, 1 % M] = F[21 % P, 1 % M] = np.inf
+        F[22 % P, 0] = -np.inf
+        F[23 % P] = -np.inf
+        F[30 % P, 2 % M] = np.nan
+        F[31 % P] = np.nan
+        F[40 % P] = ([np.inf, -np.inf, 0.5] * 2)[:M]
     return torch.as_tensor(F, device=device)
 
 
@@ -310,20 +318,34 @@ def _same_bits(a, b):
                                                             b[~nan].view(torch.int32))
 
 
+# chip_smoke's ``check_pareto`` shapes, the chain inputs, N = 1, 33 and 257
+# (one word, one past it, one past the register peel) and, as P = 0, the
+# largest N the wrapper admits at M = 3
+_PARETO_SHAPES = ([(P, M, False) for P, M in
+                   [(100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1), (100, 2), (200, 2),
+                    (100, 4), (200, 4), (48, 1), (96, 1), (32, 1), (48, 3), (96, 3), (1, 3), (33, 3),
+                    (257, 3), (1, 1), (33, 1), (257, 1), (257, 2), (0, 3)]]
+                  + [(200, 2, True), (200, 3, True)])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("P, M", [(100, 3), (200, 3), (64, 1), (128, 1), (200, 2), (100, 4),
-                                  (200, 4)])
+@pytest.mark.parametrize("P, M, chain", _PARETO_SHAPES)
 @pytest.mark.parametrize("edge", [False, True])
 @pytest.mark.parametrize("masked", [False, True])
-def test_pareto_kernel_on_card(cuda, P, M, edge, masked):
+def test_pareto_kernel_on_card(cuda, P, M, chain, edge, masked):
     """K5 against its plain version on the card and on the CPU at NSGA-II's
     shapes, the MCBO GA's single objective (where many points share a
-    front) and GeneralBO's M = 2 (ZDT1) and M = 4 (BNH: 2 objectives + 2
-    constraints): ties, duplicate rows, ±inf and NaN objectives, invalid
-    rows."""
+    front), GeneralBO's M = 2 (ZDT1) and M = 4 (BNH: 2 objectives + 2
+    constraints), chains of P fronts and the edges of the peel's layouts:
+    ties, duplicate rows, ±inf and NaN objectives, invalid rows.  The rank,
+    the crowding's bits, the NSGA-II key and the order of the first P // 2
+    and of all P (``nsga2_select``), each one launch."""
     from hebo_tpu_torch.ops import pareto
 
-    F = _pareto_inputs(P, M, edge, P + edge, cuda)
+    if P == 0:
+        P = max(n for n in range(1, 4097) if pareto.fits(n, M))
+        assert P >= 1184  # populations of up to 1184 points at M = 3 stay admitted
+    F = _pareto_inputs(P, M, edge, P + edge, cuda, chain)
     valid = None
     if masked:
         valid = torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25, device=cuda)
@@ -334,8 +356,49 @@ def test_pareto_kernel_on_card(cuda, P, M, edge, masked):
     assert torch.equal(rank, r0) and _same_bits(crowd, c0)
     r1, c1 = pareto.nsga2_rank_crowd(F.cpu(), None if valid is None else valid.cpu())
     assert torch.equal(rank.cpu(), r1) and _same_bits(crowd, c1)
-    assert torch.equal(pareto.nsga2_key(rank, crowd), pareto.nsga2_key(r0, c0))
     assert torch.equal(pareto.nondominated_rank(F, valid), rank)
+    if chain and not edge and not masked:
+        assert int(rank.max()) == P - 1
+    for n_keep in (P // 2, P):
+        n0 = pareto.nsga2_rank_crowd.launches
+        got = pareto.nsga2_select(F, n_keep, valid)
+        assert pareto.nsga2_rank_crowd.launches == n0 + 1
+        want = pareto.nsga2_select_plain(F, n_keep, valid)
+        assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+        assert torch.equal(got[2], want[2]) and got[3].dtype == torch.int64
+        assert torch.equal(got[3], want[3])
+        cpu = pareto.nsga2_select(F.cpu(), n_keep, None if valid is None else valid.cpu())
+        assert torch.equal(got[2].cpu(), cpu[2]) and torch.equal(got[3].cpu(), cpu[3])
+    assert pareto.nsga2_select(F, None, valid)[3] is None
+
+
+@pytest.mark.gpu
+def test_evolve_raw_with_kernel_equals_plain_on_card(cuda, monkeypatch):
+    """NSGA-II at P 100 for 20 generations with fed draws: the population
+    after the loop through K5 (keys and survivor order from its launches,
+    no sort) equals, bit for bit, the loop with K5's plain version on the
+    card (``nsga2_key`` and a stable argsort)."""
+    from hebo_tpu_torch.acq_optimizers import evolution as evo
+    from hebo_tpu_torch.ops import pareto
+
+    P, D, n_gens = 100, 5, 20
+    meta = evo.EvolveSpaceMeta(lb=(-2.0,) * 4 + (0.0,), ub=(2.0,) * 4 + (3.0,),
+                               is_discrete=(False,) * 4 + (True,), is_cat=(False,) * 4 + (True,))
+    g = torch.Generator(device=cuda).manual_seed(3)
+    draws = [evo.draw_generation(P, D, g, cuda) for _ in range(n_gens)]
+    init = torch.rand((P, D), generator=g, device=cuda) * 4 - 2
+
+    def objectives(X):  # MACE-like: three objectives with ties from the rounded column
+        return torch.stack([(X[:, :4] ** 2).sum(1) + X[:, 4], (X[:, :4] - 1).abs().sum(1),
+                            -X[:, 0] * X[:, 4]], 1)
+
+    n0 = pareto.nsga2_rank_crowd.launches
+    X1, F1 = evo.evolve_raw(init, objectives, meta, n_gens=n_gens, draws=lambda i: draws[i])
+    assert pareto.nsga2_rank_crowd.launches == n0 + 2 * n_gens
+    monkeypatch.setattr(evo, "nsga2_select", pareto.nsga2_select_plain)
+    X0, F0 = evo.evolve_raw(init, objectives, meta, n_gens=n_gens, draws=lambda i: draws[i])
+    assert pareto.nsga2_rank_crowd.launches == n0 + 2 * n_gens
+    assert torch.equal(X1, X0) and _same_bits(F1, F0)
 
 
 def _ladder_on_host(Kt, rungs, base=1e-6):
