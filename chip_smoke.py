@@ -5,7 +5,9 @@
 
 1. Builds the CUDA kernels from ``hebo_tpu_torch/csrc`` (one nvcc per source,
    all at once: gram.cu, chol.cu, ssk.cu, pareto.cu) and prints ptxas'
-   registers and spills per kernel; K3's register route must spill nothing.
+   registers and spills per kernel; K3's register routes (regs, regs32,
+   warp) must spill nothing, and each of their instantiations must
+   be reported.
 2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times the kernel, the plain version and one PyTorch library
    call where one computes the same function (the yardstick; the port never
@@ -17,8 +19,8 @@
    K2 and its VJP run at every HEBO shape (fit, cache, NSGA-II predict at
    buckets 128 and 1024; the VJP at the fit's), with device µs per call
    (``bench/gram_probe.device_per_call``, torch.profiler) beside ms per
-   call, the VJP also on a self-Gram with coincident rows, and twice on
-   the same inputs, which must give the same bits.
+   call, the VJP also on a self-Gram with coincident rows, and twice on the
+   same inputs, which must give the same bits.
    K1 runs at every shape of the main paths and prints library_ms / ms;
    with the jitter ladder's arguments (jitter on the diagonal, a skipped
    matrix that keeps its outputs) against its plain version, the ladder
@@ -31,8 +33,10 @@
    objectives and invalid rows: the same ranks, crowding bits, keys and
    order as its plain version (``nsga2_key``, a stable argsort), with
    device µs.
-   K3 runs at every AntBO shape and one beyond its register budget, with
-   its route and device µs per launch (torch.profiler) beside ms per call.
+   K3 runs at every AntBO shape, BOSS / BOiLS' shapes at L 25, the edges of
+   its register routes and two shapes on its general route, with each
+   launch's route and device µs per launch (torch.profiler) beside ms per
+   call, twice on the same inputs, which must give the same bits.
    Checks NaN propagation of the factorization on a batch with one non-PSD
    member and on one whose first bad pivot lies in a late tile, and the
    K1-backed ``cholesky_batched`` / ``chol_inv_batched`` API at (2, 512).
@@ -380,7 +384,14 @@ EXPERIMENT_VJP_SHAPES = [(2, 8, 8, 6), (2, 64, 64, 6)]
 TASK_SSK_CASES = [(1, 32, 32, 8, 3, [(0.6, 0.7)]), (1, 32, 17, 8, 3, [(0.6, 0.7)])]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
                   (1, 256, 64, 25, 3, [(0.6, 0.7)]), (1, 101, 101, 25, 3, [(0.6, 0.7)]),
-                  (1, 64, 64, 25, 3, [(0.6, 0.7)])]
+                  (1, 64, 64, 25, 3, [(0.6, 0.7)]), (1, 256, 8, 25, 3, [(0.6, 0.7)]),
+                  (1, 8, 256, 25, 3, [(0.6, 0.7)])]
+# K3's route edges beyond L 11: regs32's column bound (32), one column
+# beyond (33: the general route), P = 5 past L 8 (general), and P = 1 on
+# regs32 and the warp route (its decay gradient is identically 0)
+EDGE_SSK_CASES = [(1, 256, 256, 32, 3, [(0.6, 0.7)]),
+                  (1, 256, 256, 33, 3, [(0.6, 0.7)]), (1, 64, 64, 9, 5, [(0.6, 0.7)]),
+                  (1, 256, 256, 20, 1, [(0.6, 0.7)])]
 
 
 def cuda_ms(torch, fn, reps):
@@ -447,8 +458,8 @@ def check_gram(torch, gram, device_per_call, dev, gen, fails):
 
 def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     """K2's VJP at the fits' shapes (2, bucket, bucket, 6), buckets 1024 and
-    128 and the large-N route's subsample bucket 2048, and the samplers' (4
-    and 32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
+    128 and the large-N route's subsample bucket 2048, the samplers' (4 and
+    32 at bucket 1024, 4 at 128) and phase i's (the fits at bucket 256,
     D 3 and 19, and the descents' query shapes), phase j's
     (``FAMILY_VJP_SHAPES``), phase k's (``VARIANT_VJP_SHAPES``), phases n
     and o's (``LATENT_VJP_SHAPES``) and phase p's
@@ -600,18 +611,21 @@ def check_ssk(torch, ssk, device_us, dev, fails):
     """K3 at the AntBO paths' shapes: the fit and cache at buckets 256 and
     32 (B = 1; B = 2 for two restarts), the local search's one-flip
     neighbours against the bucket (209 × bucket), M = 1, (6, 2), one
-    shape just beyond the register budget (L = 12, the smem route), and
-    phase i's pest control at L = 25 over 5 letters (the smem route): the
-    fit at bucket 256, the interleaved search's one-flip neighbours (101)
-    and the GA's population (64); phase o's BOiLS on ``BoilsTask`` at L = 8
-    over 3 operators (``TASK_SSK_CASES``, the register route)."""
+    shape just beyond the L 11 register budget (L = 12, regs32), and
+    phase i's pest control at L = 25 over 5 letters (regs32 or the warp
+    route by pair count): the fit at bucket 256, the interleaved search's
+    one-flip neighbours (101), the GA's population (64) and the descents'
+    8 queries; the route edges (``EDGE_SSK_CASES``: L 32, and 33 and (9, 5)
+    on the general route); phase o's BOiLS on ``BoilsTask`` at
+    L = 8 over 3 operators (``TASK_SSK_CASES``, the register route).  A
+    second launch on the same inputs must give the same bits."""
     cross_rows, self_rows = [], []
     rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
     cases = [(1, 256, 256, 11, 3, [(0.6, 0.7)]), (2, 256, 256, 11, 3, [(0.6, 0.7), (0.35, 0.9)]),
              (1, 209, 256, 11, 3, [(0.7, 0.6)]), (1, 209, 32, 11, 3, [(0.7, 0.6)]),
              (1, 32, 32, 11, 3, [(0.55, 0.8)]), (1, 256, 1, 11, 3, [(0.5, 0.5)]),
              (1, 13, 5, 6, 2, [(0.8, 0.3)]), (1, 256, 256, 12, 3, [(0.6, 0.7)])]
-    cases = [c + (20,) for c in cases] + [c + (5,) for c in MCBO_SSK_CASES] \
+    cases = [c + (20,) for c in cases] + [c + (5,) for c in MCBO_SSK_CASES + EDGE_SSK_CASES] \
         + [c + (3,) for c in TASK_SSK_CASES]
     rng = np.random.default_rng(0)
     for B, N, M, L, P, decays, letters in cases:
@@ -621,6 +635,9 @@ def check_ssk(torch, ssk, device_us, dev, fails):
         gd = torch.tensor([d[1] for d in decays], device=dev)
         lam2 = md * md
         got = ssk.ssk_cross(s1, s2, lam2, gd, P) + ssk.ssk_self(s1, lam2, gd, P)
+        again = ssk.ssk_cross(s1, s2, lam2, gd, P) + ssk.ssk_self(s1, lam2, gd, P)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fails.append(f"ssk {(B, N, M, L, P)}: a second launch gave other bits")
         want = ssk.ssk_cross_plain(s1, s2, lam2, gd, P) + ssk.ssk_self_plain(s1, lam2, gd, P)
         errs = [rel(a, b) for a, b in zip(got, want)]
         abs_errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
@@ -638,7 +655,7 @@ def check_ssk(torch, ssk, device_us, dev, fails):
         self_ = lambda: ssk.ssk_self(s1, lam2, gd, P)
         # no single PyTorch call computes the SSK DP: library_ms is null
         cross_rows.append(dict(
-            shape=[B, N, M, L, P], route=ssk.route(L, P), max_abs_err=max(abs_errs[:3]),
+            shape=[B, N, M, L, P], route=ssk.route(L, P, B * N * M), max_abs_err=max(abs_errs[:3]),
             max_rel_err=max(errs[:3]), gram_max_abs_err=k_err, ms=cuda_ms(torch, cross, reps),
             device_us=device_us(torch, cross, 100, "ssk_cross")[0],
             plain_ms=cuda_ms(torch, lambda: ssk.ssk_cross_plain(s1, s2, lam2, gd, P), 20),
@@ -647,7 +664,7 @@ def check_ssk(torch, ssk, device_us, dev, fails):
         if [B, N, L, P] in [r["shape"] for r in self_rows]:
             continue  # (1, 256, 1) and (1, 209, 32) repeat an earlier self set
         self_rows.append(dict(
-            shape=[B, N, L, P], route=ssk.route(L, P), max_abs_err=max(abs_errs[3:]),
+            shape=[B, N, L, P], route=ssk.route(L, P, B * N), max_abs_err=max(abs_errs[3:]),
             max_rel_err=max(errs[3:]), ms=cuda_ms(torch, self_, reps),
             device_us=device_us(torch, self_, 100, "ssk_self")[0],
             plain_ms=cuda_ms(torch, lambda: ssk.ssk_self_plain(s1, lam2, gd, P), 20),
@@ -818,8 +835,9 @@ def check_ladder(torch, ck, dev, gen, fails):
 
 
 def check_ptxas(logs, fails):
-    """Print ptxas' registers / spills per kernel; K3's register route must
-    spill nothing and keep no stack frame."""
+    """Print ptxas' registers / spills per kernel; K3's register routes
+    (regs, regs32, warp) must spill nothing and keep no stack
+    frame, and every instantiation of the long routes must be reported."""
     for src, log in logs.items():
         name = None
         for line in log.splitlines():
@@ -827,11 +845,17 @@ def check_ptxas(logs, fails):
                 name = line.split("Function properties for")[-1].strip()
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.split('info    :')[-1].strip()}", flush=True)
-            if "spill" in line and name and "_regs" in name and not line.strip().startswith(
-                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            if "spill" in line and name and ("_regs" in name or "_warp" in name) and not line.strip(
+                    ).startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 fails.append(f"ptxas {src} {name}: {line.strip()}")
     if "_regs" not in logs.get("ssk", ""):
         fails.append("ptxas: no report of K3's register route")
+    # mangled names: ssk_cross_regs<P, LMAX>, ssk_self_warp<P>
+    for mode in ("cross", "self"):
+        for P in (1, 2, 3):
+            for inst in [f"ssk_{mode}_regsILi{P}ELi{lmax}E" for lmax in (32,)] + [f"ssk_{mode}_warpILi{P}E"]:
+                if inst not in logs.get("ssk", ""):
+                    fails.append(f"ptxas: no report of K3's {inst}")
 
 
 def check_chol_api(torch, ck, dev, gen, fails):
@@ -1549,6 +1573,8 @@ def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
         errs[f"matern32_gram_vjp {(B, N, M, D)}"] = e
         if not e <= VJP_TOL:
             fails.append(f"matern32_gram_vjp at the path's {(B, N, M, D)}: error over max {e}")
+        if not all(torch.equal(u, v) for u, v in zip(got, gram.matern32_gram_vjp(a, b, sc, g))):
+            fails.append(f"matern32_gram_vjp at the path's {(B, N, M, D)}: a second launch gave other bits")
     # K1b's dims are the padded size, which pads to itself
     for name, (B, N) in [("chol_factor", sh) for sh in shapes["chol_factor"]] + \
             [("chol_winv", sh) for sh in shapes["chol_winv"]]:
@@ -1575,14 +1601,18 @@ def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
         s2 = torch.as_tensor(rng.integers(0, 5, (max(M, 1), L)), dtype=torch.int32, device=dev)
         lam2 = torch.as_tensor(rng.uniform(0.2, 0.8, B), dtype=torch.float32, device=dev)
         gap = torch.as_tensor(rng.uniform(0.2, 0.9, B), dtype=torch.float32, device=dev)
-        got = ssk.ssk_cross(s1, s2, lam2, gap, P) if cross else ssk.ssk_self(s1, lam2, gap, P)
+        launch = (lambda: ssk.ssk_cross(s1, s2, lam2, gap, P)) if cross else (lambda: ssk.ssk_self(s1, lam2, gap, P))
+        got = launch()
         want = (ssk.ssk_cross_plain(s1, s2, lam2, gap, P) if cross
                 else ssk.ssk_self_plain(s1, lam2, gap, P))
         e = [rel(x, y) for x, y in zip(got, want)]
         key = f"ssk_{'cross' if cross else 'self'} {(B, N, M, L, P) if cross else (B, N, L, P)}"
         errs[key] = max(e)
+        r = ssk.route(L, P, B * N * max(M, 1))
         if not (e[0] <= SSK_RAW_TOL and max(e[1:]) <= SSK_TAN_TOL):
-            fails.append(f"{key} at the path's shape ({ssk.route(L, P)} route): max rel errs {e}")
+            fails.append(f"{key} at the path's shape ({r} route): max rel errs {e}")
+        if not all(torch.equal(x, y) for x, y in zip(got, launch())):
+            fails.append(f"{key} at the path's shape ({r} route): a second launch gave other bits")
     print(f"path shapes against their plain versions ({len(errs)} shapes):", json.dumps(errs), flush=True)
     return errs
 
@@ -2523,7 +2553,8 @@ def tasks_phase(torch, DesignSpace, wrappers, fails):
                 fails.append("phase o2 BOiLS: QoR not finite")
             opt.observe(rec, y)
         rows["o2 BOiLS on BoilsTask"] = dict(log, **timers(opt, 2), best=opt.best_y, k3_routes={
-            str(sh): ssk.route(sh[3], sh[4]) for sh in sorted(shapes.seen["ssk_cross"])})
+            str(sh): ssk.route(sh[3], sh[4], sh[0] * sh[1] * sh[2])
+            for sh in sorted(shapes.seen["ssk_cross"])})
         if not all(r.get("ssk_cross", 0) > 0 and r.get("ssk_self", 0) > 0 for r in log["launches_per_suggest"]):
             fails.append("phase o2 BOiLS: a suggest launched no K3")
 
@@ -3305,7 +3336,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
             **({"device_us": r["device_us"]} if "device_us" in r else {}),
-            **({"k3_route": r["route"]} if "route" in r else {}),
+            **({"k3_route": r["route"], "k3_routes": sorted({x["route"] for x in rows})}
+               if "route" in r else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
             **({"skipped_rung_ms": ladder["skipped_rung_ms"]} if name == "chol_factor" else {}),
             **({"mesh_shapes": [x for x in rows if tuple(x["shape"]) in MESH_K1[name]]}

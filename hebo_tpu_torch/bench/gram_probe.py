@@ -32,7 +32,11 @@ from pathlib import Path
 import numpy as np
 
 SHAPES = [(2, 1024, 1024, 6), (1, 1024, 1024, 6), (2, 128, 128, 6), (1, 1024, 100, 6),
-          (1, 128, 100, 6), (2, 1000, 1000, 6), (2, 256, 256, 20)]
+          (1, 128, 100, 6), (2, 1000, 1000, 6), (2, 256, 256, 20),
+          # the samplers' and the large-N fit's VJPs, and the paths' small ones
+          (4, 1024, 1024, 6), (32, 1024, 1024, 6), (2, 2048, 2048, 6), (1, 1024, 1024, 8),
+          (4, 128, 128, 6), (1, 256, 256, 3), (1, 256, 256, 19), (1, 256, 8, 19),
+          (1, 256, 256, 30), (1, 64, 8, 6), (1, 64, 1, 6), (1, 32, 3072, 6), (2, 64, 64, 6)]
 
 
 def device_by_name(torch, fn, reps):

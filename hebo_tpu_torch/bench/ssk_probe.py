@@ -7,11 +7,14 @@ checkout whose ``hebo_tpu_torch`` is imported (default: this one), so a
 parent commit unpacked with ``git archive`` is timed by the same script in
 the same call.  ``chip_smoke.py`` times K3 at the AntBO shapes with this
 module's ``device_us``; the probe adds a sweep of small cross launches and
-one pair (the floor of a launch).  For each shape it prints one JSON line:
-the wrapper's device µs per launch (``torch.profiler``: the K3 kernels'
-summed device time over ``reps`` launches), its max relative error against
-the plain version, and the route the kernel took where the package reports
-one.  The first line is the card's name and power limit.
+one pair (the floor of a launch), BOSS and BOiLS' shapes at L 25 (pest
+control, 5 letters: the fit, the one-flip neighbours, the GA's population,
+the descents' queries and the self sets) and the route edges at L 12 / 16 /
+17 / 32 / 33.  For each shape it prints one JSON line: the wrapper's device µs
+per launch (``torch.profiler``: the K3 kernels' summed device time over
+``reps`` launches), its max relative error against the plain version, and
+the route the kernel took where the package reports one.  The first line is
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,8 +29,12 @@ import numpy as np
 
 CROSS = [(1, 256, 256, 11, 3), (2, 256, 256, 11, 3), (1, 209, 256, 11, 3), (1, 209, 32, 11, 3),
          (1, 32, 32, 11, 3), (1, 8, 32, 11, 3), (1, 64, 32, 11, 3), (1, 128, 32, 11, 3),
-         (1, 1, 256, 11, 3), (1, 1, 1, 11, 3), (1, 256, 256, 12, 3)]
-SELF = [(1, 256, 11, 3), (1, 32, 11, 3), (2, 256, 11, 3)]
+         (1, 1, 256, 11, 3), (1, 1, 1, 11, 3), (1, 256, 256, 12, 3),
+         (1, 256, 256, 25, 3), (1, 256, 101, 25, 3), (1, 256, 64, 25, 3), (1, 256, 8, 25, 3),
+         (1, 101, 101, 25, 3), (1, 64, 64, 25, 3), (1, 256, 256, 16, 3), (1, 256, 256, 17, 3),
+         (1, 256, 256, 32, 3), (1, 256, 256, 33, 3), (1, 256, 256, 9, 5)]
+SELF = [(1, 256, 11, 3), (1, 32, 11, 3), (2, 256, 11, 3), (1, 256, 25, 3), (1, 101, 25, 3),
+        (1, 64, 25, 3), (1, 8, 25, 3), (1, 256, 32, 3), (1, 256, 33, 3)]
 
 
 def device_us(torch, fn, reps, key="ssk"):
@@ -67,8 +74,9 @@ def main():
         for shape in shapes:
             B, N = shape[:2]
             M, L, P = shape[2:] if mode == "cross" else (None,) + shape[2:]
-            s1 = torch.as_tensor(rng.integers(0, 20, (N, L)), dtype=torch.int32, device=dev)
-            s2 = None if M is None else torch.as_tensor(rng.integers(0, 20, (M, L)),
+            letters = 20 if L <= 11 else 5  # AntBO's amino acids; pest control's 5 options
+            s1 = torch.as_tensor(rng.integers(0, letters, (N, L)), dtype=torch.int32, device=dev)
+            s2 = None if M is None else torch.as_tensor(rng.integers(0, letters, (M, L)),
                                                         dtype=torch.int32, device=dev)
             lam2 = torch.as_tensor(rng.uniform(0.1, 0.8, B), dtype=torch.float32, device=dev)
             gap = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=dev)
@@ -81,8 +89,11 @@ def main():
             us, n = device_us(torch, call, args.reps)
             row = {"mode": mode, "shape": list(shape), "device_us": us, "kernels": n,
                    "max_rel_err": max(rel(a, b) for a, b in zip(call(), want))}
-            if hasattr(ssk, "route"):
-                row["route"] = ssk.route(L, P)
+            if hasattr(ssk, "route"):  # an older checkout's route() takes no pair count
+                try:
+                    row["route"] = ssk.route(L, P, B * N * (M or 1))
+                except TypeError:
+                    row["route"] = ssk.route(L, P)
             print(json.dumps(row), flush=True)
 
 

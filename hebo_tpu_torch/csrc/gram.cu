@@ -22,7 +22,7 @@
 //   gb_j = b_j sum_i G_ij - sum_i G_ij a_i,
 //   gsc  = sum_ij g_ij (1 + s_ij) exp(-s_ij).
 //
-// What bounds both on an H100: device memory.  D is small (6 for
+// The roofline bound of both on an H100: device memory.  D is small (6 for
 // Ackley-6D, d_num + C*emb_dim with categoricals), so the forward writes
 // N*M floats and the VJP reads as many (8 MiB at (2, 1024, 1024, 6), 2.5 us
 // at 3.35 TB/s) against ~50 and ~100 MFLOP, far below the 67 TFLOP/s FP32
@@ -34,16 +34,33 @@
 //   pieces of 16-byte float4 accesses.  The rows per thread RI (4, 2 or 1)
 //   come from pick_rows below: the largest that still gives every SM a CTA.
 // * distance_tile stages the tile's a- and b-rows in shared memory in
-//   chunks of 16 features and accumulates dot products and squared norms
-//   in registers; the Matérn transform (forward) or G (VJP) follows in
-//   registers.
+//   chunks of 16 features (each chunk's values all asked for before the
+//   first is stored: one load latency a chunk) and accumulates dot products
+//   and squared norms in registers; the Matérn transform (forward) or G
+//   (VJP) follows in registers.
 // * The VJP reduces G's rows across the 16 lanes that share them (warp
 //   shuffles, halving the values each step) and its columns across the 16
 //   thread rows (one shuffle, then the 8 warps through shared memory), and
 //   writes per-tile partial sums: (B, col tiles, D, N) for ga, (B, row
-//   tiles, D, M) for gb, one value per tile for gsc.  A second launch sums
-//   them in tile order.  No float atomics: every sum has a fixed order, so
-//   two runs on the same inputs give the same bits.
+//   tiles, D, M) for gb, one value per tile for gsc.
+// * A second launch sums the partials in tile order.  No float atomics:
+//   every sum has a fixed order, so two runs on the same inputs give the
+//   same bits.
+//
+// Measured on an H100 80GB HBM3 at 700 W (hebo_tpu_torch/bench/gram_probe.py):
+// at HEBO's fit shape (2,1024,1024,6) the VJP's tile pass takes ~9 us, its
+// 512 CTAs one wave in lockstep.  With g already in L2 (as after the
+// backward that produces it, and in back-to-back timing) the pass is bound
+// by instruction issue in the reductions, not by g's 8 MiB (2.5 us at 3.35
+// TB/s).  Tried against it on the same card and not kept, each slower
+// there: a persistent walk over a strip's column tiles with g prefetched (a
+// ring of one-row cp.async.bulk copies, or the next tile's g in registers:
+// one or two CTAs per SM leave the reductions' latency exposed); g by
+// cp.async into shared memory ahead of the staging (in one wave it only adds
+// work); a tensor-core route (G [b 1] and [a 1]^T G by mma.m16n8k8 in
+// three TF32 products, g by cp.async into shared memory), slower at D = 6
+// and faster only past 16 features, where no path's VJP runs; four lanes
+// per output in the second launch.
 
 #include <cuda_runtime.h>
 
@@ -103,7 +120,34 @@ struct Stage {
   float b[kChunk][kPad];
 };
 
-// Thread t stages row (or column) t % R for features t / R, t / R + 256 / R, ...
+// One chunk's a- and b-values of thread t: row (or column) t % R for
+// features t / R + j 256 / R, RI of them for a and 4 for b (0 past the chunk
+// or the matrix), loaded into registers, then stored to shared memory.
+template <int RI>
+struct Chunk {
+  float a[RI], b[4];
+};
+
+template <int RI>
+__device__ __forceinline__ void load_chunk(Chunk<RI>& v, const float* ab, const float* bb,
+                                           int row0, int col0, int k0, int kc, int N, int M,
+                                           int D) {
+  constexpr int R = 16 * RI;
+  const int r = threadIdx.x % R, c = threadIdx.x % kCols;
+#pragma unroll
+  for (int j = 0; j < RI; ++j) {
+    const int k = threadIdx.x / R + j * (kThreads / R);
+    v.a[j] = k < kc && row0 + r < N ? ab[(size_t)(row0 + r) * D + k0 + k] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = threadIdx.x / kCols + j * (kThreads / kCols);
+    v.b[j] = k < kc && col0 + c < M ? bb[(size_t)(col0 + c) * D + k0 + k] : 0.f;
+  }
+}
+
+// The same chunk straight from device memory to shared memory, value by
+// value (no registers held: the VJP re-stages later chunks while G is live).
 template <int RI>
 __device__ __forceinline__ void stage_chunk(Stage& st, const float* ab, const float* bb,
                                             int row0, int col0, int k0, int kc, int N, int M,
@@ -116,9 +160,26 @@ __device__ __forceinline__ void stage_chunk(Stage& st, const float* ab, const fl
     st.b[k][c] = col0 + c < M ? bb[(size_t)(col0 + c) * D + k0 + k] : 0.f;
 }
 
+template <int RI>
+__device__ __forceinline__ void store_chunk(Stage& st, const Chunk<RI>& v, int kc) {
+  constexpr int R = 16 * RI;
+  const int r = threadIdx.x % R, c = threadIdx.x % kCols;
+#pragma unroll
+  for (int j = 0; j < RI; ++j) {
+    const int k = threadIdx.x / R + j * (kThreads / R);
+    if (k < kc) st.a[k][r] = v.a[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = threadIdx.x / kCols + j * (kThreads / kCols);
+    if (k < kc) st.b[k][c] = v.b[j];
+  }
+}
+
 // d2[i][j] = |a_r|^2 + |b_c|^2 - 2 a_r.b_c (unclamped) for the thread's rows
-// r = row0 + ty + 16 i and columns c = col0 + 4 tx + j.  Leaves the last
-// chunk staged in `st` and ends with a barrier.
+// r = row0 + ty + 16 i and columns c = col0 + 4 tx + j.  Each chunk's
+// values are all asked for before the first is stored, so a chunk costs one
+// load latency.  Leaves the last chunk staged in `st` and ends with a barrier.
 template <int RI>
 __device__ __forceinline__ void distance_tile(Stage& st, const float* ab, const float* bb,
                                               int row0, int col0, int N, int M, int D,
@@ -135,7 +196,9 @@ __device__ __forceinline__ void distance_tile(Stage& st, const float* ab, const 
   for (int j = 0; j < 4; ++j) bn[j] = 0.f;
   for (int k0 = 0; k0 < D; k0 += kChunk) {
     const int kc = min(kChunk, D - k0);
-    stage_chunk<RI>(st, ab, bb, row0, col0, k0, kc, N, M, D);
+    Chunk<RI> v;
+    load_chunk<RI>(v, ab, bb, row0, col0, k0, kc, N, M, D);
+    store_chunk<RI>(st, v, kc);
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < kc; ++k) {
@@ -440,6 +503,8 @@ extern "C" int hebo_matern32_gram_vjp(const float* a, const float* b, const floa
     matern32_vjp_tile<2><<<grid, kThreads, 0, s>>>(a, b, sc, g, pa, pb, ps, N, M, D);
   else
     matern32_vjp_tile<1><<<grid, kThreads, 0, s>>>(a, b, sc, g, pa, pb, ps, N, M, D);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
   const long outs = (long)B * N * D + (long)B * M * D;
   const int blocks = (int)((outs + kThreads - 1) / kThreads) + 1;
   matern32_vjp_reduce<<<blocks, kThreads, 0, s>>>(pa, pb, ps, ga, gb, gsc, B, N, M, D, Rt, Ct);

@@ -41,10 +41,12 @@
 // (L,P) = (11,3), the kernel writes 0.79 MB (0.23 us at 3.35 TB/s) and the
 // two-chain DP needs ~1,660 FP32 operations per pair (10 per carried step of
 // the R and T recursions, 1-2 per match, the totals), ~0.11 GFLOP in all
-// (1.6 us at 67 TFLOP/s), so operations bound it.  Most launches on the path are small (the fit's
-// N = M = bucket, the local search's ~209 x 32 pairs, ssk_self's N pairs):
-// their time is one pair's dependent chain plus the launch's fixed cost.
-// Two routes, chosen by shape (pick_route):
+// (1.6 us at 67 TFLOP/s), so operations bound it; at BOSS / BOiLS' L = 25
+// a pair needs ~9,800 operations, 0.64 GFLOP at (1,256,256).  Most launches
+// on the paths are small (the fit's N = M = bucket, the local searches'
+// neighbours against the bucket, ssk_self's N pairs): their time is one
+// pair's dependent chain plus the launch's fixed cost.  Four routes, chosen
+// by shape (pick_route):
 //
 // * regs: one thread per (batch entry, pair), templated on P and a
 //   compile-time column bound LMAX (11 for P <= 3, AntBO's CDR3 length; 8
@@ -57,20 +59,39 @@
 //   dependent FMAs), not the whole step sequence.  No spills (ptxas' report,
 //   printed by chip_smoke.py).  64-thread CTAs, so a launch of a few
 //   hundred pairs spreads over as many SMs as it has CTAs.
-// * smem: the general route for L or P beyond the register budget (the
-//   kernel of the first port): one thread per pair, run-time L and P, three
-//   chains (value, lam2 tangent, gap tangent) in dynamic shared memory laid
-//   out [slot][thread].
+// * regs32: the same thread per pair and state in registers for
+//   12 <= L <= 32 at P <= 3 (LMAX 32), with the column loop outside
+//   the step loop: at column b all P steps run, P down to 1 (step p reads
+//   T_p[a, b] before step p - 1 overwrites it with row a + 1's value), so
+//   one basic block holds every step's work of a column and the chains
+//   still interleave; the loop ends at b = L (a uniform branch), so no
+//   masked column runs.  Same arithmetic in the same order as regs.
+// * warp: for 12 <= L <= 32 at P <= 3 when the launch has few pairs
+//   (B * pairs <= 7 L^2), one warp per pair, lane = column, as a
+//   wavefront: at step t lane b does row t - b, taking column b - 1's R, u
+//   and row code of the same row from lane b - 1 by shuffle, so a pair's
+//   dependent chain is 2L - 1 steps of one shuffle and a few FMAs instead of
+//   L^2 column steps.  T_p[a, b] of the lane's column lives in the lane's
+//   registers; the per-lane sums S_p close by a fixed butterfly.  Its lanes
+//   idle half the time, so it pays only while a launch is latency-bound:
+//   regs32 takes ~L^2 dependent column steps a pair, the warp route ~2L
+//   steps but L times the lanes, so the pair count where regs32 catches up
+//   grows as ~L^2 (7 L^2 from same-card comparisons of the two routes
+//   at L 25 and 32).
+// * smem: the general route for what the register budgets leave (P >= 4 at
+//   L > 8, P >= 6, L > 32): one thread per pair, run-time L and P, the same
+//   two chains and per-step sums as regs in dynamic shared memory laid out
+//   [slot][thread].
 //
 // Measured on an H100 80GB HBM3 at 700 W (hebo_tpu_torch/bench/ssk_probe.py):
 // regs takes 7.9 us per launch at (1,256,256,11,3) and 3.1-3.5 us at every
-// launch of a few thousand pairs or fewer, where the smem route takes
-// 34-44 us.  LMAX 12 at P <= 3 cost ~10% more at L = 11 (the masked column
-// still runs its recursions); 128-thread CTAs measured the same as 64.  A
-// third route that split one pair over 16 lanes (lane = column, the row scan
-// by __shfl_up_sync doubling) was built and measured beside regs at LMAX
-// 12: never faster (3.7 vs 3.6 us at 256 self pairs, 48 vs 8.8 us at
-// 65,536 cross pairs), so it is not kept.
+// launch of a few thousand pairs or fewer.  LMAX 12 at P <= 3 cost ~10% more
+// at L = 11 (the masked column still runs its recursions); 128-thread CTAs
+// measured the same as 64.  A 16-lane split of one pair was never faster
+// than regs at L = 11.  The first design's shared-memory kernel (three
+// chains, one thread per pair) took 149-158 us per launch at L = 25 for any
+// pair count up to 65,536 and 315 us at (1,256,256,25,3): 175 words of
+// state a thread left two CTAs of 128 threads resident per SM.
 //
 // Each mode has its own kernel symbols (ssk_cross_*, ssk_self_*), so a
 // profiler tells them apart.  Sums run in another order than the TPU
@@ -80,17 +101,26 @@
 
 namespace {
 
-enum Route { kRegs = 0, kSmem = 1 };
+enum Route { kRegs = 0, kSmem = 1, kRegs32 = 2, kWarp = 3 };
 
 constexpr int kRegThreads = 64;
 constexpr int kSmemThreads = 128;
-constexpr size_t kMaxSmem = 232448;  // H100 opt-in shared memory per block
+constexpr int kWarpThreads = 128;            // 4 pairs per CTA on the warp route
+constexpr long long kWarpWork = 7;           // the warp route takes B * pairs <= kWarpWork * L^2
+constexpr size_t kMaxSmem = 232448;          // H100 opt-in shared memory per block
+constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ constexpr int lmax_regs(int P) {
   return P >= 1 && P <= 3 ? 11 : P <= 5 ? 8 : 0;
 }
 
-int pick_route(int L, int P) { return P >= 1 && L >= 1 && L <= lmax_regs(P) ? kRegs : kSmem; }
+// The route for strings of length L, max_subseq P and B * pairs = work.
+int pick_route(int L, int P, long long work) {
+  if (P < 1 || L < 1) return kSmem;
+  if (L <= lmax_regs(P)) return kRegs;
+  if (P > 3 || L > 32) return kSmem;
+  return work <= kWarpWork * L * L ? kWarp : kRegs32;
+}
 
 struct Args {
   const int* s1;
@@ -128,7 +158,7 @@ __device__ __forceinline__ void totals(float lam2, const float (&S)[P], const fl
   }
 }
 
-// ---------------------------------------------------------------- regs route
+// ---------------------------------------------------------------- regs routes
 
 template <int P>
 struct NT {
@@ -177,6 +207,60 @@ __device__ __forceinline__ void regs_row(int sa, const int (&t)[LMAX], int L, fl
   }
 }
 
+// The same row for LMAX 32, the column loop outside the step loop:
+// step p at column b reads T_p[a, b] (tv[p - 2][b]) before step p - 1, which
+// runs after it at the same column, replaces it with T_p[a + 1, b].  The loop
+// ends at b = L (uniform over the launch).  Each S_p, R and T element sees
+// the same operations in the same order as in regs_row.
+template <int P, int LMAX, int AMIN>
+__device__ __forceinline__ void long_row(int sa, const int (&t)[LMAX], int L, float g,
+                                         float (&tv)[NT<P>::v][LMAX],
+                                         float (&tg)[NT<P>::v][LMAX], float (&S)[P],
+                                         float (&Sg)[P]) {
+  float R[NT<P>::v], Rg[NT<P>::v], up[NT<P>::v], ugp[NT<P>::v];
+#pragma unroll
+  for (int k = 0; k < NT<P>::v; ++k) R[k] = Rg[k] = up[k] = ugp[k] = 0.f;
+#pragma unroll
+  for (int b = 0; b < LMAX; ++b) {
+    if (b >= L) break;
+    const bool m = sa == t[b];
+#pragma unroll
+    for (int p = P; p >= 1; --p) {
+      if (p - 1 > AMIN || b < p - 1) continue;  // structural zero row or column
+      float u, ug;
+      if (p == 1) {
+        u = m ? 1.f : 0.f;
+        ug = 0.f;
+      } else {
+        u = m ? tv[p - 2][b] : 0.f;
+        ug = m ? tg[p - 2][b] : 0.f;
+      }
+      S[p - 1] += u;
+      if (p > 1) Sg[p - 1] += ug;
+      if (p < P) {
+        if (b >= p) {
+          Rg[p - 1] = fmaf(g, Rg[p - 1], ugp[p - 1] + R[p - 1]);
+          R[p - 1] = fmaf(g, R[p - 1], up[p - 1]);
+          tg[p - 1][b] = fmaf(g, tg[p - 1][b], Rg[p - 1] + tv[p - 1][b]);
+          tv[p - 1][b] = fmaf(g, tv[p - 1][b], R[p - 1]);
+        }
+        up[p - 1] = u;
+        ugp[p - 1] = ug;
+      }
+    }
+  }
+}
+
+template <int P, int LMAX, int AMIN>
+__device__ __forceinline__ void any_row(int sa, const int (&t)[LMAX], int L, float g,
+                                        float (&tv)[NT<P>::v][LMAX], float (&tg)[NT<P>::v][LMAX],
+                                        float (&S)[P], float (&Sg)[P]) {
+  if constexpr (LMAX > 11)
+    long_row<P, LMAX, AMIN>(sa, t, L, g, tv, tg, S, Sg);
+  else
+    regs_row<P, LMAX, AMIN>(sa, t, L, g, tv, tg, S, Sg);
+}
+
 // Rows A..L-1: the first P-1 rows peeled with their compile-time row index,
 // the rest in a loop with every step live.
 template <int P, int LMAX, int A>
@@ -186,7 +270,7 @@ __device__ __forceinline__ void regs_rows(const int* srow, const int (&t)[LMAX],
                                           float (&Sg)[P]) {
   if constexpr (A < P - 1) {
     if (A < L) {
-      regs_row<P, LMAX, A>(srow[A], t, L, g, tv, tg, S, Sg);
+      any_row<P, LMAX, A>(srow[A], t, L, g, tv, tg, S, Sg);
       regs_rows<P, LMAX, A + 1>(srow, t, L, g, tv, tg, S, Sg);
     }
   } else {
@@ -194,7 +278,7 @@ __device__ __forceinline__ void regs_rows(const int* srow, const int (&t)[LMAX],
 #pragma unroll 1
     for (int a = A; a < L; ++a) {
       const int sn = a + 1 < L ? srow[a + 1] : 0;  // next row's code, loaded early
-      regs_row<P, LMAX, A>(sa, t, L, g, tv, tg, S, Sg);
+      any_row<P, LMAX, A>(sa, t, L, g, tv, tg, S, Sg);
       sa = sn;
     }
   }
@@ -237,8 +321,114 @@ __global__ void __launch_bounds__(kRegThreads) ssk_self_regs(Args x) {
   regs_body<P, LMAX, true>(x);
 }
 
+// ---------------------------------------------------------------- warp route
+
+// One warp per (batch entry, pair), lane b = column b (L <= 32), run as a
+// wavefront: at step t lane b does row a = t - b, so lane b - 1 did the
+// same row one step before and hands over what column b's recursions need
+// from column b - 1 (u_p, u'_p, R_p, R'_p for p < P, and the row's code) by
+// one __shfl_up_sync each.  Lane b keeps T_p[a, b] for p = 2..P and its
+// share of S_p.  Every R and T element sees the operations of the serial
+// scan in the same order; 2L - 1 steps, each a handful of dependent FMAs
+// behind one shuffle's latency, with no branch inside a step but the
+// lane's row range.
+template <int P, bool SELF>
+__device__ __forceinline__ void warp_body(const Args& x) {
+  constexpr int NP = NT<P>::v;
+  const int lane = threadIdx.x & 31;
+  const int bt = blockIdx.y;
+  const long long pairs = SELF ? (long long)x.N : (long long)x.N * x.M;
+  const long long q = (long long)blockIdx.x * (kWarpThreads / 32) + (threadIdx.x >> 5);
+  if (q >= pairs) return;  // the whole warp: q is uniform over it
+  const int *srow, *trow;
+  pair_rows<SELF>(x, q, srow, trow);
+  const int L = x.L;
+  const bool live = lane < L;
+  const int tb = live ? trow[lane] : 0;  // column b's code
+  const int sl = live ? srow[lane] : 0;  // row a's code, held by lane a
+  const float g = x.gaps[bt];
+  float tv[NP], tg[NP], S[P], Sg[P];
+  float pu[NP], pug[NP], pR[NP], pRg[NP];  // column b's values of the lane's last row
+#pragma unroll
+  for (int k = 0; k < NP; ++k) tv[k] = tg[k] = pu[k] = pug[k] = pR[k] = pRg[k] = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) S[p] = Sg[p] = 0.f;
+  int code = 0;
+#pragma unroll 1
+  for (int t = 0; t < 2 * L - 1; ++t) {
+    float ru[NP], rug[NP], rR[NP], rRg[NP];  // column b - 1's, row a
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      ru[k] = __shfl_up_sync(kFull, pu[k], 1);
+      rug[k] = __shfl_up_sync(kFull, pug[k], 1);
+      rR[k] = __shfl_up_sync(kFull, pR[k], 1);
+      rRg[k] = __shfl_up_sync(kFull, pRg[k], 1);
+    }
+    const int up_code = __shfl_up_sync(kFull, code, 1);
+    const int row_code = __shfl_sync(kFull, sl, t & 31);  // s[t], for lane 0
+    const int a = t - lane;
+    if (live && a >= 0 && a < L) {
+      code = lane == 0 ? row_code : up_code;
+      const bool m = code == tb;
+      // Rows a < p - 1 and columns b < p - 1 are structural zeros here too:
+      // T_p and u_p are exactly 0 there, so the steps run on them unmasked
+      // and leave the same zeros as the routes that skip them.  Lane 0 has
+      // no column before it: its R is 0.
+#pragma unroll
+      for (int p = P; p >= 1; --p) {
+        float u, ug;
+        if (p == 1) {
+          u = m ? 1.f : 0.f;
+          ug = 0.f;
+        } else {
+          u = m ? tv[p - 2] : 0.f;
+          ug = m ? tg[p - 2] : 0.f;
+        }
+        S[p - 1] += u;
+        if (p > 1) Sg[p - 1] += ug;
+        if (p < P) {
+          const float Rg = lane == 0 ? 0.f : fmaf(g, rRg[p - 1], rug[p - 1] + rR[p - 1]);
+          const float R = lane == 0 ? 0.f : fmaf(g, rR[p - 1], ru[p - 1]);
+          tg[p - 1] = fmaf(g, tg[p - 1], Rg + tv[p - 1]);
+          tv[p - 1] = fmaf(g, tv[p - 1], R);
+          pu[p - 1] = u;
+          pug[p - 1] = ug;
+          pR[p - 1] = R;
+          pRg[p - 1] = Rg;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1) {
+      S[p] += __shfl_xor_sync(kFull, S[p], off);
+      Sg[p] += __shfl_xor_sync(kFull, Sg[p], off);
+    }
+  if (lane == 0) {
+    float tot, totl, totg;
+    totals<P>(x.lam2s[bt], S, Sg, tot, totl, totg);
+    const long long o = (long long)bt * pairs + q;
+    x.K[o] = tot;
+    x.Kl[o] = totl;
+    x.Kg[o] = totg;
+  }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kWarpThreads) ssk_cross_warp(Args x) {
+  warp_body<P, false>(x);
+}
+template <int P>
+__global__ void __launch_bounds__(kWarpThreads) ssk_self_warp(Args x) {
+  warp_body<P, true>(x);
+}
+
 // ---------------------------------------------------------------- smem route
 
+// The regs route's two chains and per-step sums with run-time L and P, in
+// shared memory: slot k of the thread at sh[k * nthr + tid].
 template <bool SELF>
 __device__ __forceinline__ void smem_body(const Args& x) {
   extern __shared__ float sh[];
@@ -252,61 +442,62 @@ __device__ __forceinline__ void smem_body(const Args& x) {
   const int *srow, *trow;
   pair_rows<SELF>(x, q, srow, trow);
 
-  // T slots: ((p-2)*3 + chain)*L + b for p = 2..P, then t's L codes
-  const int nT = 3 * (P - 1) * L;
-  float* Tsh = sh;
-  int* tsh = reinterpret_cast<int*>(sh + (size_t)nT * nthr);
-  for (int b = 0; b < L; ++b) tsh[b * nthr + tid] = trow[b];
-  for (int k = 0; k < nT; ++k) Tsh[k * nthr + tid] = 0.f;
+  // slots: T_p value and gap tangent ((p-2)*2 + chain)*L + b for p = 2..P,
+  // then S_p, S'_p (2P), then t's L codes
+  const int nT = 2 * (P - 1) * L;
+  float* T = sh + tid;
+  float* Ssh = T + (size_t)nT * nthr;
+  int* tsh = reinterpret_cast<int*>(Ssh + (size_t)2 * P * nthr);
+  for (int b = 0; b < L; ++b) tsh[(size_t)b * nthr] = trow[b];
+  for (int k = 0; k < nT + 2 * P; ++k) T[(size_t)k * nthr] = 0.f;
 
-  const float lam2 = x.lam2s[bt];
   const float g = x.gaps[bt];
-  float tot = 0.f, totl = 0.f, totg = 0.f;
-
   for (int a = 0; a < L; ++a) {
     const int sa = srow[a];
     for (int p = P; p >= 1; --p) {
-      // T_p (read, p >= 2) and T_{p+1} (updated, p < P)
-      const float* Tp = p >= 2 ? Tsh + (size_t)(p - 2) * 3 * L * nthr : nullptr;
-      float* Tn = p < P ? Tsh + (size_t)(p - 1) * 3 * L * nthr : nullptr;
-      float R = 0.f, Rl = 0.f, Rg = 0.f;     // prefix scan of row a of K_p
-      float kp = 0.f, kpl = 0.f, kpg = 0.f;  // K_p[a, b-1]
-      for (int b = 0; b < L; ++b) {
-        const float m = (sa == tsh[b * nthr + tid]) ? 1.f : 0.f;
-        float k, kl, kg;
+      if (a < p - 1) continue;  // structural zero row
+      const float* Tp = p >= 2 ? T + (size_t)(p - 2) * 2 * L * nthr : nullptr;  // T_p, read
+      float* Tn = p < P ? T + (size_t)(p - 1) * 2 * L * nthr : nullptr;         // T_(p+1)
+      float s = Ssh[(size_t)(p - 1) * nthr], sg = Ssh[(size_t)(P + p - 1) * nthr];
+      float R = 0.f, Rg = 0.f, up = 0.f, ugp = 0.f;
+      for (int b = p - 1; b < L; ++b) {  // columns < p - 1 are structural zeros
+        const bool m = sa == tsh[(size_t)b * nthr];
+        float u, ug;
         if (p == 1) {
-          k = lam2 * m;
-          kl = m;
-          kg = 0.f;
+          u = m ? 1.f : 0.f;
+          ug = 0.f;
         } else {
-          const float tv = Tp[(size_t)(0 * L + b) * nthr + tid];
-          const float tl = Tp[(size_t)(1 * L + b) * nthr + tid];
-          const float tg = Tp[(size_t)(2 * L + b) * nthr + tid];
-          const float lm = lam2 * m;
-          k = lm * tv;
-          kl = m * fmaf(lam2, tl, tv);
-          kg = lm * tg;
+          u = m ? Tp[(size_t)b * nthr] : 0.f;
+          ug = m ? Tp[(size_t)(L + b) * nthr] : 0.f;
         }
-        tot += k;
-        totl += kl;
-        totg += kg;
+        s += u;
+        if (p > 1) sg += ug;
         if (p < P) {
-          Rg = kpg + R + g * Rg;  // uses R before its update
-          R = fmaf(g, R, kp);
-          Rl = fmaf(g, Rl, kpl);
-          float* tvp = Tn + (size_t)(0 * L + b) * nthr + tid;
-          float* tlp = Tn + (size_t)(1 * L + b) * nthr + tid;
-          float* tgp = Tn + (size_t)(2 * L + b) * nthr + tid;
-          const float tv = *tvp;
-          *tgp = Rg + tv + g * *tgp;
-          *tvp = fmaf(g, tv, R);
-          *tlp = fmaf(g, *tlp, Rl);
-          kp = k;
-          kpl = kl;
-          kpg = kg;
+          if (b >= p) {
+            Rg = fmaf(g, Rg, ugp + R);
+            R = fmaf(g, R, up);
+            float* tvp = Tn + (size_t)b * nthr;
+            float* tgp = Tn + (size_t)(L + b) * nthr;
+            const float tv = *tvp;
+            *tgp = fmaf(g, *tgp, Rg + tv);
+            *tvp = fmaf(g, tv, R);
+          }
+          up = u;
+          ugp = ug;
         }
       }
+      Ssh[(size_t)(p - 1) * nthr] = s;
+      Ssh[(size_t)(P + p - 1) * nthr] = sg;
     }
+  }
+  const float lam2 = x.lam2s[bt];
+  float tot = 0.f, totl = 0.f, totg = 0.f, pw = 1.f;  // as totals<P>
+  for (int p = 1; p <= P; ++p) {
+    const float S = Ssh[(size_t)(p - 1) * nthr], Sg = Ssh[(size_t)(P + p - 1) * nthr];
+    totl = fmaf((float)p * pw, S, totl);
+    pw *= lam2;
+    tot = fmaf(pw, S, tot);
+    totg = fmaf(pw, Sg, totg);
   }
   const long long o = (long long)bt * pairs + q;
   x.K[o] = tot;
@@ -328,15 +519,20 @@ int grid_launch(Kern kern, long long threads, int nthr, int B, size_t smem, cuda
   return (int)cudaGetLastError();
 }
 
-template <int P>
+template <int P, int LMAX>
 int launch_regs(const Args& x, int B, long long pairs, bool self_mode, cudaStream_t s) {
-  constexpr int LMAX = lmax_regs(P);
   return self_mode ? grid_launch(ssk_self_regs<P, LMAX>, pairs, kRegThreads, B, 0, s, x)
                    : grid_launch(ssk_cross_regs<P, LMAX>, pairs, kRegThreads, B, 0, s, x);
 }
 
+template <int P>
+int launch_warp(const Args& x, int B, long long pairs, bool self_mode, cudaStream_t s) {
+  return self_mode ? grid_launch(ssk_self_warp<P>, 32 * pairs, kWarpThreads, B, 0, s, x)
+                   : grid_launch(ssk_cross_warp<P>, 32 * pairs, kWarpThreads, B, 0, s, x);
+}
+
 int launch_smem(const Args& x, int B, long long pairs, bool self_mode, cudaStream_t s) {
-  const size_t words = (size_t)3 * (x.P - 1) * x.L + x.L;
+  const size_t words = (size_t)2 * (x.P - 1) * x.L + 2 * x.P + x.L;
   int nthr = kSmemThreads;
   while (nthr > 32 && words * 4 * nthr > kMaxSmem) nthr /= 2;
   const size_t smem = words * 4 * nthr;
@@ -354,12 +550,19 @@ int launch(const Args& x, int B, bool self_mode, cudaStream_t s) {
   if (x.L < 1 || x.P < 1) return (int)cudaErrorInvalidValue;
   const long long pairs = self_mode ? (long long)x.N : (long long)x.N * x.M;
   if (B == 0 || pairs == 0) return 0;
-  switch (pick_route(x.L, x.P) == kSmem ? 0 : x.P) {
-    case 1: return launch_regs<1>(x, B, pairs, self_mode, s);
-    case 2: return launch_regs<2>(x, B, pairs, self_mode, s);
-    case 3: return launch_regs<3>(x, B, pairs, self_mode, s);
-    case 4: return launch_regs<4>(x, B, pairs, self_mode, s);
-    case 5: return launch_regs<5>(x, B, pairs, self_mode, s);
+  const int route = pick_route(x.L, x.P, (long long)B * pairs);
+  switch (route * 8 + (route == kSmem ? 0 : x.P)) {
+    case kRegs * 8 + 1: return launch_regs<1, lmax_regs(1)>(x, B, pairs, self_mode, s);
+    case kRegs * 8 + 2: return launch_regs<2, lmax_regs(2)>(x, B, pairs, self_mode, s);
+    case kRegs * 8 + 3: return launch_regs<3, lmax_regs(3)>(x, B, pairs, self_mode, s);
+    case kRegs * 8 + 4: return launch_regs<4, lmax_regs(4)>(x, B, pairs, self_mode, s);
+    case kRegs * 8 + 5: return launch_regs<5, lmax_regs(5)>(x, B, pairs, self_mode, s);
+    case kRegs32 * 8 + 1: return launch_regs<1, 32>(x, B, pairs, self_mode, s);
+    case kRegs32 * 8 + 2: return launch_regs<2, 32>(x, B, pairs, self_mode, s);
+    case kRegs32 * 8 + 3: return launch_regs<3, 32>(x, B, pairs, self_mode, s);
+    case kWarp * 8 + 1: return launch_warp<1>(x, B, pairs, self_mode, s);
+    case kWarp * 8 + 2: return launch_warp<2>(x, B, pairs, self_mode, s);
+    case kWarp * 8 + 3: return launch_warp<3>(x, B, pairs, self_mode, s);
     default: return launch_smem(x, B, pairs, self_mode, s);
   }
 }
@@ -385,5 +588,6 @@ extern "C" int hebo_ssk_self(const int* s, const float* lam2, const float* gap,
   return launch(x, B, true, (cudaStream_t)stream);
 }
 
-// The route hebo_ssk_cross / hebo_ssk_self take for (L, P): 0 regs, 1 smem.
-extern "C" int hebo_ssk_route(int L, int P) { return pick_route(L, P); }
+// The route hebo_ssk_cross / hebo_ssk_self take for (L, P) at a launch of
+// B * pairs = work: 0 regs, 1 smem, 2 regs32, 3 warp.
+extern "C" int hebo_ssk_route(int L, int P, long long work) { return pick_route(L, P, work); }

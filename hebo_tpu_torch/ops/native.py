@@ -43,7 +43,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "ssk": {
         "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hebo_ssk_self": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "hebo_ssk_route": [_I, _I],
+        "hebo_ssk_route": [_I, _I, ctypes.c_longlong],
     },
     "pareto": {
         "hebo_nsga2_rank_crowd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -23,11 +23,13 @@ for the custom VJP :218-228) returns Σ g·∂K/∂λ_m² and Σ g·∂K/∂λ_g
 batch entry.  The codes get no gradient.  ``ssk_gram_plain`` is the same
 function over the plain versions.
 
-The kernel picks one of two routes by (L, P) (``csrc/ssk.cu::pick_route``,
-reported by ``route``): ``regs`` (one thread per pair, state in registers,
-L ≤ 11 at P ≤ 3 and L ≤ 8 at P = 4, 5) and ``smem`` (everything beyond that
-register budget).  ``ssk_scan_plain`` is the kernel's recursion in plain
-torch, for the CPU tests.
+The kernel picks one of four routes by (L, P) and the launch's pair count
+(``csrc/ssk.cu::pick_route``, reported by ``route``): ``regs`` (one thread
+per pair, state in registers, L ≤ 11 at P ≤ 3 and L ≤ 8 at P = 4, 5),
+``regs32`` (the same for 12 ≤ L ≤ 32 at P ≤ 3, column bound 32), ``warp`` (12 ≤ L ≤ 32 at P ≤ 3 when B·pairs is small: one warp per
+pair, lane = column, rows as a wavefront across the lanes) and ``smem``
+(everything beyond those register budgets).  ``ssk_scan_plain`` is the
+kernel's recursion in plain torch, for the CPU tests.
 
 Tolerances of the kernel against the plain version (sums in another order):
 raw totals 1e-5 relative, normalised K 1e-5 absolute (K ∈ [0, 1]), tangents
@@ -49,13 +51,15 @@ __all__ = [
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-ROUTES = ("regs", "smem")
+ROUTES = ("regs", "smem", "regs32", "warp")
 
 
-def route(L: int, P: int) -> str:
+def route(L: int, P: int, work: int) -> str:
     """The route K3 takes on the card for strings of length L and max_subseq
-    P, as the built kernel reports it (``csrc/ssk.cu::pick_route``)."""
-    return ROUTES[native.load("ssk").hebo_ssk_route(int(L), int(P))]
+    P at a launch of ``work`` = B·pairs (B·N·M for ``ssk_cross``, B·N for
+    ``ssk_self``), as the built kernel reports it
+    (``csrc/ssk.cu::pick_route``)."""
+    return ROUTES[native.load("ssk").hebo_ssk_route(int(L), int(P), int(work))]
 
 
 def decay_mats(gap: torch.Tensor, L: int):
@@ -137,7 +141,9 @@ def ssk_scan_plain(s1: torch.Tensor, s2: Optional[torch.Tensor], lam2: torch.Ten
     to 1, the λ_m²-free chain V_p = m·(DᵀV_{p−1}D) with its gap tangent as
     row scans R and column recursions T, structural zeros (rows and columns
     < p − 1) skipped, and the totals Σ_p λ^p S_p, Σ_p p·λ^{p−1} S_p,
-    Σ_p λ^p S′_p."""
+    Σ_p λ^p S′_p.  Every route runs these recursions in this order; S_p is
+    summed per column first, as the warp route's lanes keep their shares
+    (the other routes sum each row in column order)."""
     P = int(max_subseq)
     if s2 is None:
         match = s1[:, :, None] == s1[:, None, :]
@@ -148,7 +154,7 @@ def ssk_scan_plain(s1: torch.Tensor, s2: Optional[torch.Tensor], lam2: torch.Ten
     zero = lam2.new_zeros(())
     tv = lam2.new_zeros((max(P - 1, 1), B, pairs, L))  # T_p[a, ·] for p = 2..P
     tg = torch.zeros_like(tv)
-    S = lam2.new_zeros((P, B, pairs))
+    S = lam2.new_zeros((P, B, pairs, L))  # per column (the warp route's lanes)
     Sg = torch.zeros_like(S)
     for a in range(L):
         m = match[:, a, :]
@@ -159,13 +165,14 @@ def ssk_scan_plain(s1: torch.Tensor, s2: Optional[torch.Tensor], lam2: torch.Ten
                 u, ug = m.to(lam2.dtype).expand(B, -1, -1), torch.zeros_like(tv[0])
             else:
                 u, ug = torch.where(m, tv[p - 2], zero), torch.where(m, tg[p - 2], zero)
-            S[p - 1] += u[..., p - 1:].sum(-1)
-            Sg[p - 1] += ug[..., p - 1:].sum(-1)
+            S[p - 1] += u
+            Sg[p - 1] += ug
             if p < P:
                 R, Rg = _scan_serial(u, ug, g, p)
                 Tv, Tg = tv[p - 1, ..., p:], tg[p - 1, ..., p:]  # zero at columns < p
                 Tg.copy_(g * Tg + (Rg[..., p:] + Tv))
                 Tv.copy_(g * Tv + R[..., p:])
+    S, Sg = S.sum(-1), Sg.sum(-1)
     tot, totl, totg = (torch.zeros_like(S[0]) for _ in range(3))
     lam = lam2.reshape(B, 1)
     pw = torch.ones_like(lam)  # λ^{p−1}

@@ -11,7 +11,8 @@ diagonal ≥ 0.5 (float32, blocked vs LAPACK summation order); on a GP-like
 Matérn Gram the kernel's residual ‖W·L − I‖_max within 10× the plain
 version's (W by doubling vs forward substitution); SSK raw totals
 1e-5 and tangents 1e-4 relative, normalised SSK Gram 1e-5 absolute (prefix
-recursions vs dense D-matrix products), on both of K3's routes.  K5 (rank,
+recursions vs dense D-matrix products), on each of K3's routes.  K2's VJP
+at its tiles' ragged edges.  K5 (rank,
 crowding, NSGA-II key and survivor order) exactly: the same ranks, crowding
 bits, keys and order as its plain version, NaN where NaN, and NSGA-II's
 population after 20 generations through it the same as through the plain
@@ -117,7 +118,8 @@ def test_gram_backward_goes_through_vjp_kernel(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,N,M,D", [(2, 1024, 1024, 6), (1, 1000, 100, 20)])
+@pytest.mark.parametrize("B,N,M,D", [(2, 1024, 1024, 6), (1, 1000, 100, 20), (32, 1024, 1024, 6),
+                                     (1, 1000, 1000, 19)])
 def test_gram_vjp_same_bits_twice(cuda, B, N, M, D):
     """No float atomics: the same inputs give the same bits."""
     a, b, sc, g = _gram_inputs(cuda, B, N, M, D, seed=3)
@@ -147,6 +149,29 @@ def test_gram_tile_rows_at_the_edges(cuda, rows, edge):
     torch.testing.assert_close(matern32_gram(a, b, sc, 1e-3), matern32_gram_plain(a, b, sc, 1e-3),
                                rtol=1e-5, atol=1e-5)
     _assert_vjp_close(gram.matern32_gram_vjp(a, b, sc, g), gram.matern32_gram_vjp_plain(a, b, sc, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,M,D", [
+    (2, 1024, 1024, 6), (4, 1024, 1024, 6), (32, 1024, 1024, 6),  # HEBO's fit; HMC / SVI; SMC
+    (2, 2048, 2048, 6), (1, 1024, 1024, 8),                       # large-N fit; DKL
+    (1, 1000, 1000, 6), (2, 1000, 1020, 6),   # N not a multiple of 64; M not either, M % 4 == 0
+    (1, 1000, 1000, 19), (2, 300, 1102, 30),  # D past one chunk of 16 features; M % 4 != 0
+    (1, 1000, 1000, 17), (4, 300, 600, 40),   # D one past a chunk; three chunks
+    (2, 600, 700, 1), (1, 1000, 1000, 16),    # D = 1; D at one chunk
+    (140, 70, 250, 5),                        # B 140, N and M ragged in every tile
+    (2, 128, 128, 6), (1, 64, 8, 6), (1, 256, 256, 30),  # small grids
+])
+def test_gram_vjp_ragged_on_card(cuda, B, N, M, D):
+    """One launch per call at tiles cut by N, M and D, the plain closed
+    form's gradients, and the same bits from a second call."""
+    a, b, sc, g = _gram_inputs(cuda, B, N, M, D, seed=5)
+    n0 = gram.matern32_gram_vjp.launches
+    got = gram.matern32_gram_vjp(a, b, sc, g)
+    assert gram.matern32_gram_vjp.launches == n0 + 1
+    _assert_vjp_close(got, gram.matern32_gram_vjp_plain(a, b, sc, g))
+    for x, y in zip(gram.matern32_gram_vjp(a, b, sc, g), got):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -222,20 +247,34 @@ def _rel(a, b):
     (2, 37, 70, 4, 5, 20, "regs"),
     (1, 32, 32, 11, 3, 20, "regs"),    # AntBO bucket 32: the fit
     (1, 209, 32, 11, 3, 20, "regs"),   # AntBO bucket 32: one-flip neighbours
-    (2, 40, 50, 13, 3, 20, "smem"),
+    (2, 40, 50, 13, 3, 20, "regs32/warp"),  # 4,000 pairs > 7·13²: regs32
     (1, 70, 80, 11, 3, 4, "regs"),     # L at the regs bound of P ≤ 3
     (1, 70, 80, 8, 5, 4, "regs"),      # L at the regs bound of P = 5
     (1, 70, 80, 1, 1, 4, "regs"),      # L = 1, P = 1
-    (1, 70, 80, 12, 3, 4, "smem"),     # one column beyond the register budget
+    (1, 70, 80, 12, 3, 4, "regs32/warp"),  # one column beyond the L 11 budget
     (1, 70, 80, 9, 5, 4, "smem"),
     (1, 20, 30, 11, 6, 4, "smem"),     # P beyond the register budget
+    (1, 256, 256, 25, 3, 5, "regs32/warp"),  # BOSS / BOiLS: the fit at bucket 256
+    (1, 256, 101, 25, 3, 5, "regs32/warp"),  # one-flip neighbours
+    (1, 256, 8, 25, 3, 5, "warp"),           # the descents' queries
+    (1, 125, 35, 25, 3, 5, "warp"),          # 4,375 = 7·25² pairs: the warp route's last count
+    (1, 547, 8, 25, 3, 5, "regs32/warp"),    # 4,376 pairs: regs32
+    (1, 70, 80, 16, 3, 4, "regs32/warp"),
+    (1, 70, 80, 17, 3, 4, "regs32/warp"),
+    (1, 70, 80, 32, 3, 4, "warp"),           # L at the regs32 bound; 5,600 ≤ 7·32² pairs
+    (1, 100, 80, 32, 3, 4, "regs32/warp"),   # 8,000 pairs
+    (1, 70, 80, 33, 3, 4, "smem"),           # one column beyond it: the general route
+    (1, 70, 80, 20, 2, 4, "regs32/warp"),    # P = 2 on the long routes (P = 1: chip_smoke)
+    (1, 70, 80, 14, 2, 4, "regs32/warp"),
 ])
 def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
     """Codes from an alphabet of A letters (4: dense matches, every step of
-    the DP non-zero).  The route the shape takes, one launch per wrapper
-    call, the same bits from a second launch on the same inputs, both
-    wrappers against the plain version, and the normalised Gram's decay
-    gradients against the plain version's for four seeded cotangents w.
+    the DP non-zero).  The route each launch takes ("cross/self" where the
+    two differ: the warp route takes launches of at most 7·L² pairs), one
+    launch per wrapper call, the same bits from a second launch on the same
+    inputs, both wrappers against the plain version, and the normalised
+    Gram's decay gradients against the plain version's for four seeded
+    cotangents w.
 
     Each decay's gradient is a float32 sum of n = N·M terms t = w ⊙ ∂K/∂θ
     (with the chain factor 2·λ_m for the match decay), many of them
@@ -249,7 +288,9 @@ def test_ssk_kernel_on_card(cuda, B, N, M, L, P, A, route):
     s2 = torch.as_tensor(rng.integers(0, A, (M, L)), dtype=torch.int32, device=cuda)
     md = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
     gd = torch.as_tensor(rng.uniform(0.3, 0.9, B), dtype=torch.float32, device=cuda)
-    assert ssk.route(L, P) == route
+    want_cross, _, want_self = route.partition("/")
+    assert ssk.route(L, P, B * N * M) == want_cross
+    assert ssk.route(L, P, B * N) == (want_self or want_cross)
     n0 = (ssk.ssk_cross.launches, ssk.ssk_self.launches)
     cross = ssk.ssk_cross(s1, s2, md * md, gd, P)
     self1 = ssk.ssk_self(s1, md * md, gd, P)

@@ -87,8 +87,10 @@ def test_raw_totals_and_tangents_match_pallas(N, M, L, P):
             np.testing.assert_allclose(self1[k][b].numpy(), np.asarray(s1j[k])[:N], rtol=rtol, atol=1e-6)
 
 
-# CASES plus L = 1, P = 1, P = 5 and M = 1
-SCAN_CASES = CASES + [(7, 4, 1, 3), (8, 5, 11, 1), (6, 7, 6, 5), (9, 1, 8, 5)]
+# CASES plus L = 1, P = 1, P = 5, M = 1, BOSS / BOiLS' L = 25, the largest
+# register column bound (32) at P = 3, and the long routes at P = 2 and 1
+SCAN_CASES = CASES + [(7, 4, 1, 3), (8, 5, 11, 1), (6, 7, 6, 5), (9, 1, 8, 5), (5, 3, 25, 3),
+                      (4, 2, 32, 3), (6, 5, 13, 2), (3, 4, 12, 1)]
 
 
 @pytest.mark.parametrize("N,M,L,P", SCAN_CASES)
