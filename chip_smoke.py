@@ -21,7 +21,10 @@
    (``bench/gram_probe.device_per_call``, torch.profiler) beside ms per
    call, the VJP also on a self-Gram with coincident rows, and twice on the
    same inputs, which must give the same bits.
-   K1 runs at every shape of the main paths and prints library_ms / ms;
+   K1 runs at every shape of the main paths and prints library_ms / ms,
+   each K1a row with the route it takes (``ops/chol_kernel.route``: "step",
+   a launch per panel, or "flow", the persistent left-looking launch, from
+   8 tiles) and with the same bits from a second call;
    with the jitter ladder's arguments (jitter on the diagonal, a skipped
    matrix that keeps its outputs) against its plain version, the ladder
    (every rung launched) against the host-decided ladder at the fit's
@@ -38,7 +41,8 @@
    launch's route and device µs per launch (torch.profiler) beside ms per
    call, twice on the same inputs, which must give the same bits.
    Checks NaN propagation of the factorization on a batch with one non-PSD
-   member and on one whose first bad pivot lies in a late tile, and the
+   member and on one whose first bad pivot lies in a late tile (on each of
+   K1a's routes), and the
    K1-backed ``cholesky_batched`` / ``chol_inv_batched`` API at (2, 512).
 3. Drives HEBO's suggest/observe loop at full default settings (pop 100 ×
    100 generations, 2 restarts × 50 pSGLD epochs, MACE) through the public
@@ -55,6 +59,9 @@
        path runs under torch.profiler: its device time, K5's device ms and
        the sort kernels' (fewer sort launches than generations, as NSGA-II
        takes its keys and survivors' order from K5).
+   (b2) Ackley-6D warm-started with 400, 600, 1200 and 1800 Sobol
+       observations (buckets 512, 768, 1536 and 2048, whose K1a takes the
+       flow route like bucket 1024's): the capturing suggest.
    Each phase ends with one suggest on each path at the same seed, which
    must give the same suggestion.  Every suggestion must be finite and
    inside the box, and every pSGLD step's Gram gradient must have gone
@@ -89,8 +96,9 @@
         package's bench.py:155-181): fit and predict(512), each timed after
         a warm call, the predictions finite;
    (e4) max_cholesky_size 4096 at 3000 observations: two suggest(8) on the
-        fused graph at bucket 3072, whose posterior is the K1 ladder, with
-        valid batches and α's float64 residual below 0.2.
+        fused graph at bucket 3072, whose posterior is the K1 ladder (K1a
+        on its flow route), with valid batches and α's float64 residual
+        below 0.2, then one suggest on each path, which must agree.
 6. Drives the GP's options and hyperparameter inference through HEBO on
    Ackley-6D, batch 8, with the counts reset before each phase:
    (f) 800 warm Sobol observations (bucket 1024) with
@@ -525,21 +533,27 @@ def check_chol(torch, ck, dev, gen, fails):
     structure learner (24, 256); NAP's meta-training tasks (16, 32); phase
     m's block factor at block 64 (1, 64), W of the gathered factor
     (1, 3072) and PPO's tasks (16, 24); phases n and o's small fits (1, 16)
-    and (1, 8); phase p's HEBO fits at buckets 8 and 64, (2, 8) and (2, 64).  Host
+    and (1, 8); phase p's HEBO fits at buckets 8 and 64, (2, 8) and (2, 64);
+    phase b2's caches and fits at buckets 512, 768, 1536 and 2048 on K1a's
+    flow route, (1, 512), (2, 512), (1, 768), (2, 768), (1, 1536),
+    (2, 1536), (1, 2048) and (2, 2048).  Host
     dispatch is part of the time at the small shapes, for the kernels and
     the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
-                 (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (16, 24)]:  # a batch last: the NaN case below
+                 (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (2, 512), (1, 768), (2, 768), (1, 1536),
+                 (2, 1536), (1, 2048), (16, 24)]:  # a batch last: the NaN case below
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
+        L2, Wd2 = ck.chol_factor(K)
+        same = bool(torch.equal(L, L2) and torch.equal(Wd, Wd2))
         L0, Wd0 = ck.chol_factor_plain(K)
         err_f = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
         W = ck.chol_winv(L, Wd)
         err_w = (W - ck.chol_winv_plain(L, Wd)).abs().max().item()
-        if not err_f <= L_TOL:
-            fails.append(f"chol_factor {(B, N)}: max abs err {err_f}")
+        if not (err_f <= L_TOL and same):
+            fails.append(f"chol_factor {(B, N)}: max abs err {err_f}, same bits twice {same}")
         if not err_w <= W_TOL:
             fails.append(f"chol_winv {(B, N)}: max abs err {err_w}")
         reps = 200 if N <= 256 else 20 if N <= 1024 else 5
@@ -557,7 +571,8 @@ def check_chol(torch, ck, dev, gen, fails):
             library_ms = cuda_ms(torch, lib, reps)
             rows.append(dict(shape=[B, N], max_abs_err=err, ms=ms, plain_ms=cuda_ms(torch, plain, reps),
                              bound_ms=bms, bound_by=by, library_ms=library_ms,
-                             library_over_ms=library_ms / ms))
+                             library_over_ms=library_ms / ms,
+                             **({"route": ck.route(N), "same_bits": same} if rows is fac else {})))
     # NaN propagation: one non-PSD member, its neighbours untouched
     K[0] = -torch.eye(K.shape[-1], device=dev)
     L, W = ck.chol_inv(K)
@@ -570,19 +585,24 @@ def check_chol(torch, ck, dev, gen, fails):
     K[1, :200, 200:] = 0.0
     K[1, 200:, :200] = 0.0
     K[1, 200:, 200:] = -torch.eye(56, device=dev)
-    L, W = ck.chol_inv(K)
-    late_ok = (not torch.isfinite(L[1]).all().item() and not torch.isfinite(W[1]).all().item()
-               and torch.isfinite(L[[0, 2]]).all().item() and torch.isfinite(W[[0, 2]]).all().item())
-    print(f"chol NaN propagation (batch (2, 2048, 2048), member 0 = -I): {'ok' if nan_ok else 'FAILED'}; "
-          f"late tile (batch (3, 256, 256), member 1 fails in tile 3): {'ok' if late_ok else 'FAILED'}",
-          flush=True)
+    late_ok = {}
+    for r in ck.ROUTES:
+        L, Wd = ck.chol_factor(K, route=r)
+        W = ck.chol_winv(L, Wd)
+        late_ok[r] = (not torch.isfinite(L[1]).all().item() and not torch.isfinite(W[1]).all().item()
+                      and torch.isfinite(L[1, :192]).all().item()
+                      and torch.isfinite(L[[0, 2]]).all().item() and torch.isfinite(W[[0, 2]]).all().item())
+    print(f"chol NaN propagation (batch (2, 2048, 2048), route {ck.route(2048)}, member 0 = -I): "
+          f"{'ok' if nan_ok else 'FAILED'}; late tile (batch (3, 256, 256), member 1 fails in tile 3), "
+          f"by route: {late_ok}", flush=True)
     if not nan_ok:
         fails.append("chol NaN propagation")
-    if not late_ok:
-        fails.append("chol NaN propagation from a late tile")
+    if not all(late_ok.values()):
+        fails.append(f"chol NaN propagation from a late tile: {late_ok}")
     for name, rows in (("chol_factor vs cholesky_ex", fac), ("chol_winv vs solve_triangular", winv)):
         print(f"{name}, library_ms / ms:",
-              ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f}" for r in rows), flush=True)
+              ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f}"
+                        + (f" {r['route']}" if "route" in r else "") for r in rows), flush=True)
     return fac, winv
 
 
@@ -830,14 +850,22 @@ def check_ladder(torch, ck, dev, gen, fails):
     skipped_ms = cuda_ms(torch, lambda: (ck.chol_factor(K, jit, all_skip, out=(Lp, Wdp)),
                                          ck.chol_winv(Lp, Wdp, all_skip, out=Wp)), 200)
     print(f"chol skipped rung (2, 1024): {skipped_ms:.4f} ms per chol_factor + chol_winv pair "
-          f"(16 + 9 launches whose CTAs return at once)", flush=True)
-    return dict(skipped_rung_ms=skipped_ms, ladder_same_bits=same)
+          f"({2 if ck.route(N) == 'flow' else 16} + 9 launches whose CTAs return at once)", flush=True)
+    # BOCS's Gibbs sweep: a skipped K1a call at (1, 5051)
+    K = spd(torch, 1, 5051, dev, gen)
+    Lb, Wdb = ck.chol_factor(K)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    skipped_5051 = cuda_ms(torch, lambda: ck.chol_factor(K, torch.zeros(1, device=dev), one, out=(Lb, Wdb)), 200)
+    print(f"chol skipped rung (1, 5051): {skipped_5051:.4f} ms per chol_factor, route {ck.route(5051)}",
+          flush=True)
+    return dict(skipped_rung_ms=skipped_ms, skipped_rung_5051_ms=skipped_5051, ladder_same_bits=same)
 
 
 def check_ptxas(logs, fails):
     """Print ptxas' registers / spills per kernel; K3's register routes
-    (regs, regs32, warp) must spill nothing and keep no stack
-    frame, and every instantiation of the long routes must be reported."""
+    (regs, regs32, warp) and K1a's flow route must spill nothing and keep no
+    stack frame, and every instantiation of K3's long routes must be
+    reported."""
     for src, log in logs.items():
         name = None
         for line in log.splitlines():
@@ -845,8 +873,9 @@ def check_ptxas(logs, fails):
                 name = line.split("Function properties for")[-1].strip()
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.split('info    :')[-1].strip()}", flush=True)
-            if "spill" in line and name and ("_regs" in name or "_warp" in name) and not line.strip(
-                    ).startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
+            watched = name and ("_regs" in name or "_warp" in name or "chol_flow" in name)
+            if watched and "spill" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 fails.append(f"ptxas {src} {name}: {line.strip()}")
     if "_regs" not in logs.get("ssk", ""):
         fails.append("ptxas: no report of K3's register route")
@@ -928,6 +957,8 @@ def k5_and_sorts(suggest, n_gens, what, fails):
 
 
 def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
+    from hebo_tpu_torch.ops import chol_kernel as ck
+
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
     # (a) Sobol init → 120 observations, bucket 128
@@ -994,6 +1025,24 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
              profiled_suggest=k5_and_sorts(lambda: opt.suggest(8), opt.iters, "phase b", fails))
     print("phase b (Ackley-6D b8, 800 warm obs, bucket 1024):", json.dumps(b), flush=True)
     graph_vs_eager(torch, opt, "phase b", fails)
+
+    # (b2) buckets 512, 768, 1536 and 2048: K1a's flow route inside the fused graph
+    for n_obs in (400, 600, 1200, 1800):
+        opt = HEBO(space, device="cuda")
+        warm = space.inverse_transform(space.sobol_sample_opt(n_obs, seed=1))
+        opt.observe(warm, ackley(warm))
+        t0 = time.time()
+        rec = opt.suggest(8)
+        torch.cuda.synchronize()
+        bucket = int(opt.model.data.X.shape[0])
+        graphs = sorted(k[0] for k in opt._graphs)
+        print(f"phase b2 (Ackley-6D b8, {n_obs} warm obs): bucket {bucket}, graphs {graphs}, K1a route "
+              f"{ck.route(bucket)}, capturing suggest {time.time() - t0:.2f} s", flush=True)
+        check_batch(space, rec, f"phase b2 @ {opt.num_obs}", fails)
+        if graphs != [bucket]:
+            fails.append(f"phase b2 @ {n_obs}: bucket {bucket} not on the fused graph: {graphs}")
+        opt.observe(rec, ackley(rec))
+        graph_vs_eager(torch, opt, f"phase b2 (bucket {bucket})", fails)
     return a, b
 
 
@@ -1143,6 +1192,7 @@ def large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails):
         fails.append(f"phase e4: bucket 3072 did not run the K1 ladder in the fused graph: {e4}")
     if not (e4["ok"] and max(e4["alpha_residual"]) < 0.2):
         fails.append(f"phase e4: the K1 posterior at bucket 3072 is off: {e4}")
+    graph_vs_eager(torch, opt4, "phase e4 (bucket 3072, K1a's flow route)", fails)
     return e1, e2, e3, e4
 
 
@@ -3339,7 +3389,11 @@ def main() -> int:
             **({"k3_route": r["route"], "k3_routes": sorted({x["route"] for x in rows})}
                if "route" in r else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
-            **({"skipped_rung_ms": ladder["skipped_rung_ms"]} if name == "chol_factor" else {}),
+            **({"skipped_rung_ms": ladder["skipped_rung_ms"],
+                "skipped_rung_5051_ms": ladder["skipped_rung_5051_ms"],
+                "k1a_route": r["route"], "k1a_routes": sorted({x["route"] for x in rows}),
+                "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051])}
+               if name == "chol_factor" else {}),
             **({"mesh_shapes": [x for x in rows if tuple(x["shape"]) in MESH_K1[name]]}
                if name in MESH_K1 else {}),
         })

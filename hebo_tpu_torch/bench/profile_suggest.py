@@ -128,7 +128,9 @@ class _RungLog:
 
         def factor(K, jitter=None, skip=None, out=None):
             capturing = torch.cuda.is_current_stream_capturing()
-            self.calls.append((capturing, skip, chol_kernel.padded_size(K.shape[-1]) // chol_kernel.TILE))
+            nt = chol_kernel.padded_size(K.shape[-1]) // chol_kernel.TILE
+            k1a = 2 if chol_kernel.route(K.shape[-1]) == "flow" else nt
+            self.calls.append((capturing, skip, nt, k1a))
             return self._saved(K, jitter, skip, out)
 
         chol_mod.chol_factor = factor
@@ -137,11 +139,12 @@ class _RungLog:
         chol_mod.chol_factor = self._saved
 
     def count(self, captured: bool) -> dict:
-        """Rungs skipped by every matrix and their device launches (K1a nt,
-        K1b 1 + 2 ceil(log2 nt)), and the rungs that factor."""
+        """Rungs skipped by every matrix and their device launches (K1a nt on
+        its step route, 2 on its flow route; K1b 1 + 2 ceil(log2 nt)), and
+        the rungs that factor."""
         calls = [c for c in self.calls if c[0] == captured]
-        skipped = [nt for _, skip, nt in calls if skip is not None and bool(skip.all())]
-        launches = sum(nt + 1 + 2 * math.ceil(math.log2(nt)) for nt in skipped)
+        skipped = [(nt, k1a) for _, skip, nt, k1a in calls if skip is not None and bool(skip.all())]
+        launches = sum(k1a + 1 + 2 * math.ceil(math.log2(nt)) for nt, k1a in skipped)
         return {"k1_rungs": len(calls), "k1_rungs_skipped": len(skipped),
                 "k1_rungs_factoring": len(calls) - len(skipped),
                 "k1_skipped_rung_launches": launches}

@@ -11,14 +11,15 @@
 // an identity block (exact: the factor and inverse of blockdiag(K, I) are
 // blockdiag(L, I) and blockdiag(W, I)) and slices back.  nt = Np / 64.
 //
-// What bounds it on an H100: neither bytes nor FLOPs but the serial chain.
-// The main path factors a batch of B = 2 (fit restarts) or B = 1 (posterior
-// cache) matrices of N <= 2048: N^3/3 FLOPs are 5 us of the FP32 peak at
-// N = 1024, while the factorization is a chain of nt dependent diagonal
-// tiles and every link costs a launch plus the tile work on one SM.  So the
-// design shortens each link and cuts the links:
+// K1a has two routes; pick_route (exported as hebo_chol_route) chooses by
+// the padded size alone, so a matrix takes the same route, and gives the
+// same bits, alone or in a batch:
 //
-// K1a, right-looking over 64-wide panels, nt launches:
+// * step (nt < kFlowMinTiles = 8, N <= 448): the chain regime, small
+//   buckets.  There N^3/3 FLOPs are 0.5 us or less of the FP32 peak, while
+//   the factorization is a chain of nt dependent diagonal tiles and every
+//   link costs a launch plus the tile work on one SM.  So this route
+//   shortens each link, right-looking over 64-wide panels, nt launches:
 //   chol_first    one CTA per matrix factors tile (0, 0) of blockdiag(K, I)
 //                 while the others copy blockdiag(K, I)'s lower tiles into
 //                 a scratch A and zero the upper tiles of L;
@@ -34,18 +35,68 @@
 //   Small buckets (Np <= 256, at most 4 launches) take the same route: one
 //   CTA per matrix holding every tile in shared memory would save at most
 //   three ~1 us launch gaps, and would run all trailing products on one SM.
-//   The tile factor (factor_tile) blocks the 64x64 tile into four 16-wide
-//   sub-panels: 16 lanes of one warp factor each 16x16 diagonal block and
-//   its inverse in registers with no CTA barrier (each column step yields
-//   an L column and a W row, as _diag_factor_inverse_merged does, broadcast
-//   through shared memory), the CTA solves the sub-panel below it and
-//   updates the sub-trailing block, and Wd's off-diagonal 16-blocks come by
-//   doubling: 14 CTA barriers per tile instead of 128.  What sets its time
-//   is the chain of 64 dependent column steps on one warp (~190 cycles
+//
+// * flow (nt >= 8): the work regime, many tiles (BOCS's Gibbs sweep at
+//   (1, 5051), nt = 79: N^3/3 is 43 GFLOP, 0.64 ms of the FP32 peak) or
+//   many matrices.  There the step route spends its time on work it
+//   repeats: every CTA of step j forms both of its panel tiles itself (three
+//   tile products per off-diagonal tile where a Cholesky needs one, ~243k
+//   against ~85k at nt = 79), reads and writes its trailing tile once per
+//   step, and waits on the step's last wave.  This route is left-looking
+//   and data-driven, two launches whether it factors or skips:
+//   chol_flow_init  zeros each matrix's counters;
+//   chol_flow       a persistent grid (the CTAs that fit on the card at
+//                   once, split between the matrices) that takes tasks from
+//                   a per-matrix ticket counter, column by column, the
+//                   diagonal chain's tasks two columns early.  Task (i, k):
+//                   C = K_ik (+ jitter) - sum_{j<k} L_ij L_kj^T, streaming
+//                   the stored panel tiles L_ij, L_kj through a cp.async
+//                   double buffer as they become ready; then the panel tile
+//                   L_ik = C Wd_k^T is formed once and stored (and L_ki
+//                   zeroed), or the diagonal tile is factored into L_kk and
+//                   Wd_k.  The diagonal task of column k also forms
+//                   L_{k,k-1} from the subdiagonal task's stored sum, so the
+//                   chain crosses one CTA boundary per column.
+//   Row i's tiles finish in column order (task (i, k) reads L_i,k-1), so one
+//   counter per row says how many of its tiles are stored (released after
+//   the stores, read with acquire).  A task waits only on tasks with smaller
+//   tickets, which CTAs already running hold, so the grid cannot deadlock
+//   whatever the residency.  The diagonal chain overlaps the rest: the
+//   chain's tasks of column k+2 take their tickets before the rest of
+//   column k and sum their first products then; what stays serial per
+//   column is one panel product, one update product and the tile factor,
+//   ~17 us.  The products run on 8x8 register tiles: the CTA's four
+//   64-thread groups each sum a 16-wide quarter of the depth of every
+//   product (each operand float read from shared memory feeds 4 FMAs, where
+//   the step route's 4x4 tiles feed 2), and the four partial sums are added
+//   in a fixed order at the end of the task.  One CTA an SM: 254 registers
+//   a thread, no spills (capped at 128 for two CTAs an SM, it spills 712
+//   bytes a thread and takes 2.63 against 1.64 ms at (1, 5051);
+//   bench/chol_probe.py --variants, H100 80GB HBM3 at 700 W, which also
+//   shows what holds this route there: without its products it runs in
+//   1.31 ms, the chain's floor, without its panel copies in 1.45 ms).
+//   The rule's bound is measured (bench/chol_probe.py, both routes forced,
+//   H100 80GB HBM3 at 700 W): from 8 tiles the flow route is the faster at
+//   every batch measured (1 to 128; 3-7 % at 8-11 tiles and B <= 2, 7-67 %
+//   from 16 tiles).  Below 8 tiles the step route is the faster at small
+//   batches, in device time (flow against step: +11 % at (2, 128), +5 % at
+//   (1, 256), a tie at (2, 448); at 1 tile one launch against two), so the
+//   rule keeps it there; at B 24-64 and N 256 the flow route wins by
+//   24-49 % (64.5 against 84.2-87.6 us at (24, 256)), but the rule does not
+//   split by B.
+//
+// The tile factor (factor_tile, both routes) blocks the 64x64 tile into four
+//   16-wide sub-panels: 16 lanes of one warp factor each 16x16 diagonal
+//   block and its inverse in registers with no CTA barrier (each column step
+//   yields an L column and a W row, as _diag_factor_inverse_merged does,
+//   broadcast through shared memory), the CTA solves the sub-panel below it
+//   and updates the sub-trailing block, and Wd's off-diagonal 16-blocks come
+//   by doubling: 14 CTA barriers per tile instead of 128.  What sets its
+//   time is the chain of 64 dependent column steps on one warp (~190 cycles
 //   each: pivot, broadcast, row update; about 60% of the ~12 us per tile,
-//   measured with clock64 on an H100); blocking the steps four columns per
-//   round did not shorten it, since the warp is bound by its dependent
-//   FMA chains either way.
+//   measured with clock64 on an H100 80GB HBM3 at 700 W); blocking the steps
+//   four columns per round did not shorten it, since the warp is bound by
+//   its dependent FMA chains either way.
 //
 // K1b, recursive doubling, 1 + 2 ceil(log2 nt) launches: W's diagonal tiles
 //   are Wd; at level h = 1, 2, 4, ... tiles, for each pair of diagonal
@@ -56,23 +107,25 @@
 //   triangular factor.  The chain is sum 2h ~ 2 nt tile products (30 at
 //   nt = 16) instead of forward substitution's nt(nt-1)/2 (120).
 //
-// Tile products: 256 threads, 4x4 outputs each, FP32 FMA from shared memory
-// with 16-byte reads (no TF32: the JAX package runs them at
-// Precision.HIGHEST); operand tiles arrive by cp.async, double-buffered in
-// K1b.  One 64^3 product is ~1.2 us of one SM's FP32 rate.  Kernels whose
-// dynamic shared memory exceeds 48 KB get cudaFuncSetAttribute first, and
-// its error code is returned like a launch error.
+// Tile products: FP32 FMA from shared memory with 16-byte reads (no TF32:
+// the JAX package runs them at Precision.HIGHEST); operand tiles arrive by
+// cp.async, double-buffered in K1b and in the flow route.  The step route
+// and K1b use 256 threads with 4x4 outputs each; one 64^3 product is ~1.2 us
+// of one SM's FP32 rate.  Kernels whose dynamic shared memory exceeds 48 KB
+// get cudaFuncSetAttribute first, and its error code is returned like a
+// launch error.
 //
 // The jitter ladder (ops/chol.py::batched_ladder_factor) runs every rung
 // on the device, with no host test: each rung passes
 //   jitter (B,)  added to K's diagonal (not the identity padding) where
-//                chol_first reads K, so no K + jitter*I is formed in device
+//                K1a reads K, so no K + jitter*I is formed in device
 //                memory;
 //   skip (B,)    a matrix whose flag is set is left as it is in L, Wd and
 //                W: every CTA of it returns at once.  The ladder sets the
 //                flag for the matrices an earlier rung factored, so a rung
-//                that no matrix needs costs its launches (nt in K1a,
-//                1 + 2 ceil(log2 nt) in K1b), not a factorization.
+//                that no matrix needs costs its launches (nt in the step
+//                route, 2 in the flow route, 1 + 2 ceil(log2 nt) in K1b),
+//                not a factorization.
 // Either may be null (no jitter, no skip).
 //
 // Failure semantics: a pivot that is not > 0 (negative, zero or NaN) gives
@@ -80,7 +133,9 @@
 // panel and trailing updates to every later tile of that matrix's L and W,
 // so the jitter ladder sees it, as with jnp.linalg.cholesky.  Every CTA
 // works inside one matrix, so a NaN never reaches a batch neighbour.  No
-// atomics: results are bit-reproducible.
+// float atomics (the flow route's tickets and counters are integers, and
+// which CTA runs a task does not change its arithmetic): results are
+// bit-reproducible.
 
 #include <cuda_runtime.h>
 
@@ -92,6 +147,12 @@ constexpr int TILE_F = T * LD;  // floats per shared tile
 constexpr int SB = 16;          // sub-block edge of the tile factor
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kFourTiles = 4 * TILE_F * (int)sizeof(float);  // 69,632 bytes
+// the flow route's panel stages: one in use, one in flight (three were no
+// faster: bench/chol_probe.py --variants)
+constexpr int kFlowStages = 2;
+constexpr int kFlowTiles = (2 * kFlowStages + 1) * TILE_F * (int)sizeof(float);  // 87,040 bytes
+// the flow route's shapes (pick_route)
+constexpr int kFlowMinTiles = 8;
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fffffff); }
 
@@ -103,6 +164,26 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// the same for a count known at run time, n < kFlowStages
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  static_assert(kFlowStages == 2, "cp_async_wait_upto covers n < 2");
+  if (n <= 0) cp_async_wait<0>();
+  else cp_async_wait<1>();
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
 // Start the copy of a 64x64 tile (row stride ld floats) into shared S.
@@ -156,6 +237,35 @@ __device__ __forceinline__ void mma_nn(const float* P, const float* Q, float acc
       for (int k = 0; k < 4; ++k)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[k], j), acc[i][j]);
+  }
+}
+
+// acc[a][b] += sum_{m0 <= m < m0+16} P[gy+8a][m] * Q[gx+8b][m]   (P Q^T over
+// a 16-wide quarter of the depth, 8x8 outputs a thread; a warp reads four
+// P rows and eight Q rows per float4, conflict-free at the LD stride)
+__device__ __forceinline__ void mma_nt_8x8(const float* P, const float* Q, float acc[8][8],
+                                           int gy, int gx, int m0) {
+#pragma unroll
+  for (int m = m0; m < m0 + 16; m += 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 q[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        q[b] = *reinterpret_cast<const float4*>(Q + (gx + 8 * (4 * h + b)) * LD + m);
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const float4 p = *reinterpret_cast<const float4*>(P + (gy + 8 * a) * LD + m);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float& v = acc[a][4 * h + b];
+          v = fmaf(p.x, q[b].x, v);
+          v = fmaf(p.y, q[b].y, v);
+          v = fmaf(p.z, q[b].z, v);
+          v = fmaf(p.w, q[b].w, v);
+        }
+      }
+    }
   }
 }
 
@@ -464,6 +574,255 @@ chol_step(const int* __restrict__ skip, float* __restrict__ A, float* __restrict
     }
 }
 
+
+// ---- the flow route ----
+
+// Zero each matrix's counters: rows[0..nt-1] (tiles of the row stored),
+// subs[0..nt-1] (the subdiagonal tile's sum stored) and the ticket counter.
+__global__ void chol_flow_init(const int* __restrict__ skip, int* __restrict__ sync, int nt) {
+  const int b = blockIdx.x;
+  if (skip != nullptr && skip[b]) return;
+  for (int e = threadIdx.x; e <= 2 * nt; e += blockDim.x) sync[(size_t)b * (2 * nt + 1) + e] = 0;
+}
+
+// Thread 0: have row i and row k stored their tiles of panel column j?
+// Refreshes the cached counts with an acquire read when they say no.
+__device__ __forceinline__ bool cols_ready(const int* rows, int i, int k, int j, int& have_i,
+                                           int& have_k) {
+  if (j < have_i && j < have_k) return true;
+  have_i = ld_acquire(rows + i);
+  have_k = i == k ? have_i : ld_acquire(rows + k);
+  return j < have_i && j < have_k;
+}
+
+__device__ __forceinline__ void wait_cols(const int* rows, int i, int k, int j, int& have_i,
+                                          int& have_k) {
+  while (!cols_ready(rows, i, k, j, have_i, have_k)) __nanosleep(32);
+}
+
+// Start the copies of panel column j's tiles L_ij (and L_kj off the diagonal).
+__device__ __forceinline__ void load_panel(float* P, float* Q, const float* Lb, size_t ldt,
+                                           int Np, int i, int k, int j) {
+  load_tile_async(P, Lb + i * ldt + j * T, Np);
+  if (i != k) load_tile_async(Q, Lb + k * ldt + j * T, Np);
+  cp_async_commit();
+}
+
+// Store the 64x64 tile S (shared, LD stride) to G (row stride ld floats).
+__device__ __forceinline__ void store_tile(const float* S, float* G, size_t ld) {
+#pragma unroll
+  for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+    const int e = threadIdx.x + q * kThreads, r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(G + r * ld + c) = *reinterpret_cast<const float4*>(S + r * LD + c);
+  }
+}
+
+// Zero the 64x64 tile G (row stride ld floats).
+__device__ __forceinline__ void zero_tile(float* G, size_t ld) {
+#pragma unroll
+  for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+    const int e = threadIdx.x + q * kThreads, r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(G + r * ld + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// L_ik = C Wd^T (C, Ws shared) into global tile G and, when S is not null,
+// into shared S; zeros the mirrored tile Z above the diagonal.
+__device__ __forceinline__ void panel_tile(const float* C, const float* Ws, float* G, float* S,
+                                           float* Z, size_t ld) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float lp[4][4] = {};
+  mma_nt(C, Ws, lp, tx, ty);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      G[(ty + 16 * r) * ld + tx + 16 * c] = lp[r][c];
+      if (S != nullptr) S[(ty + 16 * r) * LD + tx + 16 * c] = lp[r][c];
+    }
+  zero_tile(Z, ld);
+}
+
+// After a barrier that follows the task's stores: make them visible, then
+// publish `v` at `flag`.
+__device__ __forceinline__ void publish(int* flag, int v) {
+  if (threadIdx.x == 0) {
+    __threadfence();
+    st_release(flag, v);
+  }
+}
+
+// Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
+// task tickets of its matrix until none is left.  The tickets run through
+// (0, 0), (1, 0), (1, 1), then for each column c: (c+2, c), (c+2, c+1),
+// (c+2, c+2), then (c+3 .. nt-1, c): the tasks of the diagonal chain two
+// columns ahead come before the rest of column c, and each task still
+// follows every task it reads.
+// Three kinds of task:
+//   (i, k), i > k + 1: C = K_ik - sum_{j<k} L_ij L_kj^T, then L_ik = C Wd_k^T
+//     once Wd_k is stored; rows[i] = k + 1.
+//   (k + 1, k): the same sum, stored in L's tile (k+1, k); subs[k+1] = 1.
+//   (k, k): C = K_kk (+ jitter) - the sum over j < k - 1; then, once
+//     subs[k] and Wd_{k-1} are there, L_{k,k-1} = C_{k,k-1} Wd_{k-1}^T
+//     (rows[k] = k) and C -= L_{k,k-1} L_{k,k-1}^T; the tile factor gives
+//     L_kk and Wd_k (rows[k] = k + 1).
+// So the diagonal chain crosses one CTA boundary per column (Wd_{k-1} to
+// the diagonal task of column k), not two.  Shared memory: four operand
+// tiles (two stages of L_ij, L_kj; then the four groups' partial sums,
+// C_{k,k-1}, Wd and L_{k,k-1}, or the tile factor's inverse) and the tile C
+// (K_ik, then the task's sum).
+__global__ void __launch_bounds__(kThreads, 1)
+chol_flow(const float* __restrict__ K, const float* __restrict__ jitter,
+          const int* __restrict__ skip, float* __restrict__ L, float* __restrict__ Wd,
+          int* __restrict__ sync, int n, int Np) {
+  const int b = blockIdx.y;
+  if (skip != nullptr && skip[b]) return;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* C = sm + 2 * kFlowStages * TILE_F;
+  __shared__ int s_task;
+  __shared__ int s_ready[2];
+  const int nt = Np / T, t = threadIdx.x, n_tasks = nt * (nt + 1) / 2;
+  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
+  int* rows = sync + (size_t)b * (2 * nt + 1);
+  int* subs = rows + nt;
+  const size_t ldt = (size_t)T * Np;
+  float* Lb = L + (size_t)b * Np * Np;
+  float* Wdb = Wd + (size_t)b * nt * T * T;
+  for (;;) {
+    if (t == 0) s_task = atomicAdd(subs + nt, 1);
+    __syncthreads();
+    int k = 0, i = s_task;
+    if (i >= n_tasks) return;
+    if (i < 3) {  // ticket -> (i, k): see the task order above
+      k = i >> 1;
+      i = i > 0;
+    } else {
+      int c = 0, r = i - 3;
+      while (r >= nt - c) r -= nt - c++;
+      i = r < 3 ? c + 2 : c + r;
+      k = r < 3 ? c + r : c;
+    }
+    const bool diag = i == k;
+    // C <- tile (i, k) of blockdiag(K, I), asynchronously, in a group of its own
+    {
+      const float* Kb = K + (size_t)b * n * n;
+      for (int e = t; e < T * T; e += kThreads) {
+        const int r = e >> 6, c = e & 63, gr = i * T + r, gc = k * T + c;
+        if (gr < n && gc < n) cp_async4(C + r * LD + c, Kb + (size_t)gr * n + gc);
+        else C[r * LD + c] = gr == gc ? 1.f : 0.f;
+      }
+      cp_async_commit();
+    }
+    // Panel j's tiles go to stage j % kFlowStages, one commit group a panel;
+    // `issued` panels have their copies started (the same count in every
+    // thread).  While panel j's product runs, the copies of the next ones
+    // that are stored already are in flight.
+    const int jend = diag && k > 0 ? k - 1 : k;  // the diagonal's last product comes later
+    int have_i = 0, have_k = 0;                   // thread 0's view of rows[i], rows[k]
+    int issued = 0;
+    float acc[8][8] = {};
+    for (int j = 0; j < jend; ++j) {
+      const int lim = min(j + kFlowStages, jend);  // stages free once panel j - 1 is done
+      if (t == 0) {
+        if (min(have_i, have_k) < lim) cols_ready(rows, i, k, lim - 1, have_i, have_k);
+        s_ready[j & 1] = max(0, min(lim, min(have_i, have_k)) - issued);
+      }
+      const bool late = issued == j;  // panel j's copies not started yet
+      if (!late) cp_async_wait_upto(issued - j - 1);  // panel j landed
+      __syncthreads();  // ... for every thread; panel j - 1's product done
+      for (int q = s_ready[j & 1]; q > 0; --q, ++issued) {
+        float* S = sm + (issued % kFlowStages) * 2 * TILE_F;
+        load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, issued);
+      }
+      if (late) {
+        if (issued == j) {  // panel j is not stored yet
+          if (t == 0) wait_cols(rows, i, k, j, have_i, have_k);
+          __syncthreads();
+          float* S = sm + (j % kFlowStages) * 2 * TILE_F;
+          load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, j);
+          ++issued;
+        }
+        cp_async_wait_upto(issued - j - 1);
+        __syncthreads();
+      }
+      const float* P = sm + (j % kFlowStages) * 2 * TILE_F;
+      mma_nt_8x8(P, diag ? P : P + TILE_F, acc, gy, gx, 16 * g);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every product done, C landed
+    float* R = sm + g * TILE_F;  // group g's partial sum
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) R[(gy + 8 * a) * LD + gx + 8 * c] = acc[a][c];
+    __syncthreads();
+    {
+      const float jit = diag && jitter != nullptr ? jitter[b] : 0.f;
+      for (int e = t; e < T * T; e += kThreads) {
+        const int r = e >> 6, c = e & 63, o = r * LD + c;
+        const float s = ((sm[o] + sm[TILE_F + o]) + sm[2 * TILE_F + o]) + sm[3 * TILE_F + o];
+        const float kv = diag && r == c && i * T + r < n ? C[o] + jit : C[o];
+        C[o] = kv - s;
+      }
+    }
+    __syncthreads();
+    if (diag && k > 0) {
+      // the chain: L_{k,k-1} from the subdiagonal task's sum, then C -= its
+      // product with itself
+      float* Lsub = Lb + k * ldt + (k - 1) * T;
+      if (t == 0)
+        while (!ld_acquire(subs + k)) __nanosleep(32);
+      __syncthreads();
+      load_tile_async(sm, Lsub, Np);  // in flight while Wd_{k-1} is awaited
+      if (t == 0) {
+        int h0 = 0, h1 = 0;
+        wait_cols(rows, k - 1, k - 1, k - 1, h0, h1);  // Wd_{k-1} stored
+      }
+      __syncthreads();
+      load_tile_async(sm + TILE_F, Wdb + (size_t)(k - 1) * T * T, T);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      float* Ls = sm + 2 * TILE_F;
+      panel_tile(sm, sm + TILE_F, Lsub, Ls, Lb + (k - 1) * ldt + k * T, Np);
+      __syncthreads();
+      publish(rows + k, k);
+      const int tx = t & 15, ty = t >> 4;
+      float up[4][4] = {};
+      mma_nt(Ls, Ls, up, tx, ty);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) C[(ty + 16 * r) * LD + tx + 16 * c] -= up[r][c];
+      __syncthreads();
+    }
+    if (diag) {
+      factor_tile(C, sm);
+      store_factor(C, sm, Lb + k * ldt + k * T, Np, Wdb + (size_t)k * T * T);
+      __syncthreads();
+      publish(rows + k, k + 1);
+    } else if (i == k + 1) {
+      store_tile(C, Lb + i * ldt + k * T, Np);
+      __syncthreads();
+      publish(subs + i, 1);
+    } else {
+      if (t == 0) {
+        int h0 = 0, h1 = 0;
+        wait_cols(rows, k, k, k, h0, h1);  // Wd_k stored
+      }
+      __syncthreads();
+      load_tile_async(sm + TILE_F, Wdb + (size_t)k * T * T, T);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      panel_tile(C, sm + TILE_F, Lb + i * ldt + k * T, nullptr, Lb + k * ldt + i * T, Np);
+      __syncthreads();
+      publish(rows + i, k + 1);
+    }
+  }
+}
+
 // W on and above the tile diagonal: Wd_i on it, 0 above it.
 __global__ void winv_init(const int* __restrict__ skip, const float* __restrict__ Wd,
                           float* __restrict__ W, int Np) {
@@ -546,34 +905,82 @@ int elementwise_blocks(int Np, int per_thread) {
   return (int)(blocks < 1024 ? blocks : 1024);
 }
 
-// Allow the 69,632 bytes of dynamic shared memory of `fn`, once per device.
+// Allow `bytes` of dynamic shared memory for `fn`, once per device.
 template <typename F>
-int allow_four_tiles(F* fn, unsigned* done) {
+int allow_smem(F* fn, unsigned* done, int bytes) {
   int dev = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err || (*done >> dev & 1u)) return err;
-  err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kFourTiles);
+  err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (!err) *done |= 1u << dev;
   return err;
 }
 
-unsigned g_step_smem = 0, g_xlevel_smem = 0, g_wlevel_smem = 0;
+template <typename F>
+int allow_four_tiles(F* fn, unsigned* done) {
+  return allow_smem(fn, done, kFourTiles);
+}
+
+unsigned g_step_smem = 0, g_xlevel_smem = 0, g_wlevel_smem = 0, g_flow_smem = 0;
+int g_flow_ctas[32] = {};  // per device: chol_flow CTAs resident at once
+
+// CTAs of chol_flow that fit on the current card at once.
+int flow_ctas(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 32 && g_flow_ctas[dev] > 0) {
+    *out = g_flow_ctas[dev];
+    return 0;
+  }
+  if ((err = allow_smem(chol_flow, &g_flow_smem, kFlowTiles))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_flow, kThreads,
+                                                                kFlowTiles)))
+    return err;
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  if (dev < 32) g_flow_ctas[dev] = *out;
+  return 0;
+}
+
+// K1a's route for matrices of padded size Np, at any batch: 1 (flow) from
+// kFlowMinTiles tiles, else 0 (step).
+int pick_route(int Np) { return Np / T >= kFlowMinTiles ? 1 : 0; }
 
 }  // namespace
 
+// K1a's route at this padded size: 0 step, 1 flow (see the notes at the top).
+extern "C" int hebo_chol_route(int Np) { return pick_route(Np); }
+
 // K1a.  K (B,n,n) + diag(jitter) -> L (B,Np,Np) lower triangular, Wd
 // (B,Np/64,64,64); matrices whose skip flag is set keep their L and Wd.
-// jitter (B,) and skip (B,) may be null.  A (B,Np,Np) is scratch (unused
-// when Np == 64).  Np must be a multiple of 64 and >= n.  Returns the first
-// error (attribute or launch).
+// jitter (B,) and skip (B,) may be null.  route: -1 picks by the shape
+// (pick_route), 0 or 1 forces a route.  scratch: on the step route the
+// trailing matrix, B*Np*Np floats (unused when Np == 64); on the flow route
+// B*(2*Np/64 + 1) ints of counters.  Np must be a multiple of 64
+// and >= n.  Returns the first error (attribute, occupancy or launch).
 extern "C" int hebo_chol_factor(const float* K, const float* jitter, const int* skip, float* L,
-                                float* Wd, float* A, int B, int n, int Np, void* stream) {
+                                float* Wd, void* scratch, int route, int B, int n, int Np,
+                                void* stream) {
   if (B == 0) return 0;
-  if (Np % T != 0 || Np < n) return (int)cudaErrorInvalidValue;
+  if (Np % T != 0 || Np < n || route > 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nt = Np / T;
-  int err = nt > 1 ? allow_four_tiles(chol_step, &g_step_smem) : 0;
-  if (err) return err;
+  int err = 0;
+  if (route < 0) route = pick_route(Np);
+  if (route == 1) {
+    int ctas = 0;
+    if ((err = flow_ctas(&ctas))) return err;
+    int* sync = static_cast<int*>(scratch);
+    chol_flow_init<<<B, 128, 0, st>>>(skip, sync, nt);
+    if ((err = (int)cudaGetLastError())) return err;
+    const int per = ctas / B, n_tasks = nt * (nt + 1) / 2;
+    const int grid = per < 1 ? 1 : per < n_tasks ? per : n_tasks;
+    chol_flow<<<dim3(grid, B), kThreads, kFlowTiles, st>>>(K, jitter, skip, L, Wd, sync, n, Np);
+    return (int)cudaGetLastError();
+  }
+  float* A = static_cast<float*>(scratch);
+  if (nt > 1 && (err = allow_four_tiles(chol_step, &g_step_smem))) return err;
   const int copy_ctas = nt > 1 ? elementwise_blocks(Np, 1) : 0;
   chol_first<<<dim3(1 + copy_ctas, B), kThreads, 0, st>>>(K, jitter, skip, L, Wd, A, n, Np);
   if ((err = (int)cudaGetLastError())) return err;

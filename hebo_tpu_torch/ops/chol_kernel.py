@@ -29,28 +29,51 @@ no other matrix of the batch.  The plain version gets there by NaN-filling
 the matrices whose ``cholesky_ex`` ``info`` is non-zero, because
 ``cholesky_ex`` itself returns a finite, wrong factor for them.
 
+K1a takes one of two routes on the card (``route``; the rule is
+``csrc/chol.cu::pick_route``): "step", a launch per 64-wide panel, below 8
+tiles (N ≤ 448), and "flow", one persistent left-looking launch that forms
+each panel tile once, from 8 tiles (HEBO's buckets from 512, BOCS's
+(1, 5051)), at any batch.  Both compute the same function; their sums run
+in other orders.
+
 ``_schedule_plain`` mirrors, in plain PyTorch, the block schedule that the
-CUDA kernels run (16-wide sub-blocked tile factor, look-ahead panel steps,
-doubling levels of W); only the CPU tests call it.
+CUDA kernels run (16-wide sub-blocked tile factor; K1a's look-ahead panel
+steps or its left-looking tasks; doubling levels of W); only the CPU tests
+call it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import native
 
 __all__ = [
-    "TILE", "padded_size", "chol_factor", "chol_factor_plain", "chol_winv",
+    "TILE", "ROUTES", "padded_size", "route", "chol_factor", "chol_factor_plain", "chol_winv",
     "chol_winv_plain", "chol_inv", "cholesky_batched", "chol_inv_batched",
 ]
 
 TILE = 64
 SUB = 16  # sub-block edge of the CUDA tile factor
+ROUTES = ("step", "flow")  # K1a's routes, by the number csrc/chol.cu gives them
 
 
 def padded_size(n: int) -> int:
     return max(TILE, -(-n // TILE) * TILE)
+
+
+@functools.lru_cache(maxsize=None)
+def _route_code(Np: int) -> int:
+    # the rule reads the padded size alone, so one library call per size
+    return native.load("chol").hebo_chol_route(Np)
+
+
+def route(n: int) -> str:
+    """The route K1a takes on the card for matrices of size n (any batch),
+    as ``csrc/chol.cu::pick_route`` decides it."""
+    return ROUTES[_route_code(padded_size(int(n)))]
 
 
 def _pad_identity(K: torch.Tensor, Np: int) -> torch.Tensor:
@@ -118,11 +141,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def chol_factor(K: torch.Tensor, jitter=None, skip=None, out=None):
+def chol_factor(K: torch.Tensor, jitter=None, skip=None, out=None, route=None):
     """K1a: (L, Wd) for K (B, n, n) float32 plus ``jitter`` (B,) on its
     diagonal; kernel on CUDA, plain on CPU.  With ``out`` = (L, Wd) the
     result goes there, and matrices whose ``skip`` (B,) int32 flag is set
-    keep what ``out`` holds."""
+    keep what ``out`` holds.  ``route`` ("step" or "flow") forces K1a's
+    route on the card; None takes the size's (``route(n)``)."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"chol_factor: route {route!r}, expected one of {ROUTES}")
     if K.device.type == "cpu":
         return chol_factor_plain(K, jitter, skip, out)
     native.require_cuda("chol_factor", K)
@@ -143,10 +169,14 @@ def chol_factor(K: torch.Tensor, jitter=None, skip=None, out=None):
     else:
         L, Wd = out
         native.require_cuda("chol_factor", K, L, Wd)
-    A = torch.empty_like(L) if Np > TILE else L  # scratch: the trailing matrix
     lib = native.load("chol")
+    r = _route_code(Np) if route is None else ROUTES.index(route)
+    if ROUTES[r] == "flow":  # each matrix's counters: 2 per tile row and its ticket
+        scratch = torch.empty(B * (2 * (Np // TILE) + 1), dtype=torch.int32, device=K.device)
+    else:  # the trailing matrix
+        scratch = torch.empty_like(L) if Np > TILE else L
     err = native.call(lib.hebo_chol_factor, K.device, K.data_ptr(), _ptr(jitter), _ptr(skip),
-                      L.data_ptr(), Wd.data_ptr(), A.data_ptr(), B, n, Np)
+                      L.data_ptr(), Wd.data_ptr(), scratch.data_ptr(), r, B, n, Np)
     native.check(err, "chol_factor")
     chol_factor.launches += 1
     return L, Wd
@@ -241,13 +271,35 @@ def _tile_factor_plain(A: torch.Tensor):
     return torch.tril(A), X
 
 
-def _schedule_plain(K: torch.Tensor):
+def _flow_tasks(nt: int):
+    """K1a's flow tasks (i, k) in ticket order (``csrc/chol.cu::chol_flow``):
+    (0, 0), (1, 0), (1, 1), then per column c the chain's next three tasks,
+    (c+2, c), (c+2, c+1) and (c+2, c+2), and the rest of column c,
+    (c+3 .. nt-1, c)."""
+    order = [(0, 0), (1, 0), (1, 1)][: nt * (nt + 1) // 2]
+    for c in range(nt - 2):
+        order += [(c + 2, c), (c + 2, c + 1), (c + 2, c + 2)] + [(i, c) for i in range(c + 3, nt)]
+    return order
+
+
+def _schedule_plain(K: torch.Tensor, route: str = "step"):
     """(L, Wd, W) of a (B, n, n) float32 CPU batch by the block schedule of
-    ``csrc/chol.cu``, for the CPU tests only.  K1a: tile (0, 0), then for
-    each panel j every trailing tile forms its panel tiles L_ij = A_ij Wd_jᵀ
-    and takes A_ik −= L_ij L_kjᵀ, and tile (j+1, j+1) is factored at once.
+    ``csrc/chol.cu``, for the CPU tests only.  K1a, ``route`` "step": tile
+    (0, 0), then for each panel j every trailing tile forms its panel tiles
+    L_ij = A_ij Wd_jᵀ and takes A_ik −= L_ij L_kjᵀ, and tile (j+1, j+1) is
+    factored at once.  "flow": task by task in ticket order (``_flow_tasks``):
+    C = A_ik − Σ_{j<k} L_ij L_kjᵀ, each of the four 16-wide quarters of the
+    depth summed over j apart and the four sums added in order; then the
+    diagonal tile is factored, the subdiagonal one stores C, which the next
+    diagonal task turns into L_{k,k-1} = C Wd_{k-1}ᵀ and subtracts
+    L_{k,k-1} L_{k,k-1}ᵀ from its own C (summed over j < k − 1) before its
+    factor, and any other gives L_ik = C Wd_kᵀ.  A task that read a tile
+    before the task that forms it would read zeros or C: the order is
+    checked too.
     K1b: W's diagonal tiles are Wd; at level h = 1, 2, 4, … tiles each pair
     of diagonal blocks (the second cut at nt) gets W21 = −W22 (L21 W11)."""
+    if route not in ROUTES:
+        raise ValueError(f"_schedule_plain: route {route!r}, expected one of {ROUTES}")
     B, n, _ = K.shape
     Np = padded_size(n)
     nt = Np // TILE
@@ -258,13 +310,39 @@ def _schedule_plain(K: torch.Tensor):
     A = _pad_identity(K, Np).clone()
     L = torch.zeros_like(A)
     Wd = torch.empty((B, nt, TILE, TILE), dtype=K.dtype)
-    L[:, tl(0), tl(0)], Wd[:, 0] = _tile_factor_plain(A[:, tl(0), tl(0)])
-    for j in range(nt - 1):
-        rest = tl(j + 1, nt)
-        P = A[:, rest, tl(j)] @ Wd[:, j].transpose(1, 2)
-        L[:, rest, tl(j)] = P
-        A[:, rest, rest] -= P @ P.transpose(1, 2)
-        L[:, tl(j + 1), tl(j + 1)], Wd[:, j + 1] = _tile_factor_plain(A[:, tl(j + 1), tl(j + 1)])
+    if route == "step":
+        L[:, tl(0), tl(0)], Wd[:, 0] = _tile_factor_plain(A[:, tl(0), tl(0)])
+        for j in range(nt - 1):
+            rest = tl(j + 1, nt)
+            P = A[:, rest, tl(j)] @ Wd[:, j].transpose(1, 2)
+            L[:, rest, tl(j)] = P
+            A[:, rest, rest] -= P @ P.transpose(1, 2)
+            L[:, tl(j + 1), tl(j + 1)], Wd[:, j + 1] = _tile_factor_plain(A[:, tl(j + 1), tl(j + 1)])
+    else:
+        for i, k in _flow_tasks(nt):
+            parts = [torch.zeros((B, TILE, TILE), dtype=K.dtype) for _ in range(TILE // SUB)]
+
+            def take(j):
+                for g, part in enumerate(parts):
+                    q = slice(j * TILE + g * SUB, j * TILE + (g + 1) * SUB)
+                    part += L[:, tl(i), q] @ L[:, tl(k), q].transpose(1, 2)
+
+            for j in range(k - 1 if i == k and k > 0 else k):
+                take(j)
+            s = parts[0]
+            for part in parts[1:]:
+                s = s + part
+            C = A[:, tl(i), tl(k)] - s
+            if i == k and k > 0:  # L_{k,k-1} from the subdiagonal task's stored sum
+                Lk = L[:, tl(k), tl(k - 1)] @ Wd[:, k - 1].transpose(1, 2)
+                L[:, tl(k), tl(k - 1)] = Lk
+                C = C - Lk @ Lk.transpose(1, 2)
+            if i == k:
+                L[:, tl(k), tl(k)], Wd[:, k] = _tile_factor_plain(C)
+            elif i == k + 1:
+                L[:, tl(i), tl(k)] = C
+            else:
+                L[:, tl(i), tl(k)] = C @ Wd[:, k].transpose(1, 2)
     W = torch.zeros_like(L)
     for t in range(nt):
         W[:, tl(t), tl(t)] = Wd[:, t]

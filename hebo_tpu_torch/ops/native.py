@@ -37,7 +37,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hebo_matern32_gram_vjp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "chol": {
-        "hebo_chol_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "hebo_chol_factor": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "hebo_chol_route": [_I],
         "hebo_chol_winv": [_P, _P, _P, _P, _P, _I, _I, _P],
     },
     "ssk": {

@@ -17,7 +17,10 @@ crowding, NSGA-II key and survivor order) exactly: the same ranks, crowding
 bits, keys and order as its plain version, NaN where NaN, and NSGA-II's
 population after 20 generations through it the same as through the plain
 version.  K1 with the ladder's jitter and skip: the same bits
-as the ladder that adds the jitter before K1 and decides on the host.  HEBO's
+as the ladder that adds the jitter before K1 and decides on the host; K1a
+on each of its two routes (the rule's edges, both routes forced at small
+sizes): the same tolerances, NaN confined to its matrix, a batch member's
+bits equal to its own factorization's, and the same bits from two launches.  HEBO's
 suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
 at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
 the CG posterior against the dense K1 posterior at N = 2048 with
@@ -176,7 +179,8 @@ def test_gram_vjp_ragged_on_card(cuda, B, N, M, D):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N", [(2, 128), (2, 1024), (1, 1024), (2, 2048), (2, 40), (1, 384),
-                                 (1, 32), (1, 256), (1, 1000), (3, 384), (2, 2304), (2, 3072)])
+                                 (1, 32), (1, 256), (1, 1000), (3, 384), (2, 2304), (2, 3072),
+                                 (1, 5051), (1, 4096), (2, 448), (40, 1024)])
 def test_chol_kernel_on_card(cuda, B, N):
     rng = np.random.default_rng(6)
     K = torch.as_tensor(_spd(rng, B, N), device=cuda)
@@ -461,7 +465,7 @@ def _ladder_on_host(Kt, rungs, base=1e-6):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [40, 128, 300, 1024])
+@pytest.mark.parametrize("N", [40, 128, 300, 1024, 5051])
 def test_chol_ladder_skip_and_jitter_on_card(cuda, N):
     """K1 with the ladder's jitter and skip (every rung launched) against
     the host-decided ladder: a matrix that first factors at rung 2, one that
@@ -507,6 +511,69 @@ def test_chol_skip_keeps_out_on_card(cuda):
         L0, Wd0 = chol_kernel.chol_factor((K[b:b + 1] + jitter[b] * torch.eye(200, device=cuda)).contiguous())
         assert torch.equal(L[b], L0[0]) and torch.equal(Wd[b], Wd0[0])
         assert torch.equal(W[b], chol_kernel.chol_winv(L0, Wd0)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,want", [(2, 448, "step"), (2, 512, "flow"), (1, 512, "flow"),
+                                      (32, 1024, "flow"), (40, 1024, "flow"), (1, 5051, "flow"),
+                                      (16, 32, "step"), (24, 256, "step")])
+def test_chol_route_rule_on_card(cuda, B, N, want):
+    """K1a's route at the rule's edge (8 tiles) and at batches, as
+    csrc/chol.cu reports it, and both routes forced at the shape: the plain
+    version's L and Wd within 1e-4, and the same bits from two launches."""
+    assert chol_kernel.route(N) == want
+    K = torch.as_tensor(_spd(np.random.default_rng(B * N), B, N), device=cuda)
+    L0, Wd0 = chol_kernel.chol_factor_plain(K)
+    for r in chol_kernel.ROUTES:
+        L, Wd = chol_kernel.chol_factor(K, route=r)
+        torch.testing.assert_close(L, L0, rtol=0, atol=1e-4)
+        torch.testing.assert_close(Wd, Wd0, rtol=0, atol=1e-4)
+        L2, Wd2 = chol_kernel.chol_factor(K, route=r)
+        assert torch.equal(L, L2) and torch.equal(Wd, Wd2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", [(3, 256), (3, 1100)])
+def test_chol_flow_route_nan_on_card(cuda, B, N):
+    """The flow route forced: a −I member and a member whose first bad pivot
+    lies in a late tile (blockdiag(SPD, −I)) give NaN in their own L and W
+    only, finite tiles before the bad one, and the other members the bits
+    of their own factorization."""
+    rng = np.random.default_rng(N)
+    K = _spd(rng, B, N)
+    K[0] = -np.eye(N, dtype=np.float32)
+    m = N - 56
+    K[1] = np.eye(N, dtype=np.float32)
+    K[1, :m, :m] = _spd(rng, 1, m)[0]
+    K[1, m:, m:] = -np.eye(56, dtype=np.float32)
+    Kc = torch.as_tensor(K, device=cuda)
+    L, Wd = chol_kernel.chol_factor(Kc, route="flow")
+    W = chol_kernel.chol_winv(L, Wd)
+    for b in (0, 1):
+        assert not torch.isfinite(L[b]).all() and not torch.isfinite(W[b]).all()
+    assert torch.isfinite(L[1, :m // 64 * 64]).all()
+    Lb, Wdb = chol_kernel.chol_factor(Kc[2:3].contiguous(), route="flow")
+    assert torch.equal(L[2], Lb[0]) and torch.equal(Wd[2], Wdb[0])
+    assert torch.isfinite(W[2]).all()
+
+
+@pytest.mark.gpu
+def test_chol_flow_route_skip_keeps_out_on_card(cuda):
+    """The flow route forced with the ladder's arguments: a skipped member
+    keeps its buffers, the others the bits of K + jitter·I factored alone."""
+    rng = np.random.default_rng(13)
+    K = torch.as_tensor(_spd(rng, 3, 1000), device=cuda)
+    Np = chol_kernel.padded_size(1000)
+    L = torch.full((3, Np, Np), 7.0, device=cuda)
+    Wd = torch.full((3, Np // 64, 64, 64), 7.0, device=cuda)
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    jitter = torch.tensor([1e-3, 0.5, 0.25], device=cuda)
+    chol_kernel.chol_factor(K, jitter, skip, out=(L, Wd), route="flow")
+    assert (L[1] == 7).all() and (Wd[1] == 7).all()
+    for b in (0, 2):
+        Kb = (K[b:b + 1] + jitter[b] * torch.eye(1000, device=cuda)).contiguous()
+        L0, Wd0 = chol_kernel.chol_factor(Kb, route="flow")
+        assert torch.equal(L[b], L0[0]) and torch.equal(Wd[b], Wd0[0])
 
 
 def _ackley(df):

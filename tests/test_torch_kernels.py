@@ -9,8 +9,9 @@ Tolerances (float32 on both sides, different summation orders):
 * Gram: rtol 1e-5, atol 1e-6; its gradient: rtol 1e-4, atol 1e-5.
 * (L, W): 1e-4 absolute on well-conditioned SPD inputs (diagonal ≥ 0.5).
   The same for ``_schedule_plain``, the plain mirror of the CUDA kernels'
-  block schedule (16-wide sub-blocked tile factor, look-ahead panel steps,
-  doubling levels of W), checked here before the kernels run on a card.
+  block schedule (16-wide sub-blocked tile factor; K1a's look-ahead panel
+  steps or its left-looking flow tasks; doubling levels of W), checked here
+  before the kernels run on a card.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -220,6 +221,63 @@ def test_schedule_mirror_nan_in_late_tile():
     L0, _ = chol_factor_plain(torch.as_tensor(K))
     np.testing.assert_allclose(L[[0, 2]].numpy(), L0[[0, 2]].numpy(), atol=1e-4)
     assert not torch.isfinite(chol_inv(torch.as_tensor(K))[0][1]).all()
+
+
+@pytest.mark.parametrize("B,N", [(1, 384), (1, 1000), (1, 700), (2, 448)])
+def test_flow_schedule_mirror_matches_slab_interpret(B, N):
+    """K1a's flow route (left-looking tasks, the depth summed in four
+    quarters, the subdiagonal tile formed by the diagonal task), mirrored in
+    plain torch, against the JAX package's slab kernels (interpret mode) and
+    the plain version; N 700 and the batch of 2 at 448 cut the last tile."""
+    rng = np.random.default_rng(20 + N)
+    K = _spd(rng, B, N)
+    L, Wd, W = (t.numpy() for t in _schedule_plain(torch.as_tensor(K), route="flow"))
+    # the slab kernel takes N in multiples of 128: each member goes alone,
+    # identity-padded (exact) to a size the tests above have compiled
+    size = 384 if N <= 384 else 1024
+    for b in range(B):
+        Kp = np.eye(size, dtype=np.float32)
+        Kp[:N, :N] = K[b]
+        Lj, Wj = (np.asarray(t)[0, :N, :N] for t in chol_inv_slab(jnp.asarray(Kp[None]), interpret=True))
+        np.testing.assert_allclose(L[b, :N, :N], Lj, atol=1e-4)
+        np.testing.assert_allclose(W[b, :N, :N], Wj, atol=1e-4)
+    assert np.abs(np.triu(L, 1)).max() == 0.0 and np.abs(np.triu(W, 1)).max() == 0.0
+    L0, Wd0 = chol_factor_plain(torch.as_tensor(K))
+    np.testing.assert_allclose(L, L0.numpy(), atol=1e-4)
+    np.testing.assert_allclose(Wd, Wd0.numpy(), atol=1e-4)
+    Np = padded_size(N)
+    np.testing.assert_array_equal(L[:, N:, N:], np.broadcast_to(np.eye(Np - N), (B, Np - N, Np - N)))
+
+
+def test_flow_schedule_mirror_nan_in_late_tile():
+    """The late-tile case of ``test_schedule_mirror_nan_in_late_tile`` on
+    the flow schedule: blockdiag(SPD 200×200, −I) fails first in tile 3 of
+    4; the NaN reaches that matrix's L and W and no neighbour's."""
+    rng = np.random.default_rng(12)
+    K = _spd(rng, 3, 256)
+    K[1, :200, 200:] = 0.0
+    K[1, 200:, :200] = 0.0
+    K[1, 200:, 200:] = -np.eye(56, dtype=np.float32)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K), route="flow")
+    assert torch.isfinite(L[1, :192]).all()
+    assert not torch.isfinite(L[1]).all() and not torch.isfinite(W[1]).all()
+    assert torch.isfinite(L[[0, 2]]).all() and torch.isfinite(W[[0, 2]]).all()
+    L0, _ = chol_factor_plain(torch.as_tensor(K))
+    np.testing.assert_allclose(L[[0, 2]].numpy(), L0[[0, 2]].numpy(), atol=1e-4)
+
+
+def test_chol_factor_route_argument():
+    """``route`` names one of K1a's routes; on CPU tensors either gives the
+    plain version, and another name is refused."""
+    K = torch.as_tensor(_spd(np.random.default_rng(14), 2, 100))
+    L0, Wd0 = chol_factor_plain(K)
+    for r in chol_kernel.ROUTES:
+        L, Wd = chol_factor(K, route=r)
+        assert torch.equal(L, L0) and torch.equal(Wd, Wd0)
+    with pytest.raises(ValueError, match="route"):
+        chol_factor(K, route="panel")
+    with pytest.raises(ValueError, match="route"):
+        _schedule_plain(K, route="panel")
 
 
 def test_wrappers_refuse_other_devices():
