@@ -536,14 +536,16 @@ def check_chol(torch, ck, dev, gen, fails):
     and (1, 8); phase p's HEBO fits at buckets 8 and 64, (2, 8) and (2, 64);
     phase b2's caches and fits at buckets 512, 768, 1536 and 2048 on K1a's
     flow route, (1, 512), (2, 512), (1, 768), (2, 768), (1, 1536),
-    (2, 1536), (1, 2048) and (2, 2048).  Host
-    dispatch is part of the time at the small shapes, for the kernels and
-    the library call alike, so those get more calls per timing."""
+    (2, 1536), (1, 2048) and (2, 2048); phase e4's fit at bucket 3072,
+    (2, 3072).  Each row names the route its kernel takes (K1a's flow route
+    from 8 tiles, K1b's from 2) and holds the same bits from a second call.
+    Host dispatch is part of the time at the small shapes, for the kernels
+    and the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
                  (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (2, 512), (1, 768), (2, 768), (1, 1536),
-                 (2, 1536), (1, 2048), (16, 24)]:  # a batch last: the NaN case below
+                 (2, 1536), (1, 2048), (2, 3072), (16, 24)]:  # a batch last: the NaN case below
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L2, Wd2 = ck.chol_factor(K)
@@ -551,11 +553,12 @@ def check_chol(torch, ck, dev, gen, fails):
         L0, Wd0 = ck.chol_factor_plain(K)
         err_f = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
         W = ck.chol_winv(L, Wd)
+        same_w = bool(torch.equal(W, ck.chol_winv(L, Wd)))
         err_w = (W - ck.chol_winv_plain(L, Wd)).abs().max().item()
         if not (err_f <= L_TOL and same):
             fails.append(f"chol_factor {(B, N)}: max abs err {err_f}, same bits twice {same}")
-        if not err_w <= W_TOL:
-            fails.append(f"chol_winv {(B, N)}: max abs err {err_w}")
+        if not (err_w <= W_TOL and same_w):
+            fails.append(f"chol_winv {(B, N)}: max abs err {err_w}, same bits twice {same_w}")
         reps = 200 if N <= 256 else 20 if N <= 1024 else 5
         Np = L.shape[-1]
         eye = torch.eye(Np, device=dev).expand_as(L)
@@ -572,7 +575,8 @@ def check_chol(torch, ck, dev, gen, fails):
             rows.append(dict(shape=[B, N], max_abs_err=err, ms=ms, plain_ms=cuda_ms(torch, plain, reps),
                              bound_ms=bms, bound_by=by, library_ms=library_ms,
                              library_over_ms=library_ms / ms,
-                             **({"route": ck.route(N), "same_bits": same} if rows is fac else {})))
+                             **({"route": ck.route(N), "same_bits": same} if rows is fac else
+                                {"route": ck.winv_route(N), "same_bits": same_w})))
     # NaN propagation: one non-PSD member, its neighbours untouched
     K[0] = -torch.eye(K.shape[-1], device=dev)
     L, W = ck.chol_inv(K)
@@ -601,8 +605,8 @@ def check_chol(torch, ck, dev, gen, fails):
         fails.append(f"chol NaN propagation from a late tile: {late_ok}")
     for name, rows in (("chol_factor vs cholesky_ex", fac), ("chol_winv vs solve_triangular", winv)):
         print(f"{name}, library_ms / ms:",
-              ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f}"
-                        + (f" {r['route']}" if "route" in r else "") for r in rows), flush=True)
+              ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f} {r['route']}" for r in rows),
+              flush=True)
     return fac, winv
 
 
@@ -791,7 +795,9 @@ def check_ladder(torch, ck, dev, gen, fails):
     plain version at (3, 256); the ladder at the fit's shape (2, 1024), one
     member first factoring at rung 2, against the ladder that forms
     K + jitter·I first and decides its retries on the host, bit for bit;
-    and the time of a rung that every matrix skips (its launch floors)."""
+    the time of a rung that every matrix skips (its launch floors), and a
+    skipped K1b call's device launches and µs at (2, 1024) and (1, 5051)."""
+    from hebo_tpu_torch.bench.gram_probe import device_per_call
     from hebo_tpu_torch.ops import chol as tchol
 
     A = torch.randn((3, 256, 256), generator=gen, device=dev)
@@ -850,20 +856,29 @@ def check_ladder(torch, ck, dev, gen, fails):
     skipped_ms = cuda_ms(torch, lambda: (ck.chol_factor(K, jit, all_skip, out=(Lp, Wdp)),
                                          ck.chol_winv(Lp, Wdp, all_skip, out=Wp)), 200)
     print(f"chol skipped rung (2, 1024): {skipped_ms:.4f} ms per chol_factor + chol_winv pair "
-          f"({2 if ck.route(N) == 'flow' else 16} + 9 launches whose CTAs return at once)", flush=True)
-    # BOCS's Gibbs sweep: a skipped K1a call at (1, 5051)
+          f"(K1a route {ck.route(N)}, K1b route {ck.winv_route(N)}: launches whose CTAs return at once)",
+          flush=True)
+    skipped_winv = {"2x1024": device_per_call(torch, lambda: ck.chol_winv(Lp, Wdp, all_skip, out=Wp), 50,
+                                              "winv")}
+    # BOCS's Gibbs sweep: a skipped K1a call at (1, 5051), and a skipped K1b call
     K = spd(torch, 1, 5051, dev, gen)
     Lb, Wdb = ck.chol_factor(K)
+    Wb = ck.chol_winv(Lb, Wdb)
     one = torch.ones(1, dtype=torch.int32, device=dev)
     skipped_5051 = cuda_ms(torch, lambda: ck.chol_factor(K, torch.zeros(1, device=dev), one, out=(Lb, Wdb)), 200)
     print(f"chol skipped rung (1, 5051): {skipped_5051:.4f} ms per chol_factor, route {ck.route(5051)}",
           flush=True)
-    return dict(skipped_rung_ms=skipped_ms, skipped_rung_5051_ms=skipped_5051, ladder_same_bits=same)
+    skipped_winv["1x5051"] = device_per_call(torch, lambda: ck.chol_winv(Lb, Wdb, one, out=Wb), 50, "winv")
+    for shape, (us, launches) in skipped_winv.items():
+        print(f"chol_winv skipped call {shape}: {launches:g} device launches, {us:.2f} device us "
+              f"(torch.profiler), route {ck.winv_route(int(shape.split('x')[1]))}", flush=True)
+    return dict(skipped_rung_ms=skipped_ms, skipped_rung_5051_ms=skipped_5051, ladder_same_bits=same,
+                skipped_winv={k: {"device_us": us, "launches": n} for k, (us, n) in skipped_winv.items()})
 
 
 def check_ptxas(logs, fails):
     """Print ptxas' registers / spills per kernel; K3's register routes
-    (regs, regs32, warp) and K1a's flow route must spill nothing and keep no
+    (regs, regs32, warp) and K1's flow routes must spill nothing and keep no
     stack frame, and every instantiation of K3's long routes must be
     reported."""
     for src, log in logs.items():
@@ -873,7 +888,8 @@ def check_ptxas(logs, fails):
                 name = line.split("Function properties for")[-1].strip()
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.split('info    :')[-1].strip()}", flush=True)
-            watched = name and ("_regs" in name or "_warp" in name or "chol_flow" in name)
+            watched = name and ("_regs" in name or "_warp" in name or "chol_flow" in name
+                                or "winv_flow" in name)
             if watched and "spill" in line and not line.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"):
                 fails.append(f"ptxas {src} {name}: {line.strip()}")
@@ -3387,13 +3403,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
             **({"device_us": r["device_us"]} if "device_us" in r else {}),
             **({"k3_route": r["route"], "k3_routes": sorted({x["route"] for x in rows})}
-               if "route" in r else {}),
+               if name.startswith("ssk_") else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
             **({"skipped_rung_ms": ladder["skipped_rung_ms"],
                 "skipped_rung_5051_ms": ladder["skipped_rung_5051_ms"],
                 "k1a_route": r["route"], "k1a_routes": sorted({x["route"] for x in rows}),
                 "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051])}
                if name == "chol_factor" else {}),
+            **({"skipped": ladder["skipped_winv"], "k1b_route": r["route"],
+                "k1b_routes": sorted({x["route"] for x in rows}),
+                "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051])}
+               if name == "chol_winv" else {}),
             **({"mesh_shapes": [x for x in rows if tuple(x["shape"]) in MESH_K1[name]]}
                if name in MESH_K1 else {}),
         })

@@ -1,41 +1,51 @@
 """Where kernel K1 (``csrc/chol.cu``) spends its time on a CUDA card.
 
-    python3 hebo_tpu_torch/bench/chol_probe.py [--root DIR] [--only shapes] [--shapes BxN ...]
+    python3 hebo_tpu_torch/bench/chol_probe.py [--root DIR] [--only shapes|winv] [--shapes BxN ...]
+    python3 hebo_tpu_torch/bench/chol_probe.py --variants [factor|winv]
+    python3 hebo_tpu_torch/bench/chol_probe.py --winv-timeline
 
-1. For each (B, N) of the main paths and of K1a's route edges: the route
-   K1a takes there, ``chol_factor`` on each of its routes (forced) and on
-   its own, and ``chol_winv``, against ``torch.linalg.cholesky_ex`` /
-   ``solve_triangular`` (ms per call, CUDA events over back-to-back calls);
-   from calls under ``torch.profiler``, each device kernel's launches per
-   call and device µs per launch, for a factoring call and for a skipped
-   one (every matrix's flag set, as on the jitter ladder's later rungs).
+1. For each (B, N) of the main paths and of the routes' edges: the routes
+   K1a and K1b take there, ``chol_factor`` on each of its routes (forced)
+   and on its own and ``chol_winv`` on the size's route, against
+   ``torch.linalg.cholesky_ex`` / ``solve_triangular`` (ms per call, CUDA
+   events over back-to-back calls); from calls under ``torch.profiler``,
+   each device kernel's launches per call and device µs per launch, for a
+   factoring call and for a skipped one (every matrix's flag set, as on the
+   jitter ladder's later rungs), per route.
 2. The tile factor's phases: an instrumented copy of ``chol.cu`` (a
    ``clock64()`` stamp by thread 0 at the start of ``factor_tile`` and
    after each of its CTA barriers) is built apart into
    ``hebo_tpu_torch/build/`` and run on one 64×64 tile; prints the cycle
    offsets, three times.
-3. The flow route's timeline at (1, 2048) and (1, 5051): another
+3. K1a's flow route's timeline at (1, 2048) and (1, 5051): another
    instrumented copy stamps ``%globaltimer`` per task (start, sums done,
    the diagonal task's chain inputs there, published); prints, per range
    of columns, the mean step between two diagonal tasks' ends and where
    the diagonal task of column k stood against the end of column k - 1's
    (started, sums done, inputs there; the subdiagonal sum's end), and the
    tasks in flight at nine points of the run.
-4. With ``--variants`` (in place of parts 1-3): the flow route against
-   variants of itself.  Each variant is ``chol.cu`` with one text
-   substitution (``VARIANTS``), all built at once apart into
+4. With ``--variants`` (in place of parts 1-3): K1a's flow route against
+   variants of itself, or with ``--variants winv`` K1b's.  Each variant is
+   ``chol.cu`` with text substitutions (``VARIANTS``, ``WINV_VARIANTS``),
+   all built at once apart into
    ``hebo_tpu_torch/build/`` and timed on the flow route at
    ``VARIANT_SHAPES`` in turns with the source as it is ("base": base,
    variants, variants in reverse, base).  Prints each variant's ptxas
-   registers and spills of ``chol_flow``, its max abs error against the
+   registers and spills of the flow kernel, its max abs error against the
    plain version at (1, 1000) and whether two launches give the same bits,
    then one JSON line per shape.
+5. With ``--winv-timeline`` (in place of parts 1-3): K1b's flow route with
+   a ``%globaltimer`` stamp per task at (1, 5051) and (2, 1024)
+   (``winv_timeline``).
 
 ``--root`` names the checkout whose ``hebo_tpu_torch`` is imported
 (default: this one), so a parent commit unpacked with ``git archive`` is
 timed by the same script in the same call; a checkout whose K1a has one
-route is timed on it.  ``--only shapes`` skips parts 2 and 3; ``--shapes``
-times other shapes than ``SHAPES`` in part 1 (e.g. ``2x128 16x24``).
+route is timed on it, and one whose K1b has no ``winv_route`` (the
+recursive doubling it had before its flow route) names K1b's route
+"doubling".  ``--only shapes`` skips parts 2 and 3, ``--only
+winv`` also times K1b alone in part 1; ``--shapes`` times other shapes than
+``SHAPES`` in part 1 (e.g. ``2x128 16x24``).
 Prints JSON lines, the card's name and power limit first; needs a CUDA card
 and nvcc.
 """
@@ -56,8 +66,8 @@ SHAPES = [(1, 32), (1, 128), (2, 128), (1, 256), (24, 256), (64, 256), (1, 448),
           (1, 768), (2, 768), (1, 1024), (2, 1024), (4, 1024), (32, 1024), (128, 1024), (2, 2048),
           (1, 3072), (2, 3072), (1, 4096), (1, 5051)]
 
-# part 4: the flow route's shapes timed against its variants
-VARIANT_SHAPES = [(2, 1024), (2, 2048), (1, 3072), (1, 5051)]
+# part 4: the flow routes' shapes timed against their variants
+VARIANT_SHAPES = [(2, 1024), (32, 1024), (2, 2048), (1, 3072), (1, 5051)]
 
 _WAIT3 = """__device__ __forceinline__ void cp_async_wait_upto(int n) {
   if (n <= 0) cp_async_wait<0>();
@@ -95,6 +105,18 @@ VARIANTS = {
     "no_panel_loads": [("""  load_tile_async(P, Lb + i * ldt + j * T, Np);
   if (i != k) load_tile_async(Q, Lb + k * ldt + j * T, Np);
   cp_async_commit();""", "  cp_async_commit();")],
+}
+
+_FENCED_PUBLISH = [("  if (threadIdx.x == 0) st_release(flag, v);",
+                    "  if (threadIdx.x == 0) {\n    __threadfence();\n    st_release(flag, v);\n  }")]
+
+# `--variants winv`: K1b's flow route against variants of itself
+# * two_ctas: as above, for winv_flow;
+# * fenced_publish: a __threadfence before the release store (both flow
+#   kernels).
+WINV_VARIANTS = {
+    "two_ctas": [("__launch_bounds__(kThreads, 1)\nwinv_flow", "__launch_bounds__(kThreads, 2)\nwinv_flow")],
+    "fenced_publish": _FENCED_PUBLISH,
 }
 
 
@@ -135,7 +157,7 @@ def _summary(per_kernel):
             "device_us": round(sum(n * us for n, us in k1.values()), 2), "kernels": k1}
 
 
-def shapes(torch, ck, todo=SHAPES):
+def shapes(torch, ck, todo=SHAPES, winv_only=False):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     routes = getattr(ck, "ROUTES", ())
@@ -143,25 +165,31 @@ def shapes(torch, ck, todo=SHAPES):
         A = torch.randn((B, N, N), generator=gen, device=dev)
         K = (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
         L, Wd = ck.chol_factor(K)
+        W = ck.chol_winv(L, Wd)
         eye = torch.eye(L.shape[-1], device=dev).expand_as(L)
         reps = 200 if N <= 256 else 20 if N <= 1024 else 5
         skip = torch.ones(B, dtype=torch.int32, device=dev)
         jit = torch.zeros(B, device=dev)
         out = (L.clone(), Wd.clone())
         row = {"shape": [B, N], "route": ck.route(N) if routes else "step",
-               "chol_factor_ms": _ms(torch, lambda: ck.chol_factor(K), reps)}
-        for r in routes:
-            row[f"chol_factor_{r}_ms"] = _ms(torch, lambda: ck.chol_factor(K, route=r), reps)
-            row[f"chol_factor_{r}_device_us"] = _summary(
-                _kernels_per_call(torch, lambda: ck.chol_factor(K, route=r)))["device_us"]
+               "winv_route": ck.winv_route(N) if hasattr(ck, "winv_route") else "doubling"}
+        if not winv_only:
+            row["chol_factor_ms"] = _ms(torch, lambda: ck.chol_factor(K), reps)
+            for r in routes:
+                row[f"chol_factor_{r}_ms"] = _ms(torch, lambda: ck.chol_factor(K, route=r), reps)
+                row[f"chol_factor_{r}_device_us"] = _summary(
+                    _kernels_per_call(torch, lambda: ck.chol_factor(K, route=r)))["device_us"]
+            row.update(
+                cholesky_ex_ms=_ms(torch, lambda: torch.linalg.cholesky_ex(K), reps),
+                chol_factor_per_call=_summary(_kernels_per_call(torch, lambda: ck.chol_factor(K))),
+                skipped_per_call=_summary(_kernels_per_call(
+                    torch, lambda: ck.chol_factor(K, jit, skip, out=out))))
         row.update(
-            cholesky_ex_ms=_ms(torch, lambda: torch.linalg.cholesky_ex(K), reps),
             chol_winv_ms=_ms(torch, lambda: ck.chol_winv(L, Wd), reps),
             solve_triangular_ms=_ms(torch, lambda: torch.linalg.solve_triangular(L, eye, upper=False), reps),
-            chol_factor_per_call=_summary(_kernels_per_call(torch, lambda: ck.chol_factor(K))),
-            skipped_per_call=_summary(_kernels_per_call(
-                torch, lambda: ck.chol_factor(K, jit, skip, out=out))),
             chol_winv_per_call=_summary(_kernels_per_call(torch, lambda: ck.chol_winv(L, Wd))),
+            chol_winv_skipped_per_call=_summary(_kernels_per_call(
+                torch, lambda: ck.chol_winv(L, Wd, skip, out=W))),
         )
         print(json.dumps(row), flush=True)
 
@@ -319,27 +347,101 @@ def timeline(torch, native, ck):
               flush=True)
 
 
-def variants(torch, native, ck, reps=10):
+# (text in winv_flow, the same text with a stamp): 0 the task starts, 1 its
+# sum's products are done, 2 the sum is reduced, 3 W_ik stored and published
+# (for a diagonal task, W_ii copied)
+_WINV_STAMPS = [
+    ("    const int k = ticket - i * (i + 1) / 2;\n", "    const int k = ticket - i * (i + 1) / 2;\n    STAMP(0);\n"),
+    ("      __syncthreads();  // every thread has read s_ticket\n",
+     "      __syncthreads();  // every thread has read s_ticket\n      STAMP(3);\n"),
+    ("    cp_async_wait<0>();\n    __syncthreads();  // every product done, Wd_i landed",
+     "    STAMP(1);\n    cp_async_wait<0>();\n    __syncthreads();  // every product done, Wd_i landed"),
+    ("    {  // W_ik = -Wd_i S;", "    STAMP(2);\n    {  // W_ik = -Wd_i S;"),
+    ("    publish(cols + k, i - k);\n", "    publish(cols + k, i - k);\n    STAMP(3);\n"),
+]
+
+
+def winv_timeline(torch, native, ck, todo=((1, 5051), (2, 1024))):
+    """K1b's flow route with a ``%globaltimer`` stamp per task (see
+    ``_WINV_STAMPS``): per shape the span, the CTAs' busy share, µs per
+    term of the sums by row range, the sums' reduction and the Wd product's
+    µs a task, the column-0 chain's step, and the tasks in flight at nine
+    points of the run."""
+    import numpy as np
+
+    src = _substitute((native.CSRC / "chol.cu").read_text(), _WINV_STAMPS, "winv timeline")
+    src = src.replace("namespace {", "namespace {" + _TIMER, 1) + (
+        '\nextern "C" int probe_set_stamps(void* p) {\n'
+        "  return (int)cudaMemcpyToSymbol(g_task_stamps, &p, sizeof(p));\n}\n")
+    lib = _build(native, {"winv_timeline": src})["winv_timeline"][0]
+    lib.probe_set_stamps.argtypes = [ctypes.c_void_p]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for B, N in todo:
+        A = torch.randn((B, N, N), generator=gen, device=dev)
+        L, Wd = ck.chol_factor((A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous())
+        Np = L.shape[-1]
+        nt = Np // ck.TILE
+        n_tasks = nt * (nt + 1) // 2
+        stamps = torch.zeros(B * n_tasks * 4, dtype=torch.int64, device=dev)
+        native.check(lib.probe_set_stamps(stamps.data_ptr()), "chol_probe winv timeline")
+        W = torch.empty_like(L)
+        sync = torch.empty(B * (nt + 1), dtype=torch.int32, device=dev)
+        for _ in range(3):
+            native.check(native.call(lib.hebo_chol_winv, dev, L.data_ptr(), Wd.data_ptr(), None, W.data_ptr(),
+                                     sync.data_ptr(), B, Np), "chol_probe winv timeline")
+        torch.cuda.synchronize()
+        S = stamps.view(B, n_tasks, 4).cpu().numpy().astype(np.float64) / 1e3  # µs
+        S -= S[:, :, 0].min()
+        ik = ck._winv_flow_tasks(nt)
+        off = np.array([i != k for i, k in ik])
+        terms = np.array([i - k for i, k in ik], np.float64)
+        rows = np.array([i for i, _ in ik])
+        span = float(S[:, :, 3].max())
+        ctas = min(max(1, torch.cuda.get_device_properties(dev).multi_processor_count // B), n_tasks)
+        busy = float((S[:, :, 3] - S[:, :, 0]).sum()) / (span * ctas * B)
+        out = {"winv_timeline": [B, N], "tasks": n_tasks, "span_us": round(span, 2), "busy": round(busy, 3),
+               "reduce_us": round(float(np.median((S[:, off, 2] - S[:, off, 1]))), 2),
+               "wd_product_us": round(float(np.median((S[:, off, 3] - S[:, off, 2]))), 2),
+               "column0_step_us": round(float(np.median(np.diff(
+                   [S[0, ik.index((i, 0)), 3] for i in range(1, nt)]))), 2) if nt > 2 else None}
+        per_term = (S[:, :, 1] - S[:, :, 0]) / np.maximum(terms, 1)
+        for lo, hi in ((1, 10), (10, 20), (20, 40), (40, 60), (60, nt)):
+            sel = off & (rows >= lo) & (rows < min(hi, nt))
+            if sel.any():
+                out[f"us_per_term_rows_{lo}_{hi}"] = round(float(np.median(per_term[:, sel])), 3)
+                out[f"row_end_us_{min(hi, nt) - 1}"] = round(float(S[:, rows == min(hi, nt) - 1, 3].max()), 2)
+        at = np.linspace(0, span, 11)[1:-1]
+        out["tasks_in_flight"] = [int(((S[:, :, 0] <= x) & (S[:, :, 3] > x)).sum()) for x in at]
+        print(json.dumps(out), flush=True)
+
+
+def variants(torch, native, ck, kind="factor", reps=10):
+    """Part 4 for K1a's flow route (``kind`` "factor": ``VARIANTS``) or
+    K1b's (``kind`` "winv": ``WINV_VARIANTS``)."""
+    subs_by_name = VARIANTS if kind == "factor" else WINV_VARIANTS
+    mangled = "chol_flowE" if kind == "factor" else "winv_flowE"
     src = (native.CSRC / "chol.cu").read_text()
     built = _build(native, {f"chol_{name}": _substitute(src, subs, name)
-                            for name, subs in {"base": [], **VARIANTS}.items()})
+                            for name, subs in {"base": [], **subs_by_name}.items()})
     libs = {}
     for key, (lib, log) in built.items():
         name, fn = key[len("chol_"):], None
         for line in log.splitlines():
             if "Function properties for" in line:
                 fn = line.split("Function properties for")[-1].strip()
-            if fn and "chol_flowE" in fn and ("Used" in line or "spill" in line):
+            if fn and mangled in fn and ("Used" in line or "spill" in line):
                 print(json.dumps({"variant": name, "ptxas": line.split("info    :")[-1].strip()}), flush=True)
         libs[name] = lib
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
+    flow = ck.ROUTES.index("flow")
 
     def spd(B, N):
         A = torch.randn((B, N, N), generator=gen, device=dev)
         return (A @ A.transpose(1, 2) / N + 0.5 * torch.eye(N, device=dev)).contiguous()
 
-    def factor(lib, K):  # the flow route, forced
+    def factor(lib, K):  # K1a's flow route, forced
         B, n, _ = K.shape
         Np = ck.padded_size(n)
         nt = Np // ck.TILE
@@ -347,33 +449,44 @@ def variants(torch, native, ck, reps=10):
         Wd = torch.empty((B, nt, ck.TILE, ck.TILE), device=dev)
         sync = torch.empty(B * (2 * nt + 1), dtype=torch.int32, device=dev)
         native.check(native.call(lib.hebo_chol_factor, dev, K.data_ptr(), None, None, L.data_ptr(),
-                                 Wd.data_ptr(), sync.data_ptr(), ck.ROUTES.index("flow"), B, n, Np),
-                     "chol_probe variants")
+                                 Wd.data_ptr(), sync.data_ptr(), flow, B, n, Np), "chol_probe variants")
         return L, Wd
 
-    K = spd(1, 1000)
-    L0, Wd0 = ck.chol_factor_plain(K)
+    def winv(lib, LWd):  # K1b's flow route (the size's from 2 tiles)
+        L, Wd = LWd
+        B, Np, _ = L.shape
+        W = torch.empty_like(L)
+        sync = torch.empty(B * (Np // ck.TILE + 1), dtype=torch.int32, device=dev)
+        native.check(native.call(lib.hebo_chol_winv, dev, L.data_ptr(), Wd.data_ptr(), None, W.data_ptr(),
+                                 sync.data_ptr(), B, Np), "chol_probe variants")
+        return (W,)
+
+    run, make = (factor, lambda B, N: spd(B, N)) if kind == "factor" else (
+        winv, lambda B, N: ck.chol_factor(spd(B, N)))
+    x = make(1, 1000)
+    want = ck.chol_factor_plain(x) if kind == "factor" else (ck.chol_winv_plain(*x),)
     for name, lib in libs.items():
-        L, Wd = factor(lib, K)
-        L2, Wd2 = factor(lib, K)
-        print(json.dumps({"variant": name, "max_abs_err_1000": max((L - L0).abs().max().item(),
-                                                                   (Wd - Wd0).abs().max().item()),
-                          "same_bits": bool(torch.equal(L, L2) and torch.equal(Wd, Wd2))}), flush=True)
-    order = ["base"] + list(VARIANTS) + list(VARIANTS)[::-1] + ["base"]
+        got, again = run(lib, x), run(lib, x)
+        print(json.dumps({"variant": name,
+                          "max_abs_err_1000": max((a - b).abs().max().item() for a, b in zip(got, want)),
+                          "same_bits": all(torch.equal(a, b) for a, b in zip(got, again))}), flush=True)
+    order = ["base"] + list(subs_by_name) + list(subs_by_name)[::-1] + ["base"]
     for B, N in VARIANT_SHAPES:
-        K = spd(B, N)
+        x = make(B, N)
         row = {"shape": [B, N]}
         for name in order:
-            row.setdefault(name, []).append(round(_ms(torch, lambda: factor(libs[name], K), reps), 4))
+            row.setdefault(name, []).append(round(_ms(torch, lambda: run(libs[name], x), reps), 4))
         print(json.dumps(row), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--only", choices=["shapes"], default=None)
+    ap.add_argument("--only", choices=["shapes", "winv"], default=None)
     ap.add_argument("--shapes", nargs="+", default=None, metavar="BxN")
-    ap.add_argument("--variants", action="store_true", help="part 4 only")
+    ap.add_argument("--variants", nargs="?", const="factor", choices=["factor", "winv"], default=None,
+                    help="part 4 only, for K1a (factor, the default) or K1b (winv)")
+    ap.add_argument("--winv-timeline", action="store_true", help="part 5 only")
     args = ap.parse_args()
     sys.path.insert(0, args.root)
     import torch
@@ -387,9 +500,13 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi, "root": args.root}), flush=True)
     if args.variants:
-        variants(torch, native, ck)
+        variants(torch, native, ck, args.variants)
         return
-    shapes(torch, ck, [tuple(int(x) for x in s.split("x")) for s in args.shapes] if args.shapes else SHAPES)
+    if args.winv_timeline:
+        winv_timeline(torch, native, ck)
+        return
+    shapes(torch, ck, [tuple(int(x) for x in s.split("x")) for s in args.shapes] if args.shapes else SHAPES,
+           winv_only=args.only == "winv")
     if args.only is None:
         phases(torch, native)
         if hasattr(ck, "ROUTES"):

@@ -130,7 +130,8 @@ class _RungLog:
             capturing = torch.cuda.is_current_stream_capturing()
             nt = chol_kernel.padded_size(K.shape[-1]) // chol_kernel.TILE
             k1a = 2 if chol_kernel.route(K.shape[-1]) == "flow" else nt
-            self.calls.append((capturing, skip, nt, k1a))
+            k1b = 2 if chol_kernel.winv_route(K.shape[-1]) == "flow" else 1
+            self.calls.append((capturing, skip, k1a + k1b))
             return self._saved(K, jitter, skip, out)
 
         chol_mod.chol_factor = factor
@@ -140,11 +141,11 @@ class _RungLog:
 
     def count(self, captured: bool) -> dict:
         """Rungs skipped by every matrix and their device launches (K1a nt on
-        its step route, 2 on its flow route; K1b 1 + 2 ceil(log2 nt)), and
-        the rungs that factor."""
+        its step route, K1b 1 on its copy route, each 2 on its flow route),
+        and the rungs that factor."""
         calls = [c for c in self.calls if c[0] == captured]
-        skipped = [(nt, k1a) for _, skip, nt, k1a in calls if skip is not None and bool(skip.all())]
-        launches = sum(k1a + 1 + 2 * math.ceil(math.log2(nt)) for nt, k1a in skipped)
+        skipped = [k1 for _, skip, k1 in calls if skip is not None and bool(skip.all())]
+        launches = sum(skipped)
         return {"k1_rungs": len(calls), "k1_rungs_skipped": len(skipped),
                 "k1_rungs_factoring": len(calls) - len(skipped),
                 "k1_skipped_rung_launches": launches}

@@ -98,20 +98,50 @@
 //   four columns per round did not shorten it, since the warp is bound by
 //   its dependent FMA chains either way.
 //
-// K1b, recursive doubling, 1 + 2 ceil(log2 nt) launches: W's diagonal tiles
-//   are Wd; at level h = 1, 2, 4, ... tiles, for each pair of diagonal
-//   blocks [s1, s1+h), [s1+h, s1+2h) (the second cut at nt),
-//     X = L21 W11            (winv_level<true>,  into a scratch S)
-//     W21 = -W22 X           (winv_level<false>)
-//   one CTA per output tile, summing over the non-zero tiles of the
-//   triangular factor.  The chain is sum 2h ~ 2 nt tile products (30 at
-//   nt = 16) instead of forward substitution's nt(nt-1)/2 (120).
+// K1b takes its route by the padded size alone too (pick_winv_route,
+// exported as hebo_chol_winv_route), so W has the same bits alone or in a
+// batch:
+//
+// * copy (nt < kWinvFlowMinTiles = 2, N <= 64): one launch, winv_init,
+//   which copies Wd into W (W = L^-1 = Wd at one tile).
+//
+// * flow (nt >= 2): blocked forward substitution, what _winv_tile_kernel
+//   computes, as a persistent grid like K1a's flow route, two launches
+//   whether it factors or skips:
+//   winv_flow_init  zeros each matrix's counters;
+//   winv_flow       the CTAs that fit on the card at once, split between the
+//                   matrices, take tasks from a per-matrix ticket counter in
+//                   row order: (0, 0), (1, 0), (1, 1), (2, 0), ... (i, 0 .. i).
+//                   Task (i, k), k < i:
+//                     W_ik = -Wd_i sum_{j=k}^{i-1} L_ij W_jk   (W_kk = Wd_k)
+//                   streaming L_ij and W_jk through the cp.async stages as
+//                   soon as W_jk is stored, the last term L_{i,i-1} W_{i-1,k}
+//                   last (its L tile is copied while W_{i-1,k} is awaited);
+//                   the sum on 8x8 register tiles, the four 64-thread groups
+//                   each over a 16-wide quarter of the depth, the partial
+//                   sums added in a fixed order; then the product with Wd_i
+//                   (4x4 tiles over the whole depth, as K1a's panel tile) is
+//                   stored and the tile W_ki above the diagonal zeroed.
+//                   Task (i, i) copies Wd_i into W_ii.
+//   Column k's tiles finish in row order (task (i, k) reads W_{i-1,k}), so
+//   one counter per column says how many of its rows below the diagonal are
+//   stored (released after the stores, read with acquire).  Row i's tasks
+//   come after row i-1's, so a task waits only on smaller tickets, which
+//   CTAs already running hold: no deadlock whatever the residency.  The
+//   work is ~nt^3/6 tile products (85k at nt = 79: 0.67 ms of the FP32
+//   peak); the chain per column is nt-1 steps of one update product, the
+//   sum's reduction and one Wd product, ~6 us a step.  Measured
+//   (bench/chol_probe.py, H100 80GB HBM3 at 700 W): at (1, 5051) the first
+//   20 rows are chain-bound (~120 us), the rest run ~1.86 us a term on
+//   every SM, their products issuing FMAs at ~2/3 of the FP32 rate; two
+//   CTAs an SM (128 registers) win 11 % at (32, 1024) and lose 7-9 % where
+//   the chain counts.  At one tile W is Wd, and one copy launch does it.
 //
 // Tile products: FP32 FMA from shared memory with 16-byte reads (no TF32:
 // the JAX package runs them at Precision.HIGHEST); operand tiles arrive by
-// cp.async, double-buffered in K1b and in the flow route.  The step route
-// and K1b use 256 threads with 4x4 outputs each; one 64^3 product is ~1.2 us
-// of one SM's FP32 rate.  Kernels whose dynamic shared memory exceeds 48 KB
+// cp.async, double-buffered in the flow routes.  K1a's step route and
+// K1b's Wd product use 256 threads with 4x4 outputs each; one 64^3
+// product is ~1.2 us of one SM's FP32 rate.  Kernels whose dynamic shared memory exceeds 48 KB
 // get cudaFuncSetAttribute first, and its error code is returned like a
 // launch error.
 //
@@ -123,8 +153,8 @@
 //   skip (B,)    a matrix whose flag is set is left as it is in L, Wd and
 //                W: every CTA of it returns at once.  The ladder sets the
 //                flag for the matrices an earlier rung factored, so a rung
-//                that no matrix needs costs its launches (nt in the step
-//                route, 2 in the flow route, 1 + 2 ceil(log2 nt) in K1b),
+//                that no matrix needs costs its launches (K1a nt in the
+//                step route, 2 on its flow route; K1b 1 at one tile, else 2),
 //                not a factorization.
 // Either may be null (no jitter, no skip).
 //
@@ -151,8 +181,11 @@ constexpr int kFourTiles = 4 * TILE_F * (int)sizeof(float);  // 69,632 bytes
 // faster: bench/chol_probe.py --variants)
 constexpr int kFlowStages = 2;
 constexpr int kFlowTiles = (2 * kFlowStages + 1) * TILE_F * (int)sizeof(float);  // 87,040 bytes
-// the flow route's shapes (pick_route)
+// the flow routes' shapes (pick_route, pick_winv_route)
 constexpr int kFlowMinTiles = 8;
+constexpr int kWinvFlowMinTiles = 2;
+// K1b's flow route: the panel stages (L_ij, W_jk), Wd_i and the sum S
+constexpr int kWinvTiles = (2 * kFlowStages + 2) * TILE_F * (int)sizeof(float);  // 104,448 bytes
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fffffff); }
 
@@ -263,6 +296,39 @@ __device__ __forceinline__ void mma_nt_8x8(const float* P, const float* Q, float
           v = fmaf(p.y, q[b].y, v);
           v = fmaf(p.z, q[b].z, v);
           v = fmaf(p.w, q[b].w, v);
+        }
+      }
+    }
+  }
+}
+
+// acc[a][c] += sum_{m0 <= m < m0+16} P[gy+8a][m] * Q[m][4gx + (c&3) + 32(c>>2)]
+// (P Q over a 16-wide quarter of the depth, 8x8 outputs a thread; a warp
+// reads four P rows and two 128-byte segments of each Q row per float4,
+// conflict-free at the LD stride)
+__device__ __forceinline__ void mma_nn_8x8(const float* P, const float* Q, float acc[8][8],
+                                           int gy, int gx, int m0) {
+#pragma unroll
+  for (int m = m0; m < m0 + 16; m += 4) {
+    float4 q[4][2];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      q[u][0] = *reinterpret_cast<const float4*>(Q + (m + u) * LD + 4 * gx);
+      q[u][1] = *reinterpret_cast<const float4*>(Q + (m + u) * LD + 32 + 4 * gx);
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const float4 p = *reinterpret_cast<const float4*>(P + (gy + 8 * a) * LD + m);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float pu = lane4(p, u);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* v = acc[a] + 4 * h;
+          v[0] = fmaf(pu, q[u][h].x, v[0]);
+          v[1] = fmaf(pu, q[u][h].y, v[1]);
+          v[2] = fmaf(pu, q[u][h].z, v[2]);
+          v[3] = fmaf(pu, q[u][h].w, v[3]);
         }
       }
     }
@@ -643,13 +709,13 @@ __device__ __forceinline__ void panel_tile(const float* C, const float* Ws, floa
   zero_tile(Z, ld);
 }
 
-// After a barrier that follows the task's stores: make them visible, then
-// publish `v` at `flag`.
+// After a barrier that follows the task's stores: publish `v` at `flag`.
+// The release store orders the CTA's stores, which the barrier ordered
+// before it, ahead of the flag for a reader that loads it with acquire (a
+// __threadfence before it as well cost 0.4-6 % of K1b's flow route:
+// bench/chol_probe.py --variants winv, H100 80GB HBM3 at 700 W).
 __device__ __forceinline__ void publish(int* flag, int v) {
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(flag, v);
-  }
+  if (threadIdx.x == 0) st_release(flag, v);
 }
 
 // Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
@@ -823,80 +889,157 @@ chol_flow(const float* __restrict__ K, const float* __restrict__ jitter,
   }
 }
 
-// W on and above the tile diagonal: Wd_i on it, 0 above it.
+// W = Wd at one tile (Np == 64), where the two have the same layout: grid
+// (T*T/4/kThreads, B), one float4 a thread.
 __global__ void winv_init(const int* __restrict__ skip, const float* __restrict__ Wd,
-                          float* __restrict__ W, int Np) {
+                          float* __restrict__ W) {
   const int b = blockIdx.y;
   if (skip != nullptr && skip[b]) return;
-  const int nt = Np / T;
-  const size_t total4 = (size_t)Np * Np / 4;
-  float4* Wb = reinterpret_cast<float4*>(W + (size_t)b * Np * Np);
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < total4;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const int r = (int)(e * 4 / Np), c = (int)(e * 4 % Np);
-    const int ti = r / T, tc = c / T;
-    if (tc > ti) Wb[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    else if (tc == ti)
-      Wb[e] = *reinterpret_cast<const float4*>(
-          Wd + (((size_t)b * nt + ti) * T + r % T) * T + c % T);
-  }
+  const size_t e = (size_t)b * T * T / 4 + blockIdx.x * blockDim.x + threadIdx.x;
+  reinterpret_cast<float4*>(W)[e] = reinterpret_cast<const float4*>(Wd)[e];
 }
 
-// One doubling level of W = L^-1 at block size h tiles, one CTA per output
-// tile (a, bb) of a pair's 21 block (first block [s1, s1+h), second
-// [s2, s2+h) cut at nt):
-//   kX:  S(s2+a, s1+bb) = sum_{c=bb}^{h-1} L(s2+a, s1+c) W(s1+c, s1+bb)
-//   !kX: W(s2+a, s1+bb) = -sum_{c=0}^{a} W(s2+a, s2+c) S(s2+c, s1+bb)
-// The sums skip the zero tiles of the triangular W11 and W22; operand tiles
-// are double-buffered with cp.async.
-template <bool kX>
-__global__ void __launch_bounds__(kThreads)
-winv_level(const int* __restrict__ skip, const float* __restrict__ L, float* __restrict__ W,
-           float* __restrict__ S, int Np, int h) {
-  if (skip != nullptr && skip[blockIdx.y]) return;
+// ---- K1b's flow route ----
+
+// Zero each matrix's counters: cols[0..nt-1] (rows of the column stored
+// below the diagonal) and the ticket counter.
+__global__ void winv_flow_init(const int* __restrict__ skip, int* __restrict__ sync, int nt) {
+  const int b = blockIdx.x;
+  if (skip != nullptr && skip[b]) return;
+  for (int e = threadIdx.x; e <= nt; e += blockDim.x) sync[(size_t)b * (nt + 1) + e] = 0;
+}
+
+// Start the copies of term j = k + p of task (i, k): L_ij and W_jk (Wd_k
+// for p = 0), one commit group.
+__device__ __forceinline__ void load_term(float* S, const float* Lb, const float* Wb,
+                                          const float* Wdb, size_t ldt, int Np, int i, int k,
+                                          int p) {
+  const int j = k + p;
+  load_tile_async(S, Lb + i * ldt + j * T, Np);
+  if (p == 0) load_tile_async(S + TILE_F, Wdb + (size_t)k * T * T, T);
+  else load_tile_async(S + TILE_F, Wb + j * ldt + k * T, Np);
+  cp_async_commit();
+}
+
+// Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
+// task tickets of its matrix in row order until none is left; ticket
+// i(i+1)/2 + k is task (i, k), k <= i (see the notes at the top).  Shared
+// memory: the panel stages (L_ij, W_jk; then the four groups' partial
+// sums), Wd_i and the sum S.
+__global__ void __launch_bounds__(kThreads, 1)
+winv_flow(const float* __restrict__ L, const float* __restrict__ Wd,
+          const int* __restrict__ skip, float* __restrict__ W, int* __restrict__ sync, int Np) {
+  const int b = blockIdx.y;
+  if (skip != nullptr && skip[b]) return;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const int nt = Np / T, b = blockIdx.y;
-  const int p = blockIdx.x / (h * h), a = (blockIdx.x / h) % h, bb = blockIdx.x % h;
-  const int s1 = 2 * p * h, s2 = s1 + h;
-  if (s2 + a >= nt) return;
-  const size_t mat = (size_t)b * Np * Np, ldt = (size_t)T * Np;
+  float* Ws = sm + 2 * kFlowStages * TILE_F;  // Wd_i
+  float* S = Ws + TILE_F;
+  __shared__ int s_ticket;
+  __shared__ int s_ready[2];
+  const int nt = Np / T, t = threadIdx.x, n_tasks = nt * (nt + 1) / 2;
+  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
+  int* cols = sync + (size_t)b * (nt + 1);
+  const size_t ldt = (size_t)T * Np, mat = (size_t)b * Np * Np;
   const float* Lb = L + mat;
   float* Wb = W + mat;
-  float* Sb = S + mat;
-  const int c_lo = kX ? bb : 0, c_hi = kX ? h : a + 1;
-  auto ptrP = [&](int c) -> const float* {
-    return kX ? Lb + (s2 + a) * ldt + (s1 + c) * T : Wb + (s2 + a) * ldt + (s2 + c) * T;
-  };
-  auto ptrQ = [&](int c) -> const float* {
-    return kX ? Wb + (s1 + c) * ldt + (s1 + bb) * T : Sb + (s2 + c) * ldt + (s1 + bb) * T;
-  };
-  load_tile_async(sm, ptrP(c_lo), Np);
-  load_tile_async(sm + TILE_F, ptrQ(c_lo), Np);
-  cp_async_commit();
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4] = {};
-  for (int c = c_lo; c < c_hi; ++c) {
-    const float* cur = sm + ((c - c_lo) & 1) * 2 * TILE_F;
-    if (c + 1 < c_hi) {
-      float* nxt = sm + ((c + 1 - c_lo) & 1) * 2 * TILE_F;
-      load_tile_async(nxt, ptrP(c + 1), Np);
-      load_tile_async(nxt + TILE_F, ptrQ(c + 1), Np);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const float* Wdb = Wd + (size_t)b * nt * T * T;
+  for (;;) {
+    if (t == 0) s_ticket = atomicAdd(cols + nt, 1);
+    __syncthreads();
+    const int ticket = s_ticket;
+    if (ticket >= n_tasks) return;
+    int i = (int)((sqrtf(8.f * ticket + 1.f) - 1.f) * 0.5f);
+    while ((i + 1) * (i + 2) / 2 <= ticket) ++i;
+    while (i * (i + 1) / 2 > ticket) --i;
+    const int k = ticket - i * (i + 1) / 2;
+    if (k == i) {  // W_ii = Wd_i
+#pragma unroll
+      for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+        const int e = t + q * kThreads, r = e >> 4, c = (e & 15) * 4;
+        *reinterpret_cast<float4*>(Wb + i * ldt + i * T + r * Np + c) =
+            *reinterpret_cast<const float4*>(Wdb + (size_t)i * T * T + r * T + c);
+      }
+      __syncthreads();  // every thread has read s_ticket
+      continue;
+    }
+    load_tile_async(Ws, Wdb + (size_t)i * T * T, T);
+    cp_async_commit();
+    // Term p (j = k + p) goes to stage p % kFlowStages, one commit group a
+    // term; `issued` terms have their copies started (the same count in
+    // every thread).  Term 0 reads Wd_k; term p > 0 waits for cols[k] >= p.
+    const int np = i - k;
+    int have = 1;  // thread 0's view: terms [0, have) readable
+    load_term(sm, Lb, Wb, Wdb, ldt, Np, i, k, 0);  // in flight while the counter is read
+    int issued = 1;
+    float acc[8][8] = {};
+    for (int p = 0; p < np; ++p) {
+      const int lim = min(p + kFlowStages, np);  // stages free once term p - 1 is done
+      if (t == 0) {
+        if (have < lim) have = 1 + ld_acquire(cols + k);
+        s_ready[p & 1] = max(0, min(lim, have) - issued);
+      }
+      const bool late = issued == p;  // term p's copies not started yet
+      if (!late) cp_async_wait_upto(issued - p - 1);  // term p landed
+      __syncthreads();  // ... for every thread; term p - 1's product done
+      for (int q = s_ready[p & 1]; q > 0; --q, ++issued)
+        load_term(sm + (issued % kFlowStages) * 2 * TILE_F, Lb, Wb, Wdb, ldt, Np, i, k, issued);
+      if (late) {
+        float* P = sm + (p % kFlowStages) * 2 * TILE_F;
+        if (issued == p) {  // W_{k+p,k} is not stored yet: copy L_{i,k+p} meanwhile
+          load_tile_async(P, Lb + i * ldt + (k + p) * T, Np);
+          if (t == 0)
+            while (have <= p) {
+              __nanosleep(32);
+              have = 1 + ld_acquire(cols + k);
+            }
+          __syncthreads();
+          load_tile_async(P + TILE_F, Wb + (k + p) * ldt + k * T, Np);
+          cp_async_commit();
+          ++issued;
+        }
+        cp_async_wait_upto(issued - p - 1);
+        __syncthreads();
+      }
+      const float* P = sm + (p % kFlowStages) * 2 * TILE_F;
+      mma_nn_8x8(P, P + TILE_F, acc, gy, gx, 16 * g);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every product done, Wd_i landed
+    float* R = sm + g * TILE_F;  // group g's partial sum
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float4*>(R + (gy + 8 * a) * LD + 32 * h + 4 * gx) =
+            make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+      const int e = t + q * kThreads, o = (e >> 4) * LD + (e & 15) * 4;
+      const float4 r0 = *reinterpret_cast<const float4*>(sm + o);
+      const float4 r1 = *reinterpret_cast<const float4*>(sm + TILE_F + o);
+      const float4 r2 = *reinterpret_cast<const float4*>(sm + 2 * TILE_F + o);
+      const float4 r3 = *reinterpret_cast<const float4*>(sm + 3 * TILE_F + o);
+      *reinterpret_cast<float4*>(S + o) =
+          make_float4(((r0.x + r1.x) + r2.x) + r3.x, ((r0.y + r1.y) + r2.y) + r3.y,
+                      ((r0.z + r1.z) + r2.z) + r3.z, ((r0.w + r1.w) + r2.w) + r3.w);
     }
     __syncthreads();
-    mma_nn(cur, cur + TILE_F, acc, tx, ty);
-    __syncthreads();
-  }
-  float* out = (kX ? Sb : Wb) + (s2 + a) * ldt + (s1 + bb) * T;
-  const float sign = kX ? 1.f : -1.f;
+    {  // W_ik = -Wd_i S; the tile W_ki above the diagonal is zero
+      const int tx = t & 15, ty = t >> 4;
+      float w[4][4] = {};
+      mma_nn(Ws, S, w, tx, ty);
+      float* out = Wb + i * ldt + k * T;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-    *reinterpret_cast<float4*>(out + (size_t)(ty + 16 * r) * Np + 4 * tx) =
-        make_float4(sign * acc[r][0], sign * acc[r][1], sign * acc[r][2], sign * acc[r][3]);
+      for (int r = 0; r < 4; ++r)
+        *reinterpret_cast<float4*>(out + (size_t)(ty + 16 * r) * Np + 4 * tx) =
+            make_float4(-w[r][0], -w[r][1], -w[r][2], -w[r][3]);
+      zero_tile(Wb + k * ldt + i * T, Np);
+    }
+    __syncthreads();
+    publish(cols + k, i - k);
+  }
 }
 
 int elementwise_blocks(int Np, int per_thread) {
@@ -921,36 +1064,51 @@ int allow_four_tiles(F* fn, unsigned* done) {
   return allow_smem(fn, done, kFourTiles);
 }
 
-unsigned g_step_smem = 0, g_xlevel_smem = 0, g_wlevel_smem = 0, g_flow_smem = 0;
-int g_flow_ctas[32] = {};  // per device: chol_flow CTAs resident at once
+unsigned g_step_smem = 0, g_flow_smem = 0, g_winv_smem = 0;
+int g_flow_ctas[32] = {}, g_winv_ctas[32] = {};  // per device: CTAs resident at once
 
-// CTAs of chol_flow that fit on the current card at once.
-int flow_ctas(int* out) {
+// CTAs of the persistent kernel `fn` (`bytes` of dynamic shared memory)
+// that fit on the current card at once, cached per device in `cache`.
+template <typename F>
+int resident_ctas(F* fn, unsigned* smem_done, int bytes, int* cache, int* out) {
   int dev = 0, sms = 0, per_sm = 0;
   int err = (int)cudaGetDevice(&dev);
   if (err) return err;
-  if (dev < 32 && g_flow_ctas[dev] > 0) {
-    *out = g_flow_ctas[dev];
+  if (dev < 32 && cache[dev] > 0) {
+    *out = cache[dev];
     return 0;
   }
-  if ((err = allow_smem(chol_flow, &g_flow_smem, kFlowTiles))) return err;
+  if ((err = allow_smem(fn, smem_done, bytes))) return err;
   if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
-  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_flow, kThreads,
-                                                                kFlowTiles)))
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, bytes)))
     return err;
   *out = sms * (per_sm > 0 ? per_sm : 1);
-  if (dev < 32) g_flow_ctas[dev] = *out;
+  if (dev < 32) cache[dev] = *out;
   return 0;
+}
+
+// A persistent grid's CTAs per matrix: the resident CTAs split between the
+// B matrices, at least one, at most the tasks of one.
+int per_matrix(int ctas, int B, int n_tasks) {
+  const int per = ctas / B;
+  return per < 1 ? 1 : per < n_tasks ? per : n_tasks;
 }
 
 // K1a's route for matrices of padded size Np, at any batch: 1 (flow) from
 // kFlowMinTiles tiles, else 0 (step).
 int pick_route(int Np) { return Np / T >= kFlowMinTiles ? 1 : 0; }
 
+// K1b's route, the same way: 1 (flow) from kWinvFlowMinTiles tiles, else
+// 0 (copy).
+int pick_winv_route(int Np) { return Np / T >= kWinvFlowMinTiles ? 1 : 0; }
+
 }  // namespace
 
 // K1a's route at this padded size: 0 step, 1 flow (see the notes at the top).
 extern "C" int hebo_chol_route(int Np) { return pick_route(Np); }
+
+// K1b's route at this padded size: 0 copy, 1 flow.
+extern "C" int hebo_chol_winv_route(int Np) { return pick_winv_route(Np); }
 
 // K1a.  K (B,n,n) + diag(jitter) -> L (B,Np,Np) lower triangular, Wd
 // (B,Np/64,64,64); matrices whose skip flag is set keep their L and Wd.
@@ -970,12 +1128,11 @@ extern "C" int hebo_chol_factor(const float* K, const float* jitter, const int* 
   if (route < 0) route = pick_route(Np);
   if (route == 1) {
     int ctas = 0;
-    if ((err = flow_ctas(&ctas))) return err;
+    if ((err = resident_ctas(chol_flow, &g_flow_smem, kFlowTiles, g_flow_ctas, &ctas))) return err;
     int* sync = static_cast<int*>(scratch);
     chol_flow_init<<<B, 128, 0, st>>>(skip, sync, nt);
     if ((err = (int)cudaGetLastError())) return err;
-    const int per = ctas / B, n_tasks = nt * (nt + 1) / 2;
-    const int grid = per < 1 ? 1 : per < n_tasks ? per : n_tasks;
+    const int grid = per_matrix(ctas, B, nt * (nt + 1) / 2);
     chol_flow<<<dim3(grid, B), kThreads, kFlowTiles, st>>>(K, jitter, skip, L, Wd, sync, n, Np);
     return (int)cudaGetLastError();
   }
@@ -993,26 +1150,26 @@ extern "C" int hebo_chol_factor(const float* K, const float* jitter, const int* 
 }
 
 // K1b.  L (B,Np,Np), Wd (B,Np/64,64,64) -> W = L^-1 (B,Np,Np); matrices
-// whose skip flag is set keep their W (skip may be null).  S (B,Np,Np) is
-// scratch (unused when Np == 64).
+// whose skip flag is set keep their W (skip may be null).  The route is
+// the size's (pick_winv_route).  scratch: on the flow route B*(Np/64 + 1)
+// ints of counters (unused when Np == 64).  Returns the first error
+// (attribute, occupancy or launch).
 extern "C" int hebo_chol_winv(const float* L, const float* Wd, const int* skip, float* W,
-                              float* S, int B, int Np, void* stream) {
+                              void* scratch, int B, int Np, void* stream) {
   if (B == 0) return 0;
   if (Np % T != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nt = Np / T;
-  winv_init<<<dim3(elementwise_blocks(Np, 4), B), kThreads, 0, st>>>(skip, Wd, W, Np);
-  int err = (int)cudaGetLastError();
-  if (err || nt == 1) return err;
-  if ((err = allow_four_tiles(winv_level<true>, &g_xlevel_smem))) return err;
-  if ((err = allow_four_tiles(winv_level<false>, &g_wlevel_smem))) return err;
-  for (int h = 1; h < nt; h *= 2) {
-    const int pairs = (nt - h + 2 * h - 1) / (2 * h);
-    const dim3 grid(pairs * h * h, B);
-    winv_level<true><<<grid, kThreads, kFourTiles, st>>>(skip, L, W, S, Np, h);
-    if ((err = (int)cudaGetLastError())) return err;
-    winv_level<false><<<grid, kThreads, kFourTiles, st>>>(skip, L, W, S, Np, h);
-    if ((err = (int)cudaGetLastError())) return err;
+  if (pick_winv_route(Np) == 0) {
+    winv_init<<<dim3(T * T / 4 / kThreads, B), kThreads, 0, st>>>(skip, Wd, W);
+    return (int)cudaGetLastError();
   }
-  return 0;
+  const int nt = Np / T;
+  int ctas = 0, err = 0;
+  if ((err = resident_ctas(winv_flow, &g_winv_smem, kWinvTiles, g_winv_ctas, &ctas))) return err;
+  int* sync = static_cast<int*>(scratch);
+  winv_flow_init<<<B, 128, 0, st>>>(skip, sync, nt);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int grid = per_matrix(ctas, B, nt * (nt + 1) / 2);
+  winv_flow<<<dim3(grid, B), kThreads, kWinvTiles, st>>>(L, Wd, skip, W, sync, Np);
+  return (int)cudaGetLastError();
 }

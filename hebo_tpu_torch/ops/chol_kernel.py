@@ -33,13 +33,16 @@ K1a takes one of two routes on the card (``route``; the rule is
 ``csrc/chol.cu::pick_route``): "step", a launch per 64-wide panel, below 8
 tiles (N ≤ 448), and "flow", one persistent left-looking launch that forms
 each panel tile once, from 8 tiles (HEBO's buckets from 512, BOCS's
-(1, 5051)), at any batch.  Both compute the same function; their sums run
-in other orders.
+(1, 5051)), at any batch; ``chol_factor(..., route=)`` forces one.  Both
+compute the same function; their sums run in other orders.  K1b's route
+(``winv_route``; the rule is ``pick_winv_route``) follows from the size:
+"copy", one launch that copies Wd, at one tile (N ≤ 64), and "flow", one
+persistent launch of blocked forward substitution, from 2 tiles.
 
 ``_schedule_plain`` mirrors, in plain PyTorch, the block schedule that the
 CUDA kernels run (16-wide sub-blocked tile factor; K1a's look-ahead panel
-steps or its left-looking tasks; doubling levels of W); only the CPU tests
-call it.
+steps or its left-looking tasks; K1b's forward-substitution tasks); only
+the CPU tests call it.
 """
 
 from __future__ import annotations
@@ -51,13 +54,14 @@ import torch
 from . import native
 
 __all__ = [
-    "TILE", "ROUTES", "padded_size", "route", "chol_factor", "chol_factor_plain", "chol_winv",
-    "chol_winv_plain", "chol_inv", "cholesky_batched", "chol_inv_batched",
+    "TILE", "ROUTES", "WINV_ROUTES", "padded_size", "route", "winv_route", "chol_factor", "chol_factor_plain",
+    "chol_winv", "chol_winv_plain", "chol_inv", "cholesky_batched", "chol_inv_batched",
 ]
 
 TILE = 64
 SUB = 16  # sub-block edge of the CUDA tile factor
 ROUTES = ("step", "flow")  # K1a's routes, by the number csrc/chol.cu gives them
+WINV_ROUTES = ("copy", "flow")  # K1b's
 
 
 def padded_size(n: int) -> int:
@@ -70,10 +74,21 @@ def _route_code(Np: int) -> int:
     return native.load("chol").hebo_chol_route(Np)
 
 
+@functools.lru_cache(maxsize=None)
+def _winv_route_code(Np: int) -> int:
+    return native.load("chol").hebo_chol_winv_route(Np)
+
+
 def route(n: int) -> str:
     """The route K1a takes on the card for matrices of size n (any batch),
     as ``csrc/chol.cu::pick_route`` decides it."""
     return ROUTES[_route_code(padded_size(int(n)))]
+
+
+def winv_route(n: int) -> str:
+    """The route K1b takes on the card for matrices of size n (any batch),
+    as ``csrc/chol.cu::pick_winv_route`` decides it."""
+    return WINV_ROUTES[_winv_route_code(padded_size(int(n)))]
 
 
 def _pad_identity(K: torch.Tensor, Np: int) -> torch.Tensor:
@@ -197,10 +212,11 @@ def chol_winv(L: torch.Tensor, Wd: torch.Tensor, skip=None, out=None) -> torch.T
         native.require_cuda("chol_winv", skip, dtype=torch.int32)
     W = torch.empty_like(L) if out is None else out
     native.require_cuda("chol_winv", L, W)
-    S = torch.empty_like(L) if Np > TILE else W  # scratch: L21 W11 per level
     lib = native.load("chol")
+    # the flow route's counters: 1 per tile column and the ticket, per matrix
+    sync = torch.empty(B * (Np // TILE + 1), dtype=torch.int32, device=L.device) if Np > TILE else None
     err = native.call(lib.hebo_chol_winv, L.device, L.data_ptr(), Wd.data_ptr(), _ptr(skip),
-                      W.data_ptr(), S.data_ptr(), B, Np)
+                      W.data_ptr(), _ptr(sync), B, Np)
     native.check(err, "chol_winv")
     chol_winv.launches += 1
     return W
@@ -282,6 +298,12 @@ def _flow_tasks(nt: int):
     return order
 
 
+def _winv_flow_tasks(nt: int):
+    """K1b's flow tasks (i, k) in ticket order (``csrc/chol.cu::winv_flow``):
+    row by row, (i, 0) .. (i, i − 1), then the diagonal (i, i)."""
+    return [(i, k) for i in range(nt) for k in range(i + 1)]
+
+
 def _schedule_plain(K: torch.Tensor, route: str = "step"):
     """(L, Wd, W) of a (B, n, n) float32 CPU batch by the block schedule of
     ``csrc/chol.cu``, for the CPU tests only.  K1a, ``route`` "step": tile
@@ -296,8 +318,14 @@ def _schedule_plain(K: torch.Tensor, route: str = "step"):
     factor, and any other gives L_ik = C Wd_kᵀ.  A task that read a tile
     before the task that forms it would read zeros or C: the order is
     checked too.
-    K1b: W's diagonal tiles are Wd; at level h = 1, 2, 4, … tiles each pair
-    of diagonal blocks (the second cut at nt) gets W21 = −W22 (L21 W11)."""
+    K1b (its flow route; at one tile it gives the copy W = Wd): task by
+    task in ticket order (``_winv_flow_tasks``) on a W that starts at
+    zeros: W_ii = Wd_i, and
+    W_ik = −Wd_i Σ_{j=k}^{i−1} L_ij W_jk with W_kk read as Wd_k, each of the
+    four 16-wide quarters of the depth summed over j apart (the last term
+    L_{i,i−1} W_{i−1,k} last) and the four sums added in order; the task
+    zeros W_ki.  A task that read a tile before the task that forms it would
+    read zeros: the order is checked too."""
     if route not in ROUTES:
         raise ValueError(f"_schedule_plain: route {route!r}, expected one of {ROUTES}")
     B, n, _ = K.shape
@@ -344,12 +372,19 @@ def _schedule_plain(K: torch.Tensor, route: str = "step"):
             else:
                 L[:, tl(i), tl(k)] = C @ Wd[:, k].transpose(1, 2)
     W = torch.zeros_like(L)
-    for t in range(nt):
-        W[:, tl(t), tl(t)] = Wd[:, t]
-    h = 1
-    while h < nt:
-        for s1 in range(0, nt - h, 2 * h):
-            b1, b2 = tl(s1, s1 + h), tl(s1 + h, min(s1 + 2 * h, nt))
-            W[:, b2, b1] = -W[:, b2, b2] @ (L[:, b2, b1] @ W[:, b1, b1])
-        h *= 2
+    for i, k in _winv_flow_tasks(nt):
+        if i == k:
+            W[:, tl(i), tl(i)] = Wd[:, i]
+            continue
+        parts = [torch.zeros((B, TILE, TILE), dtype=K.dtype) for _ in range(TILE // SUB)]
+        for j in range(k, i):
+            Wjk = Wd[:, k] if j == k else W[:, tl(j), tl(k)]
+            for g, part in enumerate(parts):
+                q = slice(g * SUB, (g + 1) * SUB)
+                part += L[:, tl(i), tl(j)][:, :, q] @ Wjk[:, q]
+        s = parts[0]
+        for part in parts[1:]:
+            s = s + part
+        W[:, tl(i), tl(k)] = -(Wd[:, i] @ s)
+        W[:, tl(k), tl(i)] = 0.0
     return L, Wd, W

@@ -18,9 +18,11 @@ bits, keys and order as its plain version, NaN where NaN, and NSGA-II's
 population after 20 generations through it the same as through the plain
 version.  K1 with the ladder's jitter and skip: the same bits
 as the ladder that adds the jitter before K1 and decides on the host; K1a
-on each of its two routes (the rule's edges, both routes forced at small
-sizes): the same tolerances, NaN confined to its matrix, a batch member's
-bits equal to its own factorization's, and the same bits from two launches.  HEBO's
+and K1b each on both of their routes (the rules' edges, both routes forced
+at small sizes): the same tolerances, NaN confined to its matrix, a batch
+member's bits equal to its own factorization's, and the same bits from two
+launches; K1b's flow route at BOCS's (1, 5051) on a horseshoe-like
+A = ΦᵀΦ + diag(1/(τ²λ²)): ‖W·L − I‖_max within 10× the plain version's.  HEBO's
 suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
 at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
 the CG posterior against the dense K1 posterior at N = 2048 with
@@ -465,7 +467,7 @@ def _ladder_on_host(Kt, rungs, base=1e-6):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [40, 128, 300, 1024, 5051])
+@pytest.mark.parametrize("N", [40, 128, 300, 1024, 5051, 512])
 def test_chol_ladder_skip_and_jitter_on_card(cuda, N):
     """K1 with the ladder's jitter and skip (every rung launched) against
     the host-decided ladder: a matrix that first factors at rung 2, one that
@@ -574,6 +576,92 @@ def test_chol_flow_route_skip_keeps_out_on_card(cuda):
         Kb = (K[b:b + 1] + jitter[b] * torch.eye(1000, device=cuda)).contiguous()
         L0, Wd0 = chol_kernel.chol_factor(Kb, route="flow")
         assert torch.equal(L[b], L0[0]) and torch.equal(Wd[b], Wd0[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,want", [(1, 64, "copy"), (16, 32, "copy"), (1, 65, "flow"), (2, 128, "flow"),
+                                      (24, 256, "flow"), (2, 448, "flow"), (2, 512, "flow"),
+                                      (32, 1024, "flow"), (40, 1024, "flow"), (1, 5051, "flow"),
+                                      (1, 1100, "flow")])
+def test_chol_winv_route_rule_on_card(cuda, B, N, want):
+    """K1b's route at the rule's edge (2 tiles) and at batches, as
+    csrc/chol.cu reports it: the plain version's W within 1e-3, the same
+    bits from two launches, and at one tile the copy, Wd's bits."""
+    assert chol_kernel.winv_route(N) == want
+    K = torch.as_tensor(_spd(np.random.default_rng(B * N + 1), B, N), device=cuda)
+    L, Wd = chol_kernel.chol_factor(K)
+    W = chol_kernel.chol_winv(L, Wd)
+    torch.testing.assert_close(W, chol_kernel.chol_winv_plain(L, Wd), rtol=0, atol=1e-3)
+    assert torch.equal(W, chol_kernel.chol_winv(L, Wd))
+    if want == "copy":
+        assert torch.equal(W, Wd[:, 0])
+
+
+@pytest.mark.gpu
+def test_chol_winv_flow_skip_keeps_out_on_card(cuda):
+    """K1b's flow route (N 1000) with the ladder's skip: a skipped member
+    keeps its W, the others the bits of their own W alone."""
+    assert chol_kernel.winv_route(1000) == "flow"
+    K = torch.as_tensor(_spd(np.random.default_rng(14), 3, 1000), device=cuda)
+    L, Wd = chol_kernel.chol_factor(K)
+    W = torch.full_like(L, 7.0)
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    chol_kernel.chol_winv(L, Wd, skip, out=W)
+    assert (W[1] == 7).all()
+    for b in (0, 2):
+        Wb = chol_kernel.chol_winv(L[b:b + 1].contiguous(), Wd[b:b + 1].contiguous())
+        assert torch.equal(W[b], Wb[0])
+
+
+@pytest.mark.gpu
+def test_chol_winv_flow_nan_stays_in_its_matrix_on_card(cuda):
+    """K1b's flow route (N 1100) on K1a's flow factor of a −I member and a
+    member whose first bad pivot lies in its last tile: NaN in their W from
+    that tile on, finite before it, and the third member the bits of its
+    own W alone."""
+    rng = np.random.default_rng(15)
+    N, m = 1100, 1044
+    K = _spd(rng, 3, N)
+    K[0] = -np.eye(N, dtype=np.float32)
+    K[1] = np.eye(N, dtype=np.float32)
+    K[1, :m, :m] = _spd(rng, 1, m)[0]
+    K[1, m:, m:] = -np.eye(N - m, dtype=np.float32)
+    L, Wd = chol_kernel.chol_factor(torch.as_tensor(K, device=cuda), route="flow")
+    assert chol_kernel.winv_route(N) == "flow"
+    W = chol_kernel.chol_winv(L, Wd)
+    assert not torch.isfinite(W[0]).all() and not torch.isfinite(W[1]).all()
+    assert torch.isfinite(W[1, :m // 64 * 64]).all()
+    assert torch.isfinite(W[2]).all()
+    W2 = chol_kernel.chol_winv(L[2:3].contiguous(), Wd[2:3].contiguous())
+    assert torch.equal(W[2], W2[0])
+
+
+@pytest.mark.gpu
+def test_chol_winv_bocs_like_residual_on_card(cuda):
+    """BOCS's Gibbs sweep at (1, 5051): A = ΦᵀΦ + diag(1/(τ²λ²)) with Φ the
+    200 × 5051 quadratic features of pest control's 25 stations × 5
+    choices (intercept, 4 dummies a station, their pairwise products), λ²
+    from the horseshoe's inverse-gamma (capped at 10, τ² = 1).  K1b's flow
+    route: ‖W·L − I‖_max within 10× the plain version's (solve_triangular
+    on the same L), in float64."""
+    rng = np.random.default_rng(16)
+    choice = rng.integers(0, 5, (200, 25))
+    X = np.concatenate([(choice == c).astype(np.float32) for c in range(1, 5)], 1)
+    iu = np.triu_indices(100, 1)
+    Phi = np.concatenate([np.ones((200, 1), np.float32), X, X[:, iu[0]] * X[:, iu[1]]], 1)
+    assert Phi.shape == (200, 5051)
+    lam2 = np.minimum(1.0 / rng.gamma(1.0, 1.0, 5051), 10.0)
+    P = torch.as_tensor(Phi, device=cuda)
+    A = (P.T @ P + torch.diag(torch.as_tensor(1.0 / lam2, dtype=torch.float32, device=cuda)))
+    L, Wd = chol_kernel.chol_factor(A[None].contiguous())
+    assert torch.isfinite(L).all()
+    assert chol_kernel.winv_route(5051) == "flow"
+    W = chol_kernel.chol_winv(L, Wd)
+    W0 = chol_kernel.chol_winv_plain(L, Wd)
+    eye = torch.eye(L.shape[-1], dtype=torch.float64, device=cuda)
+    res = (W[0].double() @ L[0].double() - eye).abs().max().item()
+    res0 = (W0[0].double() @ L[0].double() - eye).abs().max().item()
+    assert np.isfinite(res) and res <= 10 * res0
 
 
 def _ackley(df):

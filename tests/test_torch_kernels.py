@@ -10,8 +10,9 @@ Tolerances (float32 on both sides, different summation orders):
 * (L, W): 1e-4 absolute on well-conditioned SPD inputs (diagonal ≥ 0.5).
   The same for ``_schedule_plain``, the plain mirror of the CUDA kernels'
   block schedule (16-wide sub-blocked tile factor; K1a's look-ahead panel
-  steps or its left-looking flow tasks; doubling levels of W), checked here
-  before the kernels run on a card.
+  steps or its left-looking flow tasks; K1b's doubling levels of W or its
+  forward-substitution flow tasks), checked here before the kernels run on
+  a card.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -178,8 +179,8 @@ def test_schedule_mirror_matches_slab_interpret(B, N):
 
 @pytest.mark.parametrize("B,N", [(3, 200), (1, 320), (2, 448), (1, 1000), (2, 40)])
 def test_schedule_mirror_ragged_tile_counts(B, N):
-    """nt = 4, 5, 7, 16 and 1 tiles: the doubling's second block is cut at
-    nt, and the identity padding holds at every level."""
+    """nt = 4, 5, 7, 16 and 1 tiles: ragged last tiles, and the identity
+    padding holds in L and in W."""
     rng = np.random.default_rng(N)
     K = _spd(rng, B, N)
     L, Wd, W = _schedule_plain(torch.as_tensor(K))
@@ -278,6 +279,76 @@ def test_chol_factor_route_argument():
         chol_factor(K, route="panel")
     with pytest.raises(ValueError, match="route"):
         _schedule_plain(K, route="panel")
+
+
+@pytest.mark.parametrize("B,N", [(1, 700), (1, 1000), (2, 448)])
+def test_winv_flow_schedule_mirror_matches_slab_interpret(B, N):
+    """K1b's flow route (row-order tasks, the depth summed in four quarters,
+    the last term last, then the product with Wd_i), mirrored in plain
+    torch on K1a's flow factor, against the JAX package's slab kernels
+    (interpret mode) and the plain version; N 700 and the batch of 2 at 448
+    cut the last tile, whose identity padding stays exact in W."""
+    rng = np.random.default_rng(30 + N)
+    K = _spd(rng, B, N)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K), route="flow")
+    for b in range(B):  # identity-padded (exact) to a size the tests above have compiled
+        Kp = np.eye(1024, dtype=np.float32)
+        Kp[:N, :N] = K[b]
+        Wj = np.asarray(chol_inv_slab(jnp.asarray(Kp[None]), interpret=True)[1])[0, :N, :N]
+        np.testing.assert_allclose(W[b, :N, :N].numpy(), Wj, atol=1e-4)
+    np.testing.assert_allclose(W.numpy(), chol_winv(L, Wd).numpy(), atol=1e-4)
+    assert np.abs(np.triu(W.numpy(), 1)).max() == 0.0
+    Np = padded_size(N)
+    np.testing.assert_array_equal(W[:, N:, N:].numpy(), np.broadcast_to(np.eye(Np - N), (B, Np - N, Np - N)))
+    np.testing.assert_array_equal(W[:, N:, :N].numpy(), 0.0)
+
+
+def test_winv_flow_schedule_mirror_nan_in_late_tile():
+    """The late-tile case on K1b's flow schedule: blockdiag(SPD 200×200,
+    −I) fails first in tile 3 of 4; W is NaN in that matrix from there on
+    and its neighbours' W is the plain version's."""
+    rng = np.random.default_rng(12)
+    K = _spd(rng, 3, 256)
+    K[1, :200, 200:] = 0.0
+    K[1, 200:, :200] = 0.0
+    K[1, 200:, 200:] = -np.eye(56, dtype=np.float32)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K), route="flow")
+    assert torch.isfinite(W[1, :192]).all()
+    assert not torch.isfinite(W[1, 192:]).all()
+    assert torch.isfinite(W[[0, 2]]).all()
+    W0 = chol_winv(L[[0, 2]].contiguous(), Wd[[0, 2]].contiguous())
+    np.testing.assert_allclose(W[[0, 2]].numpy(), W0.numpy(), atol=1e-4)
+
+
+def test_winv_flow_schedule_out_of_order_reads_zeros(monkeypatch):
+    """The flow mirror's order is what makes it right: rows taken last to
+    first, every task (i, k) runs before the tasks that form W_jk, k < j < i,
+    reads those tiles as zeros and gives −Wd_i L_ik Wd_k alone."""
+    K = torch.as_tensor(_spd(np.random.default_rng(31), 1, 320))
+    L, Wd, W = _schedule_plain(K, route="flow")
+    nt = W.shape[-1] // 64
+    monkeypatch.setattr(chol_kernel, "_winv_flow_tasks",
+                        lambda n: [(i, k) for i in reversed(range(n)) for k in range(i + 1)])
+    _, _, Wbad = _schedule_plain(K, route="flow")
+    t = lambda i: slice(64 * i, 64 * (i + 1))
+    for i in range(nt):
+        for k in range(i):
+            want = -(Wd[:, i] @ L[:, t(i), t(k)] @ Wd[:, k])
+            np.testing.assert_allclose(Wbad[:, t(i), t(k)].numpy(), want.numpy(), atol=1e-5)
+    np.testing.assert_allclose(Wbad[:, t(1), t(0)].numpy(), W[:, t(1), t(0)].numpy(), atol=1e-5)
+    assert (Wbad - W).abs().max().item() > 1e-2
+
+
+def test_winv_schedule_mirror_one_tile_is_the_copy():
+    """At one tile (N ≤ 64) K1b's route is the copy W = Wd: the mirror gives
+    Wd's bits, with the identity padding exact, and the wrapper on CPU
+    tensors the plain version."""
+    K = torch.as_tensor(_spd(np.random.default_rng(15), 3, 40))
+    L, Wd, W = _schedule_plain(K)
+    assert torch.equal(W, Wd[:, 0])
+    np.testing.assert_array_equal(W[:, 40:, 40:].numpy(), np.broadcast_to(np.eye(24), (3, 24, 24)))
+    L0, Wd0 = chol_factor_plain(K)
+    np.testing.assert_allclose(W.numpy(), chol_winv(L0, Wd0).numpy(), atol=1e-4)
 
 
 def test_wrappers_refuse_other_devices():
