@@ -35,7 +35,10 @@
    200 fronts at M = 2 and 3, with ties, duplicate rows, ±inf and NaN
    objectives and invalid rows: the same ranks, crowding bits, keys and
    order as its plain version (``nsga2_key``, a stable argsort), with
-   device µs.
+   device µs; the same past its one-CTA route, on its grid route
+   (``GRID_CASES``: 1,249-4,200 rows at M = 1-4, a 4,200-front chain and
+   one whose rounded keys tie past 2^24), with every survivor's place;
+   the one-CTA route also timed near its edge, (700, 3) and (1200, 3).
    K3 runs at every AntBO shape, BOSS / BOiLS' shapes at L 25, the edges of
    its register routes and two shapes on its general route, with each
    launch's route and device µs per launch (torch.profiler) beside ms per
@@ -61,7 +64,10 @@
        takes its keys and survivors' order from K5).
    (b2) Ackley-6D warm-started with 400, 600, 1200 and 1800 Sobol
        observations (buckets 512, 768, 1536 and 2048, whose K1a takes the
-       flow route like bucket 1024's): the capturing suggest.
+       flow route like bucket 1024's): the capturing suggest;
+   (b3) ``HEBO(space, pop=700)`` at 112 warm observations: survival ranks
+       1,400 rows on K5's grid route inside the graph; a profiled suggest's
+       K5 launches (200, 100 of them on the grid route) and device ms.
    Each phase ends with one suggest on each path at the same seed, which
    must give the same suggestion.  Every suggestion must be finite and
    inside the box, and every pSGLD step's Gram gradient must have gone
@@ -388,6 +394,18 @@ LATENT_VJP_SHAPES = [(1, 32, 32, 4), (1, 32, 32, 8), (1, 256, 256, 8), (1, 8, 8,
 # buckets (8 and 64: fit, NSGA-II's predict); K1 at their fits (2, 8), (2, 64)
 EXPERIMENT_GRAM_SHAPES = [(2, 8, 8, 6), (2, 64, 64, 6), (1, 64, 100, 6)]
 EXPERIMENT_VJP_SHAPES = [(2, 8, 8, 6), (2, 64, 64, 6)]
+# K5's grid route (P past the one-CTA route): survival at MACE's pop 625
+# and 700, ZDT1's 630 and 650, BNH's 625, at pop 2,048 (M = 3), BO's M = 1
+# at pop 2,100; a chain of 4,200 fronts (M = 2) and one with a crowded last
+# front whose rounded keys tie past 2^24
+GRID_CASES = [(1249, 3, False), (1260, 2, False), (1250, 4, False), (1400, 3, False),
+              (1300, 2, False), (4096, 3, False), (4200, 1, False), (4200, 2, True),
+              (4200, 2, "tail")]
+# K2's VJP: the fits at buckets 1024, 128 and the large-N route's 2048, the
+# samplers' (4 and 32 at bucket 1024, 4 at 128), then phases i-p's
+VJP_SHAPES = [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6), (4, 1024, 1024, 6),
+              (32, 1024, 1024, 6), (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES \
+    + VARIANT_VJP_SHAPES + LATENT_VJP_SHAPES + EXPERIMENT_VJP_SHAPES
 # phase o: BOiLS on BoilsTask, 8 positions over 3 operators (the register route)
 TASK_SSK_CASES = [(1, 32, 32, 8, 3, [(0.6, 0.7)]), (1, 32, 17, 8, 3, [(0.6, 0.7)])]
 MCBO_SSK_CASES = [(1, 256, 256, 25, 3, [(0.6, 0.7)]), (1, 256, 101, 25, 3, [(0.6, 0.7)]),
@@ -481,10 +499,7 @@ def check_gram_vjp(torch, gram, device_per_call, dev, gen, fails):
     and the plain float32 version itself is 2.6e-4 / 4.0e-4 of max |ga| /
     |gb| off its float64 value there."""
     rows = []
-    for B, N, M, D in [(2, 1024, 1024, 6), (2, 128, 128, 6), (2, 2048, 2048, 6),
-                       (4, 1024, 1024, 6), (32, 1024, 1024, 6),
-                       (4, 128, 128, 6)] + MCBO_GRAM_SHAPES + FAMILY_VJP_SHAPES + VARIANT_VJP_SHAPES \
-            + LATENT_VJP_SHAPES + EXPERIMENT_VJP_SHAPES:
+    for B, N, M, D in VJP_SHAPES:
         a = torch.randn((B, N, D), generator=gen, device=dev)
         b = torch.randn((B, M, D), generator=gen, device=dev)
         sc = torch.rand((B,), generator=gen, device=dev) + 0.5
@@ -537,15 +552,17 @@ def check_chol(torch, ck, dev, gen, fails):
     phase b2's caches and fits at buckets 512, 768, 1536 and 2048 on K1a's
     flow route, (1, 512), (2, 512), (1, 768), (2, 768), (1, 1536),
     (2, 1536), (1, 2048) and (2, 2048); phase e4's fit at bucket 3072,
-    (2, 3072).  Each row names the route its kernel takes (K1a's flow route
-    from 8 tiles, K1b's from 2) and holds the same bits from a second call.
+    (2, 3072); (1, 4096), on no path, beside its library call.  Each row
+    names the route its kernel takes (K1a's flow route from 8 tiles, K1b's
+    from 2) and holds the same bits from a second call.
     Host dispatch is part of the time at the small shapes, for the kernels
     and the library call alike, so those get more calls per timing."""
     fac, winv = [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
                  (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (2, 512), (1, 768), (2, 768), (1, 1536),
-                 (2, 1536), (1, 2048), (2, 3072), (16, 24)]:  # a batch last: the NaN case below
+                 (2, 1536), (1, 2048), (2, 3072), (1, 4096),
+                 (16, 24)]:  # a batch last: the NaN case below
         K = spd(torch, B, N, dev, gen)
         L, Wd = ck.chol_factor(K)
         L2, Wd2 = ck.chol_factor(K)
@@ -700,9 +717,18 @@ def check_ssk(torch, ssk, device_us, dev, fails):
 def pareto_inputs(torch, P, M, edge, dev, seed, chain=False):
     """F (P, M) on a coarse grid (ties in every objective), with duplicate
     rows and, with ``edge``, ±inf and NaN entries; with ``chain``, row i is
-    (r_i, ..., r_i) for a permutation r, so every point is its own front."""
+    (r_i, ..., r_i) for a permutation r, so every point is its own front;
+    with ``chain == "tail"`` (M = 2) the chain's last 100 points form one
+    front on a line, crowded unevenly, whose keys (past 2^24 at P 4,200)
+    tie after float32 rounding and sort by index, not by ordinal."""
     rng = np.random.default_rng(seed)
-    if chain:
+    if chain == "tail":
+        n = P - 100
+        t = rng.uniform(0, 100, 100)
+        F = np.concatenate([np.repeat(rng.permutation(n)[:, None], 2, 1),
+                            np.stack([n + t, n + 100 - t], 1)])[rng.permutation(P)]
+        F = F.astype(np.float32)
+    elif chain:
         F = np.repeat(rng.permutation(P).astype(np.float32)[:, None], M, 1)
     else:
         F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
@@ -718,12 +744,13 @@ def pareto_inputs(torch, P, M, edge, dev, seed, chain=False):
     return torch.as_tensor(F, device=dev)
 
 
-def pareto_agrees(torch, pareto, P, M, dev, fails, what, chain=False):
+def pareto_agrees(torch, pareto, P, M, dev, fails, what, chain=False, edges=(False, True)):
     """K5 at (P, M) against its plain version bit for bit, on tied (or
     chained) inputs with and without the edge values, with and without a
     valid mask: rank and crowding (``nsga2_rank_crowd``), and rank,
-    crowding, key and the order of the first P // 2 (``nsga2_select``)."""
-    for edge in (False, True) if P > 40 else (False,):
+    crowding, key and the order of the first P // 2 (``nsga2_select``);
+    past 256 rows also the order of all P."""
+    for edge in edges if P > 40 else (False,):
         F = pareto_inputs(torch, P, M, edge, dev, P + edge, chain)
         for valid in (None, torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25,
                                             device=dev)):
@@ -733,6 +760,9 @@ def pareto_agrees(torch, pareto, P, M, dev, fails, what, chain=False):
             same = {"ranks": torch.equal(r, r0) and torch.equal(got[0], want[0]),
                     "crowding bits": same_bits(torch, c, c0) and same_bits(torch, got[1], want[1]),
                     "keys": torch.equal(got[2], want[2]), "order": torch.equal(got[3], want[3])}
+            if P > 256:
+                same["full order"] = torch.equal(pareto.nsga2_select(F, P, valid)[3],
+                                                 torch.argsort(want[2], stable=True))
             if not all(same.values()):
                 fails.append(f"nsga2_rank_crowd {(P, M)}{what} chain={chain} edge={edge} "
                              f"masked={valid is not None}: equal {same}")
@@ -752,37 +782,52 @@ def check_pareto(torch, pareto, device_us, dev, fails):
     constraints), P 100 and 200, and phases n and o's evolutions, (48, 1),
     (96, 1), (32, 1), (48, 3) and (96, 3), and on chains of 200 fronts at
     M = 2 and 3 (the peel's worst case): the same ranks, crowding bits,
-    keys and survivor order as the plain version (``pareto_agrees``).
-    Timed as survival calls it, ``nsga2_select(F, P // 2)``, on
-    standard-normal objectives (a chain's rows on the chain)."""
+    keys and survivor order as the plain version (``pareto_agrees``); the
+    one-CTA route near its edge, (700, 3) (HEBO(pop=700)'s tournament) and
+    (1200, 3); then K5's grid route at ``GRID_CASES``.  Timed as survival
+    calls it,
+    ``nsga2_select(F, P // 2)``, on standard-normal objectives (a chain's
+    rows on the chain); the grid route's device µs per call summed over its
+    launches."""
+    from hebo_tpu_torch.bench.gram_probe import device_per_call
+
     rows = []
     cases = [(P, M, False) for P, M in ((100, 3), (200, 3), (64, 1), (128, 1), (100, 1), (200, 1),
                                         (100, 2), (200, 2), (100, 4), (200, 4), (48, 1), (96, 1),
-                                        (32, 1), (48, 3), (96, 3))]
-    for P, M, chain in cases + [(200, 2, True), (200, 3, True)]:
-        pareto_agrees(torch, pareto, P, M, dev, fails, "", chain)
+                                        (32, 1), (48, 3), (96, 3), (700, 3), (1200, 3))]
+    for P, M, chain in cases + [(200, 2, True), (200, 3, True)] + GRID_CASES:
+        large = P > 256
+        # the plain version peels a 4,200-front chain in ~1 s: no edge values there
+        pareto_agrees(torch, pareto, P, M, dev, fails, "", chain,
+                      edges=(False,) if chain and large else (False, True))
         if chain:
-            F = pareto_inputs(torch, P, M, False, dev, P, chain=True)
+            F = pareto_inputs(torch, P, M, False, dev, P, chain=chain)
         else:
             F = torch.randn((P, M), generator=torch.Generator(device=dev).manual_seed(P), device=dev)
         fn = lambda: pareto.nsga2_select(F, P // 2)
         got = fn()
         want = pareto.nsga2_select_plain(F, P // 2)
-        # operations on this run's fronts: the domination compares (<= both
-        # ways, each pair once, every objective), the peel's word ops (each
-        # front tests every point's row), the crowding's placement within
-        # each front per objective and the order's, and the ordinal's
-        # compares over every pair; bytes: F in, rank, crowding, key and
-        # order out
+        # the function's own work on this run's fronts, whatever the route:
+        # the domination compares (<= both ways, each pair once, every
+        # objective), the crowding's placement within each front per
+        # objective and the order's, and the ordinal's compares over every
+        # pair; bytes: F in, rank, crowding, key and order out
         sizes = torch.bincount(got[0].long()).double()
         fronts = int(got[0].max().item()) + 1
-        ops = P * P * M + fronts * P * -(-P // 32) + int((sizes ** 2).sum().item()) * (M + 1) + P * P
+        ops = P * P * M + int((sizes ** 2).sum().item()) * (M + 1) + P * P
         bms, by = bound(ops, 4 * (P * M + 3 * P) + 8 * (P // 2))
+        route = pareto.route(P, M)
+        if route == "grid":
+            us, launches = device_per_call(torch, fn, 20, "nsga2_")
+        else:
+            us, launches = device_us(torch, fn, 200, "nsga2_rank_crowd")[0], 1
         rows.append(dict(
-            shape=[P, M], chain=chain, fronts=fronts,
+            shape=[P, M], chain=chain, fronts=fronts, route=route,
             max_abs_err=float((got[1] - want[1]).abs().nan_to_num(0.0).max().item()),
-            ms=cuda_ms(torch, fn, 1000), device_us=device_us(torch, fn, 200, "nsga2_rank_crowd")[0],
-            plain_ms=cuda_ms(torch, lambda: pareto.nsga2_select_plain(F, P // 2), 50),
+            ms=cuda_ms(torch, fn, 20 if large else 1000), device_us=us,
+            device_launches_per_call=launches,
+            plain_ms=cuda_ms(torch, lambda: pareto.nsga2_select_plain(F, P // 2),
+                             1 if large else 50),
             bound_ms=bms, bound_by=by, library_ms=None,
         ))
     print("kernel nsga2_rank_crowd: library_ms null, no single PyTorch call computes "
@@ -974,6 +1019,7 @@ def k5_and_sorts(suggest, n_gens, what, fails):
 
 def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
     from hebo_tpu_torch.ops import chol_kernel as ck
+    from hebo_tpu_torch.ops import pareto
 
     space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
                          for i in range(6)])
@@ -1059,6 +1105,28 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
             fails.append(f"phase b2 @ {n_obs}: bucket {bucket} not on the fused graph: {graphs}")
         opt.observe(rec, ackley(rec))
         graph_vs_eager(torch, opt, f"phase b2 (bucket {bucket})", fails)
+
+    # (b3) HEBO(pop=700) at bucket 128: survival ranks 1,400 rows, on K5's
+    # grid route, inside the fused graph
+    opt = HEBO(space, pop=700, device="cuda")
+    warm = space.inverse_transform(space.sobol_sample_opt(112, seed=1))
+    opt.observe(warm, ackley(warm))
+    t0 = time.time()
+    rec = opt.suggest(8)
+    torch.cuda.synchronize()
+    b3 = {"s_capture": time.time() - t0, "k5_route_survival": pareto.route(2 * opt.pop, 3),
+          "k5_route_tournament": pareto.route(opt.pop, 3)}
+    check_batch(space, rec, "phase b3", fails)
+    opt.observe(rec, ackley(rec))
+    before = {k: wrappers[k].launches for k in ("nsga2_rank_crowd", "nsga2_rank_crowd_grid")}
+    b3["profiled_suggest"] = k5_and_sorts(lambda: opt.suggest(8), opt.iters, "phase b3", fails)
+    b3["launches"] = {k: wrappers[k].launches - n for k, n in before.items()}
+    if b3["launches"] != {"nsga2_rank_crowd": 2 * opt.iters, "nsga2_rank_crowd_grid": opt.iters}:
+        fails.append(f"phase b3: K5 launches in a suggest {b3['launches']}, expected "
+                     f"{2 * opt.iters} of which {opt.iters} on the grid route")
+    print("phase b3 (Ackley-6D b8, HEBO(pop=700), 112 warm obs, graph path):", json.dumps(b3),
+          flush=True)
+    graph_vs_eager(torch, opt, "phase b3", fails)
     return a, b
 
 
@@ -1470,13 +1538,15 @@ class ShapeLog:
     open, by wrapping ``native.call``, through which every wrapper launches
     (the dims are its trailing arguments; each wrapper still counts its own
     launches): K2 and its VJP (B, N, M, D), K3 cross (B, N, M, L, P) and
-    self (B, N, L, P), K1a (B, n), K1b (B, padded n) and K5 (P, M)."""
+    self (B, N, L, P), K1a (B, n), K1b (B, padded n) and K5 (P, M), either
+    route."""
 
     DIMS = {"hebo_matern32_gram": ("matern32_gram", -4, None),
             "hebo_matern32_gram_vjp": ("matern32_gram_vjp", -4, None),
             "hebo_ssk_cross": ("ssk_cross", -5, None), "hebo_ssk_self": ("ssk_self", -4, None),
             "hebo_chol_factor": ("chol_factor", -3, -1), "hebo_chol_winv": ("chol_winv", -2, None),
-            "hebo_nsga2_rank_crowd": ("nsga2_rank_crowd", -2, None)}
+            "hebo_nsga2_rank_crowd": ("nsga2_rank_crowd", -2, None),
+            "hebo_nsga2_rank_crowd_grid": ("nsga2_rank_crowd", -2, None)}
 
     def __init__(self):
         from hebo_tpu_torch.ops import native
@@ -3246,14 +3316,27 @@ def emllm_phase(torch, fails):
     return out
 
 
+class GridLaunches:
+    """K5's grid-route launches (``nsga2_rank_crowd.grid_launches``) as a
+    wrapper's ``launches``, so that they are reset and read with the rest."""
+
+    def __init__(self, k5):
+        self.k5 = k5
+
+    launches = property(lambda self: self.k5.grid_launches,
+                        lambda self, n: setattr(self.k5, "grid_launches", n))
+
+
 def kernel_wrappers():
-    """The kernels' wrappers, by name; each counts its launches."""
+    """The kernels' wrappers, by name; each counts its launches (K5's grid
+    route: those of ``nsga2_rank_crowd`` that took it)."""
     from hebo_tpu_torch.ops import chol_kernel as ck
     from hebo_tpu_torch.ops import gram, pareto, ssk
 
     return {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
             "chol_factor": ck.chol_factor, "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross,
-            "ssk_self": ssk.ssk_self, "nsga2_rank_crowd": pareto.nsga2_rank_crowd}
+            "ssk_self": ssk.ssk_self, "nsga2_rank_crowd": pareto.nsga2_rank_crowd,
+            "nsga2_rank_crowd_grid": GridLaunches(pareto.nsga2_rank_crowd)}
 
 
 def main() -> int:
@@ -3308,7 +3391,7 @@ def main() -> int:
     paths = {
         "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, wrappers, fails),
                  ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
-                  "nsga2_rank_crowd")),
+                  "nsga2_rank_crowd", "nsga2_rank_crowd_grid")),
         "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
                   ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
         "hebo_large_n": (lambda: large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails),
@@ -3379,7 +3462,7 @@ def main() -> int:
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
                   "chol_factor": [2, 1024], "chol_winv": [2, 1024],
                   "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3],
-                  "nsga2_rank_crowd": [200, 3]}
+                  "nsga2_rank_crowd": [200, 3], "nsga2_rank_crowd_grid": [1400, 3]}
     meta = {
         "matern32_gram": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:87", g_rows),
         # the JAX package's VJP is XLA-fused jnp (no pallas_call) at :128-133
@@ -3390,6 +3473,9 @@ def main() -> int:
         "ssk_self": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:167", s_rows),
         # the JAX package peels in an XLA while_loop (no pallas_call) at :45-78
         "nsga2_rank_crowd": ("hebo_tpu_torch/csrc/pareto.cu", "hebo_tpu/ops/pareto.py:45", p_rows),
+        # its grid route, past the one CTA's rows (nsga2_grid_* kernels)
+        "nsga2_rank_crowd_grid": ("hebo_tpu_torch/csrc/pareto.cu", "hebo_tpu/ops/pareto.py:45",
+                                  [r for r in p_rows if r["route"] == "grid"]),
     }
     kernels = []
     for name, (src, rep, rows) in meta.items():
@@ -3405,6 +3491,11 @@ def main() -> int:
             **({"k3_route": r["route"], "k3_routes": sorted({x["route"] for x in rows})}
                if name.startswith("ssk_") else {}),
             **({"tile_rows": r["tile_rows"]} if "tile_rows" in r else {}),
+            **({"k5_route": r["route"], "k5_routes": sorted({x["route"] for x in rows}),
+                "device_launches_per_call": r["device_launches_per_call"]}
+               if name.startswith("nsga2") else {}),
+            **({"smc": next(x for x in rows if x["shape"] == [32, 1024, 1024, 6])}
+               if name == "matern32_gram_vjp" else {}),
             **({"skipped_rung_ms": ladder["skipped_rung_ms"],
                 "skipped_rung_5051_ms": ladder["skipped_rung_5051_ms"],
                 "k1a_route": r["route"], "k1a_routes": sorted({x["route"] for x in rows}),

@@ -224,10 +224,11 @@ def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
 
 
 def _k5_and_sorts(by_name) -> dict:
-    """Kernel K5's launches and device ms in the profiled suggest, and those
+    """Kernel K5's launches and device ms in the profiled suggest (both
+    routes' kernels: every name holding "nsga2_"), and those
     of the sort kernels (every device kernel whose name holds "sort"), by
     name and summed."""
-    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_rank_crowd" in k]
+    k5 = [(n, ms) for k, (n, ms) in by_name.items() if "nsga2_" in k]
     sorts = {k: (n, ms) for k, (n, ms) in by_name.items() if "sort" in k.lower()}
     return {"k5_launches": sum(n for n, _ in k5), "k5_device_ms": sum(ms for _, ms in k5),
             "sort_launches": sum(n for n, _ in sorts.values()),

@@ -60,7 +60,15 @@
 // work); a tensor-core route (G [b 1] and [a 1]^T G by mma.m16n8k8 in
 // three TF32 products, g by cp.async into shared memory), slower at D = 6
 // and faster only past 16 features, where no path's VJP runs; four lanes
-// per output in the second launch.
+// per output in the second launch.  Tried later, in
+// hebo_tpu_torch/bench/vjp_variants.cu (bench/vjp_probe.py times them
+// beside this kernel), none faster at (2,1024,1024,6) and (32,1024,1024,6):
+// one launch whose last CTA per row strip, column strip and batch entry
+// sums the partials (a ticket each; the tail alone costs ~13 us), 8 x 8 or
+// 4 x 8 values a thread with the sums through shared memory (64-thread
+// CTAs, 8 to 16 warps an SM), g loaded before the distances, this layout
+// with the sums through shared memory in place of the shuffles, and this
+// kernel at 32- and 16-row tiles (more than one wave).
 
 #include <cuda_runtime.h>
 

@@ -50,6 +50,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "pareto": {
         "hebo_nsga2_rank_crowd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "hebo_nsga2_fits": [_I, _I],
+        "hebo_nsga2_route": [_I, _I],
+        "hebo_nsga2_grid_scratch": [_I, _I],
+        "hebo_nsga2_rank_crowd_grid": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P],
     },
 }
 

@@ -11,14 +11,21 @@ objectives in order.
 ``pareto_mask`` (:144) and ``hypervolume_mc`` (:156), which GeneralBO's
 EHVI selection uses, are plain PyTorch on every device.
 
-On the card, rank and crowding come from kernel K5 (``csrc/pareto.cu``,
-``nsga2_rank_crowd``), which peels every front on the device as the JAX
-``while_loop`` does (:55-77), with no host sync; ``nsga2_select`` takes from
-the same launch the NSGA-II key (``nsga2_key``, :130-141) and the survivors'
-order (a stable argsort of the key), so an NSGA-II generation sorts
-nothing.  On the CPU the plain version peels with a host test made once
-every ``_PEEL_CHUNK`` peels (extra peels past the last front change
-nothing).
+On the card, rank and crowding come from kernel K5 (``csrc/pareto.cu``),
+which peels every front on the device as the JAX ``while_loop`` does
+(:55-77), with no host sync; ``nsga2_select`` takes from the same call the
+NSGA-II key (``nsga2_key``, :130-141) and the survivors' order (a stable
+argsort of the key), so an NSGA-II generation sorts nothing.  K5 has two
+routes, chosen by shape (``route``): one CTA with everything in shared
+memory (``nsga2_rank_crowd``, one launch) where it fits (``fits``: up to
+~1,250 rows at M ≥ 2, 4,096 at M = 1), and a grid route past it, up to
+``GRID_MAX_ROWS`` rows (``_launch_grid``: the domination bitset in device
+memory, a peel by dominator counts, counting passes over a grid; a fixed
+4-6 launches, scratch from the caching allocator, counted in
+``nsga2_rank_crowd.grid_launches``), so NSGA-II's
+survival at 2·pop rows runs on the card at any pop up to 16,384.  On the
+CPU the plain version peels with a host test made once every
+``_PEEL_CHUNK`` peels (extra peels past the last front change nothing).
 """
 
 from __future__ import annotations
@@ -31,9 +38,10 @@ from . import native
 
 __all__ = ["domination_matrix", "nondominated_rank", "crowding_distance", "nsga2_key",
            "nsga2_rank_crowd", "nsga2_rank_crowd_plain", "nsga2_select", "nsga2_select_plain",
-           "fits", "pareto_mask", "hypervolume_mc"]
+           "fits", "route", "GRID_MAX_ROWS", "pareto_mask", "hypervolume_mc"]
 
 _PEEL_CHUNK = 4
+GRID_MAX_ROWS = 32768  # the grid route's limit (csrc/pareto.cu kGridNMax)
 
 
 def domination_matrix(F: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -131,8 +139,9 @@ def nsga2_rank_crowd_plain(F: torch.Tensor, valid: torch.Tensor | None = None):
 
 def nsga2_rank_crowd(F: torch.Tensor, valid: torch.Tensor | None = None):
     """(rank (P,) int32, crowding (P,) float32) of F (P, M): kernel K5 on a
-    CUDA tensor, one launch; ``nondominated_rank`` and ``crowding_distance``
-    on a CPU tensor.  ``valid`` (P,) bool marks the rows that take part."""
+    CUDA tensor (its route by ``route``); ``nondominated_rank`` and
+    ``crowding_distance`` on a CPU tensor.  ``valid`` (P,) bool marks the
+    rows that take part."""
     if F.device.type == "cpu":
         return nsga2_rank_crowd_plain(F, valid)
     return _launch(F, valid, None, False)[:2]
@@ -152,7 +161,7 @@ def nsga2_select(F: torch.Tensor, n_keep: int | None = None, valid: torch.Tensor
     order (n_keep,) int64 or None) of F (P, M): the key is ``nsga2_key`` of
     the rank and crowding, the order ``torch.argsort(key, stable=True)``'s
     first ``n_keep`` (None without ``n_keep``).  Kernel K5 on a CUDA
-    tensor, one launch and no sort; the plain version on a CPU tensor."""
+    tensor, no sort and no host read; the plain version on a CPU tensor."""
     if F.device.type == "cpu":
         return nsga2_select_plain(F, n_keep, valid)
     return _launch(F, valid, n_keep, True)
@@ -160,10 +169,23 @@ def nsga2_select(F: torch.Tensor, n_keep: int | None = None, valid: torch.Tensor
 
 @functools.lru_cache(maxsize=None)
 def fits(P: int, M: int) -> bool:
-    """Whether kernel K5 takes F (P, M): its shared memory fits one CTA and
-    its keys stay exact in float32 (``csrc/pareto.cu::hebo_nsga2_fits``;
+    """Whether K5's one-CTA route takes F (P, M): its shared memory fits one
+    CTA and its keys stay exact in float32 (``csrc/pareto.cu::hebo_nsga2_fits``;
     builds the kernel)."""
     return bool(native.load("pareto").hebo_nsga2_fits(P, M))
+
+
+@functools.lru_cache(maxsize=None)
+def route(P: int, M: int) -> str | None:
+    """K5's route for F (P, M): "cta" where ``fits``, "grid" past it up to
+    ``GRID_MAX_ROWS`` rows, None beyond (``csrc/pareto.cu::hebo_nsga2_route``;
+    builds the kernel)."""
+    return {0: "cta", 1: "grid"}.get(native.load("pareto").hebo_nsga2_route(P, M))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_scratch_bytes(P: int, M: int) -> int:
+    return native.load("pareto").hebo_nsga2_grid_scratch(P, M)
 
 
 def _launch(F, valid, n_keep, with_key):
@@ -171,9 +193,10 @@ def _launch(F, valid, n_keep, with_key):
     if F.dim() != 2:
         raise ValueError(f"nsga2_rank_crowd: expected F (P, M), got {tuple(F.shape)}")
     P, M = F.shape
-    if not fits(P, M):
-        raise ValueError(f"nsga2_rank_crowd: P = {P}, M = {M}: more shared memory than one SM "
-                         "has, or keys rank * P + ordinal past 2^24 (P > 4096)")
+    if P > GRID_MAX_ROWS or M < 1:
+        raise ValueError(f"nsga2_rank_crowd: P = {P}, M = {M}: K5 takes at most {GRID_MAX_ROWS} "
+                         "rows and at least one objective")
+    how = route(P, M)
     if valid is not None:
         if valid.device != F.device or valid.dtype != torch.bool or valid.shape != (P,):
             raise ValueError("nsga2_rank_crowd: valid must be a (P,) bool tensor on F's device")
@@ -185,18 +208,31 @@ def _launch(F, valid, n_keep, with_key):
     order = None
     if with_key and n_keep is not None:
         order = torch.empty(min(n_keep, P), dtype=torch.int64, device=dev)
-    lib = native.load("pareto")
-    err = native.call(lib.hebo_nsga2_rank_crowd, dev, F.data_ptr(),
-                      None if valid is None else valid.data_ptr(), rank.data_ptr(),
-                      crowd.data_ptr(), None if key is None else key.data_ptr(),
-                      None if order is None else order.data_ptr(),
-                      0 if order is None else order.numel(), P, M)
-    native.check(err, "nsga2_rank_crowd")
+    args = (F.data_ptr(), None if valid is None else valid.data_ptr(), rank.data_ptr(),
+            crowd.data_ptr(), None if key is None else key.data_ptr(),
+            None if order is None else order.data_ptr(), 0 if order is None else order.numel())
+    if how == "cta":
+        native.check(native.call(native.load("pareto").hebo_nsga2_rank_crowd, dev, *args, P, M),
+                     "nsga2_rank_crowd")
+    else:
+        _launch_grid(args, P, M, dev)
+        nsga2_rank_crowd.grid_launches += 1
     nsga2_rank_crowd.launches += 1
     return rank, crowd, key, order
 
 
+def _launch_grid(args, P: int, M: int, dev) -> None:
+    """K5's grid route (``csrc/pareto.cu::hebo_nsga2_rank_crowd_grid``) on
+    ``_launch``'s pointers, its scratch from the caching allocator."""
+    scratch = torch.empty(_grid_scratch_bytes(P, M), dtype=torch.uint8, device=dev)
+    err = native.call(native.load("pareto").hebo_nsga2_rank_crowd_grid, dev, *args,
+                      scratch.data_ptr(), P, M)
+    native.check(err, "nsga2_rank_crowd (grid route)")
+
+
 nsga2_rank_crowd.launches = 0
+# the launches that took the grid route (each also counted in ``launches``)
+nsga2_rank_crowd.grid_launches = 0
 
 
 def nsga2_key(rank: torch.Tensor, crowd: torch.Tensor) -> torch.Tensor:

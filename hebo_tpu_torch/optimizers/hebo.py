@@ -57,7 +57,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import pandas as pd
@@ -410,8 +410,8 @@ class HEBO(AbstractOptimizer):
             g.inputs.copy_(g.staging, non_blocking=True)
             _fill(g.draws, gen, self.pop)
         g.graphs.replay()
-        for w, n in g.graphs.tally.items():
-            w.launches += n
+        for (w, f), n in g.graphs.tally.items():
+            setattr(w, f, getattr(w, f) + n)
         return g.out, g.state
 
     def _capture(self, n_pad, meta, host, gen) -> "_SuggestGraph":
@@ -517,24 +517,24 @@ class _Segments:
     graph, or, where the program calls ``loop(step, n)``, the part before
     the loop, the step (captured once, replayed n times) and the part after
     it.  Replays run in capture order, so a block that a later graph reuses
-    is dead by then.  ``tally``: each wrapper's launches per replay of the
-    chain."""
+    is dead by then.  ``tally``: each wrapper's launch counts per replay of
+    the chain, by (wrapper, count)."""
 
     def __init__(self):
         self.pool = torch.cuda.graph_pool_handle()
         self.parts = []  # (graph, replays)
-        self.tally: Dict[Callable, int] = {}
+        self.tally: Dict[Tuple[Callable, str], int] = {}
 
     def begin(self):
         self._graph = torch.cuda.CUDAGraph()
-        self._before = {w: w.launches for w in COUNTED}
+        self._before = _counts()
         self._graph.capture_begin(pool=self.pool)
 
     def end(self, replays: int = 1):
         self._graph.capture_end()
-        for w, n in self._before.items():
-            self.tally[w] = self.tally.get(w, 0) + (w.launches - n) * replays
-            w.launches = n
+        for (w, f), n in self._before.items():
+            self.tally[w, f] = self.tally.get((w, f), 0) + (getattr(w, f) - n) * replays
+            setattr(w, f, n)
         self.parts.append((self._graph, replays))
 
     def loop(self, step: Callable, n: int):
@@ -563,5 +563,11 @@ class _SuggestGraph(NamedTuple):
     state: tuple
 
 
-# the kernel wrappers of the suggest, whose ``.launches`` a replay advances
+# the kernel wrappers of the suggest, whose ``.launches`` (and K5's
+# ``.grid_launches``, past the one-CTA route's rows) a replay advances
 COUNTED = (matern32_gram, matern32_gram_vjp, chol_factor, chol_winv, nsga2_rank_crowd)
+
+
+def _counts() -> Dict[Tuple[Callable, str], int]:
+    return {(w, f): getattr(w, f) for w in COUNTED for f in ("launches", "grid_launches")
+            if hasattr(w, f)}

@@ -340,9 +340,17 @@ def test_chol_resident_api_on_card(cuda):
 def _pareto_inputs(P, M, edge, seed, device, chain=False):
     """F (P, M) on a coarse grid (ties in every objective) with duplicate
     rows and, with ``edge``, ±inf and NaN entries; with ``chain``, row i is
-    (r_i, ..., r_i) for a permutation r, so every point is its own front."""
+    (r_i, ..., r_i) for a permutation r, so every point is its own front;
+    with ``chain == "tail"`` (M = 2) the chain's last 100 points form one
+    front on a line, crowded unevenly."""
     rng = np.random.default_rng(seed)
-    if chain:
+    if chain == "tail":
+        n = P - 100
+        t = rng.uniform(0, 100, 100)
+        F = np.concatenate([np.repeat(rng.permutation(n)[:, None], 2, 1),
+                            np.stack([n + t, n + 100 - t], 1)])[rng.permutation(P)]
+        F = F.astype(np.float32)
+    elif chain:
         F = np.repeat(rng.permutation(P).astype(np.float32)[:, None], M, 1)
     else:
         F = (rng.integers(0, 4 if edge else 1000, (P, M)) / 4).astype(np.float32)
@@ -417,6 +425,63 @@ def test_pareto_kernel_on_card(cuda, P, M, chain, edge, masked):
         cpu = pareto.nsga2_select(F.cpu(), n_keep, None if valid is None else valid.cpu())
         assert torch.equal(got[2].cpu(), cpu[2]) and torch.equal(got[3].cpu(), cpu[3])
     assert pareto.nsga2_select(F, None, valid)[3] is None
+
+
+# K5's grid route (P past the one-CTA route): (P, M, chain, edge, masked)
+_GRID_CASES = [(1249, 3, False, True, False), (1260, 2, False, True, True),
+               (1250, 4, False, False, True), (1400, 3, False, True, True),
+               (4096, 3, False, False, False), (4200, 1, False, True, True),
+               (4200, 2, True, False, False), (4200, 2, "tail", False, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P, M, chain, edge, masked", _GRID_CASES)
+def test_pareto_grid_route_on_card(cuda, P, M, chain, edge, masked):
+    """K5's grid route against its plain version on the card: survival at
+    MACE's pop 625 and 700, ZDT1's 630, BNH's 625, pop 2,048 at M = 3 and
+    BO's M = 1 at pop 2,100, ties, ±inf and NaN objectives, invalid rows, a
+    chain of 4,200 fronts and one with a crowded last front, whose keys pass
+    2^24 and tie after rounding (so survival orders them by index, not by
+    ordinal).  The rank, the crowding's bits, the key and every survivor's
+    place, each call one launch of the wrapper, counted also as a grid-route launch."""
+    from hebo_tpu_torch.ops import pareto
+
+    assert pareto.route(P, M) == "grid" and not pareto.fits(P, M)
+    F = _pareto_inputs(P, M, edge, P + edge, cuda, chain)
+    valid = None
+    if masked:
+        valid = torch.as_tensor(np.random.default_rng(P).uniform(size=P) > 0.25, device=cuda)
+    n0, g0 = pareto.nsga2_rank_crowd.launches, pareto.nsga2_rank_crowd.grid_launches
+    rank, crowd = pareto.nsga2_rank_crowd(F, valid)
+    assert (pareto.nsga2_rank_crowd.launches, pareto.nsga2_rank_crowd.grid_launches) == (n0 + 1, g0 + 1)
+    want = pareto.nsga2_select_plain(F, P, valid)
+    assert torch.equal(rank, want[0]) and _same_bits(crowd, want[1])
+    got = pareto.nsga2_select(F, P, valid)
+    assert pareto.nsga2_rank_crowd.grid_launches == g0 + 2
+    assert torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert torch.equal(pareto.nsga2_select(F, P // 2, valid)[3], want[3][:P // 2])
+    if chain == "tail":  # the rounded keys tie: survival's order is not (rank, ordinal)'s
+        keys = want[2].sort().values
+        assert float(keys[-1]) > 2 ** 24 and bool((keys[1:] == keys[:-1]).any())
+        c = torch.where(torch.isnan(want[1]), -float("inf"), want[1])
+        ordinal = torch.argsort(torch.argsort(-c, stable=True), stable=True)
+        assert not torch.equal(want[3], torch.argsort(want[0].long() * P + ordinal, stable=True))
+    elif chain and not masked:
+        assert int(rank.max()) == P - 1
+
+
+@pytest.mark.gpu
+def test_pareto_route_past_its_limit_raises(cuda):
+    """Up to ``GRID_MAX_ROWS`` rows K5 has a route; past it the wrapper
+    raises, naming the limit, and launches nothing."""
+    from hebo_tpu_torch.ops import pareto
+
+    assert pareto.route(pareto.GRID_MAX_ROWS, 4) == "grid"
+    n0 = pareto.nsga2_rank_crowd.launches
+    with pytest.raises(ValueError, match=f"at most {pareto.GRID_MAX_ROWS} rows"):
+        pareto.nsga2_select(torch.zeros((pareto.GRID_MAX_ROWS + 1, 3), device=cuda), 10)
+    assert pareto.nsga2_rank_crowd.launches == n0
 
 
 @pytest.mark.gpu
@@ -710,6 +775,74 @@ def test_hebo_graph_suggest_equals_eager_and_never_syncs(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out).all()
     assert all(w.launches > counts[w] for w in COUNTED)
+
+
+@pytest.mark.gpu
+def test_hebo_pop_700_graph_suggest_on_card(cuda):
+    """``HEBO(space, pop=700)``: survival ranks 1,400 rows, past K5's one-CTA
+    route, so each generation's survival takes the grid route inside the
+    fused graph.  A suggest(8) through the captured graph, whose replay adds
+    100 grid launches, equals the eager CUDA path's at the same seed, and is
+    finite, in the box and of the asked size."""
+    from hebo_tpu_torch import HEBO, DesignSpace
+    from hebo_tpu_torch.ops import pareto
+
+    space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                         for i in range(6)])
+    opt = HEBO(space, pop=700, device="cuda")
+    warm = space.inverse_transform(space.sobol_sample_opt(112, seed=1))
+    opt.observe(warm, _ackley(warm))
+    rec_g = opt.suggest(8)  # captures bucket 128
+    assert [k[0] for k in opt._graphs] == [128]
+    g0 = pareto.nsga2_rank_crowd.grid_launches
+    assert opt.suggest(8).equals(rec_g)
+    assert pareto.nsga2_rank_crowd.grid_launches == g0 + opt.iters
+    opt._use_graphs = False
+    pd_rec = opt.suggest(8)
+    opt._use_graphs = True
+    assert pd_rec.equals(rec_g)
+    X = space.transform(rec_g)
+    assert X.shape == (8, 6) and np.isfinite(X).all()
+    assert (X >= space.opt_lb).all() and (X <= space.opt_ub).all()
+
+
+def _zdt1(df):
+    X = df[[f"x{i}" for i in range(30)]].values.astype(float)
+    g = 1.0 + 9.0 * X[:, 1:].sum(1) / 29.0
+    return np.stack([X[:, 0], g * (1.0 - np.sqrt(X[:, 0] / g))], 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["general_bo_zdt1_pop_640", "bo_single_objective_pop_2100"])
+def test_large_population_suggest_on_card(cuda, case):
+    """``GeneralBO`` on ZDT1 (M = 2) at pop 640 (survival at 1,280 rows) and
+    ``BO`` at M = 1 at pop 2,100 (4,200 rows): one model suggest each, on
+    K5's grid route, gives valid, new points of the asked size."""
+    from hebo_tpu_torch import DesignSpace
+    from hebo_tpu_torch.ops import pareto
+    from hebo_tpu_torch.optimizers import BO, GeneralBO
+
+    if case.startswith("general"):
+        space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": 0.0, "ub": 1.0}
+                             for i in range(30)])
+        opt = GeneralBO(space, num_obj=2, pop=640, iters=10, model_config={"num_epochs": 8},
+                        device="cuda")
+        f, n, warm = _zdt1, 4, 40
+    else:
+        space = DesignSpace([{"name": f"x{i}", "type": "num", "lb": -32.768, "ub": 32.768}
+                             for i in range(6)])
+        opt = BO(space, pop=2100, iters=10, device="cuda")
+        f, n, warm = _ackley, 1, 20
+    X0 = space.inverse_transform(space.sobol_sample_opt(warm, seed=1))
+    opt.observe(X0, f(X0))
+    g0 = pareto.nsga2_rank_crowd.grid_launches
+    rec = opt.suggest(n)
+    assert pareto.nsga2_rank_crowd.grid_launches >= g0 + 10
+    X = space.transform(rec)
+    assert X.shape == (n, space.num_cols) and np.isfinite(X).all()
+    assert (X >= space.opt_lb).all() and (X <= space.opt_ub).all()
+    seen = {tuple(r) for r in space.transform(X0)}
+    assert len({tuple(r) for r in X} - seen) == n
 
 
 def _gp_2048(cuda):

@@ -5,7 +5,8 @@ on the CPU, at exact equality.
 NSGA-II ranks P = 100 points for the tournament and 2P = 200 for survival,
 over MACE's M = 3 objectives; GeneralBO has M = 2 (ZDT1) and M = 4 (BNH:
 2 objectives + 2 constraints), and BO, Evolution, MCBO's GA and the latent
-loops a single objective at P 32-200.  The inputs hold ties (a few levels
+loops a single objective at P 32-200.  Survival at pop 630-700 ranks
+1,260-1,400 rows, which the card takes on K5's grid route.  The inputs hold ties (a few levels
 per objective), duplicate rows, ±inf and NaN objectives (−log EI can be
 inf), chains of P fronts and, for the rank, invalid rows.  The rank must be
 equal, the crowding equal bit for bit (NaN where NaN), and so the NSGA-II
@@ -105,9 +106,15 @@ def _cases(kinds):
 _KINDS = [(3, False), (1000, False), (4, True), (1000, True)]
 
 
+# survival at pop 700 (MACE) and 650 (ZDT1), past the one-CTA route of
+# kernel K5 on the card, on 8 tied levels with the edge values
+_LARGE = [pytest.param(1400, 3, 8, True, id="M3-8-True-1400"),
+          pytest.param(1300, 2, 8, True, id="M2-8-True-1300")]
+
+
 @pytest.mark.parametrize("P,M,levels,edge",
                          _cases(_KINDS) + [pytest.param(P, 2, None, e, id=f"M2-chain-{e}-{P}")
-                                           for P in (32, 200) for e in (False, True)])
+                                           for P in (32, 200) for e in (False, True)] + _LARGE)
 def test_rank_and_crowding_equal_hebo_tpu(P, M, levels, edge):
     F = _objectives(P, M, levels, edge, seed=P + (levels or 0))
     rj, cj, kj = _assert_select_equals_jax(F, None, P // 2)
@@ -123,7 +130,8 @@ def test_rank_and_crowding_equal_hebo_tpu(P, M, levels, edge):
 
 
 @pytest.mark.parametrize("P,M", [pytest.param(P, M, id=str(P) if M == 3 else f"M{M}-{P}")
-                                 for M in (1, 2, 3, 4) for P in (32, 100, 200)])
+                                 for M in (1, 2, 3, 4) for P in (32, 100, 200, 1260)
+                                 if P < 1260 or M == 3])
 def test_rank_with_invalid_rows_equals_hebo_tpu(P, M):
     F = _objectives(P, M, 5, True, seed=P)
     valid = np.random.default_rng(P).uniform(size=P) > 0.25
