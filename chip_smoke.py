@@ -24,7 +24,12 @@
    K1 runs at every shape of the main paths and prints library_ms / ms,
    each K1a row with the route it takes (``ops/chol_kernel.route``: "step",
    a launch per panel, or "flow", the persistent left-looking launch, from
-   8 tiles) and with the same bits from a second call;
+   8 tiles) and with the same bits from a second call; at each flow-route
+   shape also the fused call (``chol_factor_inv``: L, Wd and W in one
+   launch pair) against the plain versions, its bits against chol_factor
+   then chol_winv (W = chol_winv of its own L and Wd, bit for bit), the
+   same bits twice and alone = in a batch, beside cholesky_ex +
+   solve_triangular;
    with the jitter ladder's arguments (jitter on the diagonal, a skipped
    matrix that keeps its outputs) against its plain version, the ladder
    (every rung launched) against the host-decided ladder at the fit's
@@ -57,8 +62,8 @@
        the capturing suggest, then 3 timed suggests on the graph path and
        3 on the eager CUDA path, with walls and launches per suggest; each
        suggest after the capture must add exactly 50 K2 VJP, 200 K5 and
-       107 + 107 K1 launches (51 NLL ladders of 2 rungs and the cache's 5,
-       every rung launched).  In (a) and (b) one more suggest on the graph
+       107 K1 launches, each one fused call (51 NLL ladders of 2 rungs and
+       the cache's 5, every rung launched), and no launch of the pair.  In (a) and (b) one more suggest on the graph
        path runs under torch.profiler: its device time, K5's device ms and
        the sort kernels' (fewer sort launches than generations, as NSGA-II
        takes its keys and survivors' order from K5).
@@ -91,8 +96,8 @@
         be finite, in the box and new against the history; the cache
         ``ok`` with a CG residual below 0.2; no fused graph used; and each
         suggest must launch exactly 155 K2, 50 K2 VJP, 200 K5 and
-        103 + 103 K1 (51 NLL ladders of 2 rungs, and the CG cache's k×k
-        Woodbury factor);
+        102 fused K1 calls (51 NLL ladders of 2 rungs at bucket 2048) and
+        1 + 1 K1a, K1b (the CG cache's k×k Woodbury factor);
    (e2) CG against the dense K1 route on the card at N = 2048 (tests/test_cg.py's
         setup: max_cholesky_size 1024, cg_rank 96, cg_iters 128, the same
         fitted samples): posterior means within rtol / atol 2e-2 and
@@ -220,7 +225,7 @@
    (m1) ``HEBO(mesh=...)`` at its defaults on Ackley-6D, 800 warm Sobol
         observations (bucket 1024), 3 × suggest(8) on the eager mesh route
         (2 restarts a rank, islands of pop / world with migration every 10
-        generations): each suggest exactly 107 / 107 K1, 50 VJP, 200 K5 and
+        generations): each suggest exactly 107 fused K1 calls, 50 VJP, 200 K5 and
         164 K2 launches; finite, in the box, new; the best beats the init;
    (m2) ``GP(mesh=...)`` at 3000 observations (bucket 3072): the fit's
         block-sharded factor (block 128, exactly 24 K1a launches) and its W
@@ -434,9 +439,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def whole_launches(torch, fn, reps, key="chol_", tries=3):
+    """{device kernel name holding ``key``: launches per call of ``fn``}.
+    The profiler drops events now and then, at times most of a kernel's
+    (0.12 launches a call seen for a one-launch kernel), and never adds
+    one: so each kernel's count is the most that ``tries`` profiles saw,
+    rounded to a whole number."""
+    from hebo_tpu_torch.bench.gram_probe import device_by_name
+
+    most = {}
+    for _ in range(tries):
+        for k, (_, n) in device_by_name(torch, fn, reps).items():
+            if key in k:
+                most[k] = max(most.get(k, 0.0), n)
+    return {k: round(n) for k, n in most.items()}
+
+
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def k1_expect(rungs, n):
+    """Each K1 wrapper's launches for ``rungs`` ladder rungs at matrices of
+    size n: one fused ``chol_factor_inv`` call a rung where K1a takes its
+    flow route (from 8 tiles), else ``chol_factor`` then ``chol_winv``
+    (None: no launch)."""
+    from hebo_tpu_torch.ops import chol_kernel as ck
+
+    fused = ck.route(n) == "flow"
+    return {"chol_factor": None if fused else rungs, "chol_winv": None if fused else rungs,
+            "chol_factor_inv": rungs if fused else None}
+
+
+def launched(counts, k):
+    """Launches of kernel k in ``counts`` (a {wrapper: launches} dict), where
+    K1a's and K1b's also count the fused K1 call, which runs both."""
+    n = counts.get(k) or 0
+    if k in ("chol_factor", "chol_winv"):
+        n += counts.get("chol_factor_inv") or 0
+    return n
 
 
 def check_gram(torch, gram, device_per_call, dev, gen, fails):
@@ -557,7 +599,7 @@ def check_chol(torch, ck, dev, gen, fails):
     from 2) and holds the same bits from a second call.
     Host dispatch is part of the time at the small shapes, for the kernels
     and the library call alike, so those get more calls per timing."""
-    fac, winv = [], []
+    fac, winv, fused = [], [], []
     for B, N in [(1, 32), (1, 128), (2, 128), (1, 256), (1, 1024), (2, 1024), (1, 5051), (2, 2048),
                  (4, 1024), (32, 1024), (1, 512), (4, 128), (24, 256), (16, 32), (1, 64),
                  (1, 3072), (1, 16), (1, 8), (2, 8), (2, 64), (2, 512), (1, 768), (2, 768), (1, 1536),
@@ -594,6 +636,35 @@ def check_chol(torch, ck, dev, gen, fails):
                              library_over_ms=library_ms / ms,
                              **({"route": ck.route(N), "same_bits": same} if rows is fac else
                                 {"route": ck.winv_route(N), "same_bits": same_w})))
+        if ck.route(N) == "flow":
+            fused.append(check_fused(torch, ck, K, L, Wd, W, reps, fails))
+    # the fused call: a late-tile failure at N 1100 beside a −I member
+    A = torch.randn((3, 1100, 1100), generator=gen, device=dev)
+    Kf = (A @ A.transpose(1, 2) / 1100 + 0.5 * torch.eye(1100, device=dev)).contiguous()
+    Kf[0] = -torch.eye(1100, device=dev)
+    Kf[1, :1044, 1044:] = 0.0
+    Kf[1, 1044:, :1044] = 0.0
+    Kf[1, 1044:, 1044:] = -torch.eye(56, device=dev)
+    Lf, Wdf, Wf = ck.chol_factor_inv(Kf)
+    alone = ck.chol_factor_inv(Kf[2:3].contiguous())
+    fused_nan = (all(not torch.isfinite(x[b]).all().item() for x in (Lf, Wf) for b in (0, 1))
+                 and torch.isfinite(Lf[1, :1024]).all().item() and torch.isfinite(Wf[1, :1024]).all().item()
+                 and all(torch.equal(x[2], y[0]) for x, y in zip((Lf, Wdf, Wf), alone)))
+    # ... and the ladder's arguments: a skipped member keeps its buffers, the
+    # others the bits of K + jitter·I in a call of their own
+    Kf = spd(torch, 3, 1100, dev, gen)
+    out = tuple(torch.full_like(x, 7.0) for x in (Lf, Wdf, Wf))
+    jit = torch.tensor([1e-3, 0.5, 0.25], device=dev)
+    ck.chol_factor_inv(Kf, jit, torch.tensor([0, 1, 0], dtype=torch.int32, device=dev), out=out)
+    fused_skip = all(bool((x[1] == 7).all()) for x in out) and all(
+        all(torch.equal(x[b], y[0]) for x, y in zip(out, ck.chol_factor_inv(
+            (Kf[b:b + 1] + jit[b] * torch.eye(1100, device=dev)).contiguous())))
+        for b in (0, 2))
+    print(f"chol_factor_inv NaN (3, 1100): −I member and a bad pivot in the last tile stay in their "
+          f"matrices, the third member = alone: {fused_nan}; skip keeps out, jitter = alone: {fused_skip}",
+          flush=True)
+    if not (fused_nan and fused_skip):
+        fails.append(f"chol_factor_inv (3, 1100): NaN stays {fused_nan}, skip and jitter {fused_skip}")
     # NaN propagation: one non-PSD member, its neighbours untouched
     K[0] = -torch.eye(K.shape[-1], device=dev)
     L, W = ck.chol_inv(K)
@@ -620,11 +691,52 @@ def check_chol(torch, ck, dev, gen, fails):
         fails.append("chol NaN propagation")
     if not all(late_ok.values()):
         fails.append(f"chol NaN propagation from a late tile: {late_ok}")
-    for name, rows in (("chol_factor vs cholesky_ex", fac), ("chol_winv vs solve_triangular", winv)):
+    for name, rows in (("chol_factor vs cholesky_ex", fac), ("chol_winv vs solve_triangular", winv),
+                       ("chol_factor_inv vs cholesky_ex + solve_triangular", fused)):
         print(f"{name}, library_ms / ms:",
               ", ".join(f"{tuple(r['shape'])} {r['library_over_ms']:.2f} {r['route']}" for r in rows),
               flush=True)
-    return fac, winv
+    return fac, winv, fused
+
+
+def check_fused(torch, ck, K, L, Wd, W, reps, fails):
+    """The fused call (L, Wd and W in one launch pair) at a flow-route
+    shape, given the pair's (L, Wd, W) on the same K: the pair's bits, W =
+    chol_winv of its own L and Wd bit for bit, the same bits twice, a batch
+    member's bits equal to its own call's, the plain versions' tolerances;
+    ms, device µs and launches per call, plain ms (K1a's then K1b's plain
+    version), library ms (cholesky_ex then solve_triangular), bound (K1a's
+    + K1b's operations, or the bytes of K, L, Wd and W)."""
+    from hebo_tpu_torch.bench.gram_probe import device_per_call
+
+    B, N, _ = K.shape
+    Lf, Wdf, Wf = ck.chol_factor_inv(K)
+    twice = all(torch.equal(a, b) for a, b in zip((Lf, Wdf, Wf), ck.chol_factor_inv(K)))
+    pair = all(torch.equal(a, b) for a, b in zip((Lf, Wdf, Wf), (L, Wd, W)))
+    w_of_l = bool(torch.equal(Wf, ck.chol_winv(Lf, Wdf)))
+    alone = ck.chol_factor_inv(K[-1:].contiguous())
+    batch = all(torch.equal(a[-1], b[0]) for a, b in zip((Lf, Wdf, Wf), alone))
+    L0, Wd0 = ck.chol_factor_plain(K)
+    W0 = ck.chol_winv_plain(L0, Wd0)
+    err = max((Lf - L0).abs().max().item(), (Wdf - Wd0).abs().max().item())
+    err_w = (Wf - W0).abs().max().item()
+    if not (err <= L_TOL and err_w <= W_TOL and twice and pair and w_of_l and batch):
+        fails.append(f"chol_factor_inv {(B, N)}: errors L/Wd {err}, W {err_w}, same bits twice {twice}, "
+                     f"= the pair {pair}, W = chol_winv(L, Wd) {w_of_l}, alone = in the batch {batch}")
+    Np = L.shape[-1]
+    eye = torch.eye(Np, device=K.device).expand_as(L)
+    bms, by = bound(2 * B * N ** 3 / 3, 4 * (B * N * N + 2 * B * Np * Np + Wd.numel()))
+    fn = lambda: ck.chol_factor_inv(K)
+    us, launches = device_per_call(torch, fn, 10 if N > 2048 else 50, "chol_")
+    ms = cuda_ms(torch, fn, reps)
+    library_ms = cuda_ms(torch, lambda: torch.linalg.solve_triangular(
+        torch.linalg.cholesky_ex(K)[0], torch.eye(N, device=K.device).expand_as(K), upper=False), reps)
+    return dict(shape=[B, N], max_abs_err=max(err, err_w), max_abs_err_L=err, max_abs_err_W=err_w, ms=ms,
+                device_us=us, device_launches_per_call=launches,
+                plain_ms=cuda_ms(torch, lambda: ck.chol_winv_plain(*ck.chol_factor_plain(K)), reps),
+                bound_ms=bms, bound_by=by, library_ms=library_ms, library_over_ms=library_ms / ms,
+                route="fused", same_bits=twice, same_as_pair=pair, w_equals_winv_of_l=w_of_l,
+                alone_equals_batch=batch)
 
 
 def ssk_flops(s1, s2, B, P, self_mode):
@@ -840,8 +952,10 @@ def check_ladder(torch, ck, dev, gen, fails):
     plain version at (3, 256); the ladder at the fit's shape (2, 1024), one
     member first factoring at rung 2, against the ladder that forms
     K + jitter·I first and decides its retries on the host, bit for bit;
-    the time of a rung that every matrix skips (its launch floors), and a
-    skipped K1b call's device launches and µs at (2, 1024) and (1, 5051)."""
+    the time of a rung that every matrix skips (its launch floors: the
+    fused call, as the ladder runs it from 8 tiles), and a skipped K1b
+    call's and a skipped fused call's device launches and µs at (2, 1024)
+    and (1, 5051)."""
     from hebo_tpu_torch.bench.gram_probe import device_per_call
     from hebo_tpu_torch.ops import chol as tchol
 
@@ -898,27 +1012,42 @@ def check_ladder(torch, ck, dev, gen, fails):
     Wp = ck.chol_winv(Lp, Wdp)
     all_skip = torch.ones(2, dtype=torch.int32, device=dev)
     jit = torch.zeros(2, device=dev)
-    skipped_ms = cuda_ms(torch, lambda: (ck.chol_factor(K, jit, all_skip, out=(Lp, Wdp)),
-                                         ck.chol_winv(Lp, Wdp, all_skip, out=Wp)), 200)
-    print(f"chol skipped rung (2, 1024): {skipped_ms:.4f} ms per chol_factor + chol_winv pair "
-          f"(K1a route {ck.route(N)}, K1b route {ck.winv_route(N)}: launches whose CTAs return at once)",
-          flush=True)
+    skipped_ms = cuda_ms(torch, lambda: ck.factor_inv(K, jit, all_skip, out=(Lp, Wdp, Wp)), 200)
+    print(f"chol skipped rung (2, 1024): {skipped_ms:.4f} ms per K1 call of the ladder (the fused "
+          f"call, K1a route {ck.route(N)}: launches whose CTAs return at once)", flush=True)
     skipped_winv = {"2x1024": device_per_call(torch, lambda: ck.chol_winv(Lp, Wdp, all_skip, out=Wp), 50,
                                               "winv")}
+    skipped_fused = {"2x1024": device_per_call(
+        torch, lambda: ck.chol_factor_inv(K, jit, all_skip, out=(Lp, Wdp, Wp)), 50, "chol_")}
     # BOCS's Gibbs sweep: a skipped K1a call at (1, 5051), and a skipped K1b call
-    K = spd(torch, 1, 5051, dev, gen)
+    K2, K = K, spd(torch, 1, 5051, dev, gen)
     Lb, Wdb = ck.chol_factor(K)
     Wb = ck.chol_winv(Lb, Wdb)
     one = torch.ones(1, dtype=torch.int32, device=dev)
-    skipped_5051 = cuda_ms(torch, lambda: ck.chol_factor(K, torch.zeros(1, device=dev), one, out=(Lb, Wdb)), 200)
-    print(f"chol skipped rung (1, 5051): {skipped_5051:.4f} ms per chol_factor, route {ck.route(5051)}",
-          flush=True)
+    zero = torch.zeros(1, device=dev)
+    skipped_5051 = cuda_ms(torch, lambda: ck.chol_factor_inv(K, zero, one, out=(Lb, Wdb, Wb)), 200)
+    print(f"chol skipped rung (1, 5051): {skipped_5051:.4f} ms per fused call (K1a route "
+          f"{ck.route(5051)})", flush=True)
     skipped_winv["1x5051"] = device_per_call(torch, lambda: ck.chol_winv(Lb, Wdb, one, out=Wb), 50, "winv")
-    for shape, (us, launches) in skipped_winv.items():
-        print(f"chol_winv skipped call {shape}: {launches:g} device launches, {us:.2f} device us "
-              f"(torch.profiler), route {ck.winv_route(int(shape.split('x')[1]))}", flush=True)
+    skipped_fused["1x5051"] = device_per_call(
+        torch, lambda: ck.chol_factor_inv(K, zero, one, out=(Lb, Wdb, Wb)), 50, "chol_")
+    for what, rows in (("chol_winv", skipped_winv), ("chol_factor_inv", skipped_fused)):
+        for shape, (us, launches) in rows.items():
+            print(f"{what} skipped call {shape}: {launches:g} device launches, {us:.2f} device us "
+                  f"(torch.profiler)", flush=True)
+    # the launches the check reads: each kernel's most per call over three
+    # profiles, rounded (the profiler drops events; see whole_launches)
+    launches_fused = {
+        "2x1024": whole_launches(torch, lambda: ck.chol_factor_inv(K2, jit, all_skip, out=(Lp, Wdp, Wp)), 50),
+        "1x5051": whole_launches(torch, lambda: ck.chol_factor_inv(K, zero, one, out=(Lb, Wdb, Wb)), 50)}
+    print(f"chol_factor_inv skipped call, kernels per call (most of 3 profiles): {launches_fused}",
+          flush=True)
+    if any(sum(c.values()) != 2 for c in launches_fused.values()):
+        fails.append(f"chol_factor_inv: a skipped call is not 2 launches: {launches_fused} "
+                     f"(as counted: {skipped_fused})")
     return dict(skipped_rung_ms=skipped_ms, skipped_rung_5051_ms=skipped_5051, ladder_same_bits=same,
-                skipped_winv={k: {"device_us": us, "launches": n} for k, (us, n) in skipped_winv.items()})
+                skipped_winv={k: {"device_us": us, "launches": n} for k, (us, n) in skipped_winv.items()},
+                skipped_fused={k: {"device_us": us, "launches": n} for k, (us, n) in skipped_fused.items()})
 
 
 def check_ptxas(logs, fails):
@@ -1056,7 +1185,7 @@ def run_phases(torch, HEBO, DesignSpace, wrappers, fails):
     # final loss) of 2 rungs and the cache's 5
     steps = opt.model_config["num_epochs"]
     expect = {"matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
-              "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5}
+              **k1_expect((steps + 1) * 2 + 5, 1024)}
     for path, use_graphs, n in (("graph", True, 4), ("eager", False, 3)):
         opt._use_graphs = use_graphs
         walls, launches = [], []
@@ -1140,13 +1269,14 @@ def large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails):
     warm = opt.quasi_sample(3000)
     opt.observe(warm, ackley(warm))
     steps = opt.model_config["num_epochs"]
-    # per suggest: the fit's 51 NLLs (2 K1 rungs each, a K2 forward; 50 VJPs),
-    # the CG cache's Gram and Woodbury factor (K1 at (1, 128)), the
-    # incumbent's predict, NSGA-II's 101 evaluations (2 K5 launches a
-    # generation) and the population's predict
+    # per suggest: the fit's 51 NLLs (2 K1 rungs each at bucket 2048, one
+    # fused call a rung, a K2 forward; 50 VJPs), the CG cache's Gram and
+    # Woodbury factor (K1a and K1b at (1, 128)), the incumbent's predict,
+    # NSGA-II's 101 evaluations (2 K5 launches a generation) and the
+    # population's predict
     expect = {"matern32_gram": (steps + 1) + 1 + 1 + (opt.iters + 1) + 1,
               "matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
-              "chol_factor": (steps + 1) * 2 + 1, "chol_winv": (steps + 1) * 2 + 1}
+              "chol_factor_inv": (steps + 1) * 2, "chol_factor": 1, "chol_winv": 1}
     walls, launches, res = [], [], []
     for i in range(4):
         before = {k: w.launches for k, w in wrappers.items()}
@@ -1247,13 +1377,13 @@ def large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails):
     opt4.observe(warm, ackley(warm))
     e4 = dict(s_per_suggest=[], k1_launches=[])
     for i in range(2):  # the capture, then a replay
-        before = wrappers["chol_factor"].launches
+        before = wrappers["chol_factor_inv"].launches
         hist = {tuple(np.round(r, 6)) for r in space.transform(opt4.X)}
         t0 = time.time()
         rec = opt4.suggest(8)
         torch.cuda.synchronize()
         e4["s_per_suggest"].append(time.time() - t0)
-        e4["k1_launches"].append(wrappers["chol_factor"].launches - before)
+        e4["k1_launches"].append(wrappers["chol_factor_inv"].launches - before)
         check_batch(space, rec, f"phase e4 @ {opt4.num_obs}", fails)
         keys = [tuple(np.round(r, 6)) for r in space.transform(rec)]
         if set(keys) & hist or len(set(keys[2:])) != len(keys[2:]):
@@ -1328,7 +1458,7 @@ def options_phase(torch, HEBO, DesignSpace, wrappers, fails):
     # 1 + 101 + 1 (fit, cache, incumbent, NSGA-II, population)
     expect = {"matern32_gram": (steps + 1) + 1 + 1 + (opt.iters + 1) + 1,
               "matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
-              "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5}
+              **k1_expect((steps + 1) * 2 + 5, 1024)}
     f = {}
     for path, use_graphs, n in (("graph", True, 4), ("eager", False, 3)):
         opt._use_graphs = use_graphs
@@ -1391,7 +1521,7 @@ def inference_phase(torch, HEBO, DesignSpace, wrappers, fails):
             want = "fused" if "inference" not in conf else "generic"
             if set(routes) != {want}:
                 fails.append(f"phase g {name}: routes {routes}, expected {want}")
-            if not all(r.get("chol_factor", 0) > 0 for r in row["launches_per_suggest"]):
+            if not all(launched(r, "chol_factor") > 0 for r in row["launches_per_suggest"]):
                 fails.append(f"phase g {name}: a suggest launched no K1")
             g[name] = row
     finally:
@@ -1438,19 +1568,20 @@ def thompson_phase(torch, DesignSpace, GP, ck, wrappers, fails):
     dev_ = np.abs(draws.mean(0) - mu)
     bound_ = 4 * np.sqrt(var + jit_raw) / math.sqrt(256)
     # K1 on the joint covariance against its plain version, at the first
-    # rung's jitter (1e-5 + 0·scale)
+    # rung's jitter (1e-5 + 0·scale), as the ladder calls it (the fused call)
     Kj = (cov + 1e-5 * torch.eye(cov.shape[-1], device=cov.device)).contiguous()
-    L, Wd = ck.chol_factor(Kj)
-    L0, Wd0 = ck.chol_factor_plain(Kj)
+    L, Wd, W = ck.factor_inv(Kj)
+    L0, Wd0, W0 = ck.chol_factor_inv_plain(Kj)
     err = max((L - L0).abs().max().item(), (Wd - Wd0).abs().max().item())
+    err_w = (W - W0).abs().max().item()
     h = dict(bucket=int(gp.data.X.shape[0]), queries=512, draws=256, cov_shape=list(cov.shape),
-             s_sample=wall, launches=launches, k1_vs_plain_max_abs_err=err,
+             s_sample=wall, launches=launches, k1_vs_plain_max_abs_err=err, k1_w_vs_plain_max_abs_err=err_w,
              max_mean_dev_over_bound=float((dev_ / bound_).max()), finite=bool(np.isfinite(draws).all()))
     print("phase h (GP.sample_f, 800 Ackley-6D obs, bucket 1024, 512 queries, 256 draws):",
           json.dumps(h), flush=True)
-    if list(cov.shape) != [1, 512, 512] or launches.get("chol_factor") != len(tchol.LADDER):
+    if list(cov.shape) != [1, 512, 512] or launches.get("chol_factor_inv") != len(tchol.LADDER):
         fails.append(f"phase h: the joint factor did not run K1's ladder at (1, 512): {h}")
-    if not (h["finite"] and h["max_mean_dev_over_bound"] <= 1.0 and err <= L_TOL):
+    if not (h["finite"] and h["max_mean_dev_over_bound"] <= 1.0 and err <= L_TOL and err_w <= W_TOL):
         fails.append(f"phase h: Thompson draws off: {h}")
     return h
 
@@ -1538,13 +1669,14 @@ class ShapeLog:
     open, by wrapping ``native.call``, through which every wrapper launches
     (the dims are its trailing arguments; each wrapper still counts its own
     launches): K2 and its VJP (B, N, M, D), K3 cross (B, N, M, L, P) and
-    self (B, N, L, P), K1a (B, n), K1b (B, padded n) and K5 (P, M), either
-    route."""
+    self (B, N, L, P), K1a (B, n), K1b (B, padded n), the fused K1 call
+    (B, n) and K5 (P, M), either route."""
 
     DIMS = {"hebo_matern32_gram": ("matern32_gram", -4, None),
             "hebo_matern32_gram_vjp": ("matern32_gram_vjp", -4, None),
             "hebo_ssk_cross": ("ssk_cross", -5, None), "hebo_ssk_self": ("ssk_self", -4, None),
             "hebo_chol_factor": ("chol_factor", -3, -1), "hebo_chol_winv": ("chol_winv", -2, None),
+            "hebo_chol_factor_inv": ("chol_factor_inv", -3, -1),
             "hebo_nsga2_rank_crowd": ("nsga2_rank_crowd", -2, None),
             "hebo_nsga2_rank_crowd_grid": ("nsga2_rank_crowd", -2, None)}
 
@@ -1679,7 +1811,7 @@ def mcbo_phase(torch, DesignSpace, wrappers, fails):
                           ("BODi", ("matern32_gram", "matern32_gram_vjp")),
                           ("CoCaBO", ("matern32_gram", "matern32_gram_vjp"))):
         for k in kernels + ("chol_factor", "chol_winv"):
-            if not all(r.get(k, 0) > 0 for r in rows[name]["launches_per_suggest"]):
+            if not all(launched(r, k) > 0 for r in rows[name]["launches_per_suggest"]):
                 fails.append(f"phase i {name}: a suggest launched no {k}")
     seen = {k: sorted(v) for k, v in shapes.seen.items()}
     print("phase i shapes launched:", json.dumps(seen), flush=True)
@@ -1689,7 +1821,8 @@ def mcbo_phase(torch, DesignSpace, wrappers, fails):
 def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
     """Every distinct shape at which a path launched a kernel, on random
     inputs, against the plain version at the tolerances of the timed
-    checks: K2 and its VJP, K1a and K1b on SPD matrices, K5 bit for bit on
+    checks: K2 and its VJP, K1a, K1b and the fused call on SPD matrices
+    (the fused call also bit for bit against K1a then K1b), K5 bit for bit on
     tied inputs (``pareto_agrees``), K3 on codes over 5 letters."""
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {}
@@ -1724,6 +1857,18 @@ def check_path_shapes(torch, gram, ssk, ck, pareto, shapes, dev, fails):
         errs[f"{name} {(B, N)}"] = e
         if not e <= tol:
             fails.append(f"{name} at the path's {(B, N)}: max abs err {e}")
+    for B, N in shapes.get("chol_factor_inv", ()):
+        K = spd(torch, B, N, dev, gen)
+        got = ck.chol_factor_inv(K)
+        L0, Wd0 = ck.chol_factor_plain(K)
+        W0 = ck.chol_winv_plain(L0, Wd0)
+        e = [(got[0] - L0).abs().max().item(), (got[1] - Wd0).abs().max().item(),
+             (got[2] - W0).abs().max().item()]
+        L, Wd = ck.chol_factor(K)
+        pair = torch.equal(got[0], L) and torch.equal(got[1], Wd) and torch.equal(got[2], ck.chol_winv(L, Wd))
+        errs[f"chol_factor_inv {(B, N)}"] = max(e)
+        if not (max(e[:2]) <= L_TOL and e[2] <= W_TOL and pair):
+            fails.append(f"chol_factor_inv at the path's {(B, N)}: max abs errs {e}, the pair's bits {pair}")
     for P, M in shapes["nsga2_rank_crowd"]:
         n = len(fails)
         pareto_agrees(torch, pareto, P, M, dev, fails, " at the path's shape")
@@ -2039,7 +2184,7 @@ def variants_phase(torch, HEBO, DesignSpace, wrappers, fails):
             if opt._graphs:
                 fails.append(f"phase k {name}: a suggest took the fused graph")
             for k in need[name]:
-                if not all(r.get(k, 0) > 0 for r in log["launches_per_suggest"]):
+                if not all(launched(r, k) > 0 for r in log["launches_per_suggest"]):
                     fails.append(f"phase k {name}: a suggest launched no {k}")
             print(f"phase k {name}:", json.dumps(rows[name]), flush=True)
         X = space.sobol_sample_opt(200, seed=2)
@@ -2234,7 +2379,7 @@ def mesh_phase(torch, HEBO, DesignSpace, GP, wrappers, fails, mesh):
             opt.observe(rec, ackley(rec))
         steps = opt.model_config["num_epochs"]
         expect = {"matern32_gram_vjp": steps, "nsga2_rank_crowd": 2 * opt.iters,
-                  "chol_factor": (steps + 1) * 2 + 5, "chol_winv": (steps + 1) * 2 + 5,
+                  **k1_expect((steps + 1) * 2 + 5, 1024),
                   "matern32_gram": steps + 4 + opt.iters + opt.iters // opt.migrate_every}
         for got in log["launches_per_suggest"]:
             for k, want in expect.items():
@@ -2306,7 +2451,7 @@ def mesh_phase(torch, HEBO, DesignSpace, GP, wrappers, fails, mesh):
         path_launches = {k: w.launches for k, w in wrappers.items()}
         path_seen = {k: set(v) for k, v in shapes.seen.items()}
 
-        if not (np.isfinite(losses).all() and moved > 0 and m4["launches"].get("chol_factor")):
+        if not (np.isfinite(losses).all() and moved > 0 and launched(m4["launches"], "chol_factor")):
             fails.append(f"phase m4: PPO's loss not finite, params unmoved or no K1 launch: {m4}")
 
         # m2's block factor and prediction against K1's dense ladder
@@ -3334,7 +3479,8 @@ def kernel_wrappers():
     from hebo_tpu_torch.ops import gram, pareto, ssk
 
     return {"matern32_gram": gram.matern32_gram, "matern32_gram_vjp": gram.matern32_gram_vjp,
-            "chol_factor": ck.chol_factor, "chol_winv": ck.chol_winv, "ssk_cross": ssk.ssk_cross,
+            "chol_factor": ck.chol_factor, "chol_winv": ck.chol_winv,
+            "chol_factor_inv": ck.chol_factor_inv, "ssk_cross": ssk.ssk_cross,
             "ssk_self": ssk.ssk_self, "nsga2_rank_crowd": pareto.nsga2_rank_crowd,
             "nsga2_rank_crowd_grid": GridLaunches(pareto.nsga2_rank_crowd)}
 
@@ -3372,13 +3518,13 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     g_rows = check_gram(torch, gram, device_per_call, dev, gen, fails)
     v_rows = check_gram_vjp(torch, gram, device_per_call, dev, gen, fails)
-    f_rows, w_rows = check_chol(torch, ck, dev, gen, fails)
+    f_rows, w_rows, fu_rows = check_chol(torch, ck, dev, gen, fails)
     ladder = check_ladder(torch, ck, dev, gen, fails)
     p_rows = check_pareto(torch, pareto, device_us, dev, fails)
     c_rows, s_rows = check_ssk(torch, ssk, device_us, dev, fails)
     check_chol_api(torch, ck, dev, gen, fails)
     for name, rows in (("matern32_gram", g_rows), ("matern32_gram_vjp", v_rows),
-                       ("chol_factor", f_rows), ("chol_winv", w_rows),
+                       ("chol_factor", f_rows), ("chol_winv", w_rows), ("chol_factor_inv", fu_rows),
                        ("ssk_cross", c_rows), ("ssk_self", s_rows), ("nsga2_rank_crowd", p_rows)):
         for r in rows:
             print(f"kernel {name}", json.dumps(r), flush=True)
@@ -3388,25 +3534,27 @@ def main() -> int:
 
     wrappers = kernel_wrappers()
     # each path is driven with every count at 0 and read just after
+    # (K1a's and K1b's counts take the fused call's too: it runs both; the
+    # paths whose buckets reach 8 tiles must launch the fused call itself)
     paths = {
         "hebo": (lambda: run_phases(torch, HEBO, DesignSpace, wrappers, fails),
-                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                   "nsga2_rank_crowd", "nsga2_rank_crowd_grid")),
         "antbo": (lambda: antbo_phases(torch, AntBOOptimizer, AbsolutTool, pad_bucket, fails),
                   ("ssk_cross", "ssk_self", "chol_factor", "chol_winv")),
         "hebo_large_n": (lambda: large_n_phases(torch, HEBO, DesignSpace, GP, wrappers, fails),
-                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                           "nsga2_rank_crowd")),
         "hebo_options": (lambda: options_phase(torch, HEBO, DesignSpace, wrappers, fails),
-                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                           "nsga2_rank_crowd")),
         "hebo_inference": (lambda: inference_phase(torch, HEBO, DesignSpace, wrappers, fails),
-                           ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                           ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                             "nsga2_rank_crowd")),
         "gp_thompson": (lambda: thompson_phase(torch, DesignSpace, GP, ck, wrappers, fails),
-                        ("matern32_gram", "chol_factor", "chol_winv")),
+                        ("matern32_gram", "chol_factor", "chol_winv", "chol_factor_inv")),
         "mcbo_presets": (lambda: mcbo.update(mcbo_phase(torch, DesignSpace, wrappers, fails)),
-                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                         ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                           "ssk_cross", "ssk_self", "nsga2_rank_crowd")),
         "optimizer_family": (lambda: family.update(family_phase(torch, DesignSpace, wrappers,
                                                                 fails)),
@@ -3420,7 +3568,7 @@ def main() -> int:
                                                                         wrappers, fails)),
                            ("chol_factor", "chol_winv", "nsga2_rank_crowd")),
         "mesh": (lambda: mesh.update(run_mesh(torch, HEBO, DesignSpace, GP, wrappers, fails)),
-                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
+                 ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv", "chol_factor_inv",
                   "nsga2_rank_crowd")),
         "latent": (lambda: latent.update(latent_phase(torch, DesignSpace, wrappers, fails)),
                    ("matern32_gram", "matern32_gram_vjp", "chol_factor", "chol_winv",
@@ -3453,14 +3601,14 @@ def main() -> int:
         print(f"main path {path}: {time.time() - t0:.1f} s, launches {json.dumps(by_path[path])}",
               flush=True)
         for k in its_kernels:
-            if by_path[path][k] == 0:
+            if launched(by_path[path], k) == 0:
                 fails.append(f"{k}: no launch on the {path} path")
     for p in (mcbo, family, variants, families, mesh, latent, tasks, experiment):
         check_path_shapes(torch, gram, ssk, ck, pareto, p["shapes"], dev, fails)
     vae_card_vs_cpu(torch, fails)
 
     main_shape = {"matern32_gram": [2, 1024, 1024, 6], "matern32_gram_vjp": [2, 1024, 1024, 6],
-                  "chol_factor": [2, 1024], "chol_winv": [2, 1024],
+                  "chol_factor": [2, 1024], "chol_winv": [2, 1024], "chol_factor_inv": [2, 1024],
                   "ssk_cross": [1, 256, 256, 11, 3], "ssk_self": [1, 256, 11, 3],
                   "nsga2_rank_crowd": [200, 3], "nsga2_rank_crowd_grid": [1400, 3]}
     meta = {
@@ -3469,6 +3617,8 @@ def main() -> int:
         "matern32_gram_vjp": ("hebo_tpu_torch/csrc/gram.cu", "hebo_tpu/ops/pallas_gram.py:128", v_rows),
         "chol_factor": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:613", f_rows),
         "chol_winv": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:665", w_rows),
+        # one launch pair for both of chol_inv_slab's pallas_calls (:613 and :665)
+        "chol_factor_inv": ("hebo_tpu_torch/csrc/chol.cu", "hebo_tpu/ops/pallas_chol.py:613", fu_rows),
         "ssk_cross": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:148", c_rows),
         "ssk_self": ("hebo_tpu_torch/csrc/ssk.cu", "hebo_tpu/ops/pallas_ssk.py:167", s_rows),
         # the JAX package peels in an XLA while_loop (no pallas_call) at :45-78
@@ -3501,6 +3651,11 @@ def main() -> int:
                 "k1a_route": r["route"], "k1a_routes": sorted({x["route"] for x in rows}),
                 "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051])}
                if name == "chol_factor" else {}),
+            **({"also_replaces": "hebo_tpu/ops/pallas_chol.py:665", "skipped": ladder["skipped_fused"],
+                "device_launches_per_call": r["device_launches_per_call"],
+                "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051]),
+                "hebo_cache_1024": next(x for x in rows if x["shape"] == [1, 1024])}
+               if name == "chol_factor_inv" else {}),
             **({"skipped": ladder["skipped_winv"], "k1b_route": r["route"],
                 "k1b_routes": sorted({x["route"] for x in rows}),
                 "bocs_5051": next(x for x in rows if x["shape"] == [1, 5051])}

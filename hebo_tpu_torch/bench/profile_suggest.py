@@ -29,7 +29,8 @@ graph; its wall is reported as ``first_s``), then
   sort kernels' (every kernel whose name holds "sort") by name; kernel
   K1's rungs that every matrix skipped, with their device launches, apart
   from the rungs that factor; kernel K1's device kernels
-  with their launches per ``chol_factor`` call, kernel K3's ``ssk_cross`` and
+  with their launches per K1 call (``chol_factor`` or, from 8 tiles, the
+  fused ``chol_factor_inv``), kernel K3's ``ssk_cross`` and
   ``ssk_self`` kernels with their launches, device ms and µs per launch,
   the count of library factorization / triangular-solve kernels
   (cuSOLVER potrf, cuBLAS trsm), which no CUDA path of the port should
@@ -124,25 +125,28 @@ class _RungLog:
 
     def __init__(self):
         self.calls = []
-        self._saved = chol_mod.chol_factor
+        self._saved = chol_mod.factor_inv
 
         def factor(K, jitter=None, skip=None, out=None):
             capturing = torch.cuda.is_current_stream_capturing()
             nt = chol_kernel.padded_size(K.shape[-1]) // chol_kernel.TILE
-            k1a = 2 if chol_kernel.route(K.shape[-1]) == "flow" else nt
-            k1b = 2 if chol_kernel.winv_route(K.shape[-1]) == "flow" else 1
-            self.calls.append((capturing, skip, k1a + k1b))
+            if chol_kernel.route(K.shape[-1]) == "flow":  # the fused call
+                launches = 2
+            else:
+                launches = nt + (2 if chol_kernel.winv_route(K.shape[-1]) == "flow" else 1)
+            self.calls.append((capturing, skip, launches))
             return self._saved(K, jitter, skip, out)
 
-        chol_mod.chol_factor = factor
+        chol_mod.factor_inv = factor
 
     def close(self):
-        chol_mod.chol_factor = self._saved
+        chol_mod.factor_inv = self._saved
 
     def count(self, captured: bool) -> dict:
-        """Rungs skipped by every matrix and their device launches (K1a nt on
-        its step route, K1b 1 on its copy route, each 2 on its flow route),
-        and the rungs that factor."""
+        """Rungs skipped by every matrix and their device launches (from 8
+        tiles the fused call's 2; below, K1a's nt on its step route and
+        K1b's 1 on its copy route or 2 on its flow route), and the rungs
+        that factor."""
         calls = [c for c in self.calls if c[0] == captured]
         skipped = [k1 for _, skip, k1 in calls if skip is not None and bool(skip.all())]
         launches = sum(skipped)
@@ -152,19 +156,19 @@ class _RungLog:
 
 
 class K1Batches:
-    """Counts K1 factor calls by (batch x size) while it is open (the
-    wrapper's own ``launches`` still counts every launch): wraps the module
-    global that the jitter ladder calls."""
+    """Counts K1 calls of the jitter ladder by (batch x size) while it is
+    open (the wrappers' own ``launches`` still count every launch): wraps
+    the module global that the ladder calls (``factor_inv``)."""
 
     def __init__(self):
-        self.saved, self.by_batch = chol_mod.chol_factor, {}
+        self.saved, self.by_batch = chol_mod.factor_inv, {}
 
         def factor(K, *a, **k):
             key = f"{K.shape[0]}x{K.shape[-1]}"
             self.by_batch[key] = self.by_batch.get(key, 0) + 1
             return self.saved(K, *a, **k)
 
-        chol_mod.chol_factor = factor
+        chol_mod.factor_inv = factor
 
     def take(self) -> dict:
         """The counts since the last ``take``, and a fresh start."""
@@ -172,7 +176,7 @@ class K1Batches:
         return out
 
     def close(self):
-        chol_mod.chol_factor = self.saved
+        chol_mod.factor_inv = self.saved
 
 
 def profile(n_obs: int, path: str = "graph", n_timed: int = 3) -> dict:
@@ -463,14 +467,14 @@ def _device_profile(suggest) -> dict:
     """One suggest under torch.profiler: wall, device time, busy share,
     launches and the top kernels by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    k1_calls = chol_kernel.chol_factor.launches
+    k1_calls = chol_kernel.chol_factor.launches + chol_kernel.chol_factor_inv.launches
     k3_calls = {"ssk_cross": ssk.ssk_cross.launches, "ssk_self": ssk.ssk_self.launches}
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         suggest()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    k1_calls = chol_kernel.chol_factor.launches - k1_calls
+    k1_calls = chol_kernel.chol_factor.launches + chol_kernel.chol_factor_inv.launches - k1_calls
     k3_calls = {k: getattr(ssk, k).launches - n for k, n in k3_calls.items()}
     # device events, less the device side of the user ranges (record_function)
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA

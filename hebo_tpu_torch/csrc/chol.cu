@@ -1,11 +1,14 @@
-// Batched blocked Cholesky with the triangular inverse (kernels K1a, K1b).
+// Batched blocked Cholesky with the triangular inverse (kernels K1a, K1b,
+// and the two in one launch pair).
 //
 // Replaces the two Pallas kernels behind hebo_tpu/ops/pallas_chol.py::
 // chol_inv_slab (:684):
 //   K1a  hebo_chol_factor  <- _factor_slab_kernel (pallas_call :613):
 //        K = L L^T and the inverses Wd_j of the 64x64 diagonal tiles of L;
 //   K1b  hebo_chol_winv    <- _winv_tile_kernel (pallas_call :665):
-//        W = L^-1.
+//        W = L^-1;
+//   hebo_chol_factor_inv   <- both: L, Wd and W in one launch pair where
+//        K1a takes its flow route (the fused route below).
 //
 // Layout: the wrapper pads an (n, n) matrix to Np = 64 * ceil(n / 64) with
 // an identity block (exact: the factor and inverse of blockdiag(K, I) are
@@ -48,15 +51,16 @@
 //   chol_flow       a persistent grid (the CTAs that fit on the card at
 //                   once, split between the matrices) that takes tasks from
 //                   a per-matrix ticket counter, column by column, the
-//                   diagonal chain's tasks two columns early.  Task (i, k):
-//                   C = K_ik (+ jitter) - sum_{j<k} L_ij L_kj^T, streaming
-//                   the stored panel tiles L_ij, L_kj through a cp.async
-//                   double buffer as they become ready; then the panel tile
-//                   L_ik = C Wd_k^T is formed once and stored (and L_ki
-//                   zeroed), or the diagonal tile is factored into L_kk and
-//                   Wd_k.  The diagonal task of column k also forms
-//                   L_{k,k-1} from the subdiagonal task's stored sum, so the
-//                   chain crosses one CTA boundary per column.
+//                   diagonal chain's tasks two columns early (factor_ticket).
+//                   Task (i, k) (factor_task): C = K_ik (+ jitter) -
+//                   sum_{j<k} L_ij L_kj^T, streaming the stored panel tiles
+//                   L_ij, L_kj through a cp.async double buffer as they
+//                   become ready; then the panel tile L_ik = C Wd_k^T is
+//                   formed once and stored (and L_ki zeroed), or the
+//                   diagonal tile is factored into L_kk and Wd_k.  The
+//                   diagonal task of column k also forms L_{k,k-1} from the
+//                   subdiagonal task's stored sum, so the chain crosses one
+//                   CTA boundary per column.
 //   Row i's tiles finish in column order (task (i, k) reads L_i,k-1), so one
 //   counter per row says how many of its tiles are stored (released after
 //   the stores, read with acquire).  A task waits only on tasks with smaller
@@ -65,7 +69,7 @@
 //   chain's tasks of column k+2 take their tickets before the rest of
 //   column k and sum their first products then; what stays serial per
 //   column is one panel product, one update product and the tile factor,
-//   ~17 us.  The products run on 8x8 register tiles: the CTA's four
+//   ~15-17 us.  The products run on 8x8 register tiles: the CTA's four
 //   64-thread groups each sum a 16-wide quarter of the depth of every
 //   product (each operand float read from shared memory feeds 4 FMAs, where
 //   the step route's 4x4 tiles feed 2), and the four partial sums are added
@@ -86,17 +90,23 @@
 //   split by B.
 //
 // The tile factor (factor_tile, both routes) blocks the 64x64 tile into four
-//   16-wide sub-panels: 16 lanes of one warp factor each 16x16 diagonal
-//   block and its inverse in registers with no CTA barrier (each column step
-//   yields an L column and a W row, as _diag_factor_inverse_merged does,
-//   broadcast through shared memory), the CTA solves the sub-panel below it
-//   and updates the sub-trailing block, and Wd's off-diagonal 16-blocks come
-//   by doubling: 14 CTA barriers per tile instead of 128.  What sets its
-//   time is the chain of 64 dependent column steps on one warp (~190 cycles
-//   each: pivot, broadcast, row update; about 60% of the ~12 us per tile,
-//   measured with clock64 on an H100 80GB HBM3 at 700 W); blocking the steps
-//   four columns per round did not shorten it, since the warp is bound by
-//   its dependent FMA chains either way.
+//   16-wide blocks.  Its time is the chain of warp 0: 16 lanes factor each
+//   16x16 diagonal block and its inverse in registers (factor_block16), 16
+//   dependent column steps a block, each yielding an L column and a W row
+//   broadcast through shared memory.  Between two diagonal blocks every warp forms the one sub-panel
+//   block and the one diagonal-block update that the next block needs (the
+//   look-ahead, two CTA barriers); while warp 0 factors that block, warps
+//   1-7 solve and update the rest of the sub-trailing matrix on 4x4
+//   register tiles (a quarter of the shared-memory reads of an entry a
+//   thread, so they slow warp 0 little) and form Wd's off-diagonal blocks
+//   by doubling.  Every entry is summed in the order of a CTA-wide sweep
+//   (_tile_factor_plain), so the schedule does not change the bits.
+//   Measured with clock64 (bench/chol_probe.py and --variants tile, H100
+//   80GB HBM3 at 700 W; the cycles in PERF.md): the 64 column steps are
+//   most of a tile's time; broadcasting by __shfl_sync in place of shared
+//   memory makes each step slower, taking the next pivot's entry first
+//   leaves it as it is, and the same arithmetic as a CTA-wide sweep, with
+//   warp 0 waiting at each barrier, takes ~15 % longer.
 //
 // K1b takes its route by the padded size alone too (pick_winv_route,
 // exported as hebo_chol_winv_route), so W has the same bits alone or in a
@@ -112,7 +122,7 @@
 //   winv_flow       the CTAs that fit on the card at once, split between the
 //                   matrices, take tasks from a per-matrix ticket counter in
 //                   row order: (0, 0), (1, 0), (1, 1), (2, 0), ... (i, 0 .. i).
-//                   Task (i, k), k < i:
+//                   Task (i, k), k < i (winv_task):
 //                     W_ik = -Wd_i sum_{j=k}^{i-1} L_ij W_jk   (W_kk = Wd_k)
 //                   streaming L_ij and W_jk through the cp.async stages as
 //                   soon as W_jk is stored, the last term L_{i,i-1} W_{i-1,k}
@@ -137,6 +147,30 @@
 //   CTAs an SM (128 registers) win 11 % at (32, 1024) and lose 7-9 % where
 //   the chain counts.  At one tile W is Wd, and one copy launch does it.
 //
+// The fused route (hebo_chol_factor_inv, where K1a takes its flow route):
+//   L, Wd and W in two launches whether it factors or skips, instead of
+//   K1a's two and K1b's two:
+//   chol_flow_inv_init  zeros each matrix's counters (K1a's and W's);
+//   chol_flow_inv       one persistent grid that takes K1a's flow tasks and
+//                       W's tasks from one ticket counter per matrix
+//                       (fused_ticket): K1a's tickets in their order, and W's
+//                       row w after K1a's tasks of column w - 2 + kWinvLag
+//                       (winv_slot), kWinvLag = 4 columns after the column
+//                       whose tasks hold L's diagonal task (w, w).
+//   Each task runs as in its own launch (factor_task, winv_task<true>), so
+//   L, Wd and W have the pair's bits; a task of W waits, term by term, for
+//   its L tile (L_ij stored once rows[i] > j) and its W tile, and for Wd_i
+//   (rows[i] == i + 1) only before its last product, so row i's sums run
+//   while L's row i is formed.  Every tile a task reads is formed by a task
+//   with a smaller ticket: no deadlock, as above.  W's row i no longer waits
+//   for the whole of L: at (2, 1024) the fused call ends 4.3-4.8 us after
+//   L's last task (bench/chol_probe.py --fused).  Where L leaves no SM idle
+//   for long (BOCS's (1, 5051): W's large rows need L's late rows, which
+//   its chain forms last) the grid gains only the launches; kWinvLag is
+//   measured (--variants fused: lag 1 costs 4 % at (1, 5051) and 13 % at
+//   (1, 3072), W after all of L 1-13 %).  Shared memory: K1b's six tiles
+//   (104,448 bytes, one CTA an SM).
+//
 // Tile products: FP32 FMA from shared memory with 16-byte reads (no TF32:
 // the JAX package runs them at Precision.HIGHEST); operand tiles arrive by
 // cp.async, double-buffered in the flow routes.  K1a's step route and
@@ -153,9 +187,9 @@
 //   skip (B,)    a matrix whose flag is set is left as it is in L, Wd and
 //                W: every CTA of it returns at once.  The ladder sets the
 //                flag for the matrices an earlier rung factored, so a rung
-//                that no matrix needs costs its launches (K1a nt in the
-//                step route, 2 on its flow route; K1b 1 at one tile, else 2),
-//                not a factorization.
+//                that no matrix needs costs its launches (2 on the fused
+//                route; below it K1a nt on its step route, and K1b 1 at
+//                one tile, else 2), not a factorization.
 // Either may be null (no jitter, no skip).
 //
 // Failure semantics: a pivot that is not > 0 (negative, zero or NaN) gives
@@ -163,7 +197,7 @@
 // panel and trailing updates to every later tile of that matrix's L and W,
 // so the jitter ladder sees it, as with jnp.linalg.cholesky.  Every CTA
 // works inside one matrix, so a NaN never reaches a batch neighbour.  No
-// float atomics (the flow route's tickets and counters are integers, and
+// float atomics (the flow routes' tickets and counters are integers, and
 // which CTA runs a task does not change its arithmetic): results are
 // bit-reproducible.
 
@@ -186,6 +220,9 @@ constexpr int kFlowMinTiles = 8;
 constexpr int kWinvFlowMinTiles = 2;
 // K1b's flow route: the panel stages (L_ij, W_jk), Wd_i and the sum S
 constexpr int kWinvTiles = (2 * kFlowStages + 2) * TILE_F * (int)sizeof(float);  // 104,448 bytes
+// the fused flow route (chol_flow_inv): W's row w takes its tickets after
+// K1a's tasks of column w - 2 + kWinvLag (winv_slot)
+constexpr int kWinvLag = 4;
 
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7fffffff); }
 
@@ -402,128 +439,225 @@ __device__ __forceinline__ void factor_block16(float* A, float* X, int o) {
   }
 }
 
+// The tile factor's warps 1-7 (the workers) sync among themselves on a
+// named barrier while warp 0 factors a diagonal block.
+constexpr int kBarWorkers = 1;
+constexpr int kWorkers = kThreads - 32;
+
+__device__ __forceinline__ void bar_workers() {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kBarWorkers), "r"(kWorkers) : "memory");
+}
+
+// Entry (ty, tx) of the sub-panel block L_rb = A_rb X_bb^T (16-blocks;
+// X_bb is zero above its diagonal).
+__device__ __forceinline__ float solve_entry(const float* A, const float* X, int r, int b, int ty,
+                                             int tx) {
+  const float* ar = A + (SB * r + ty) * LD + SB * b;
+  const float* xr = X + (SB * b + tx) * LD + SB * b;
+  float v = 0.f;
+#pragma unroll
+  for (int m = 0; m < SB; m += 4) {
+    const float4 p = *reinterpret_cast<const float4*>(ar + m);
+    const float4 q = *reinterpret_cast<const float4*>(xr + m);
+    v = fmaf(p.x, q.x, fmaf(p.y, q.y, fmaf(p.z, q.z, fmaf(p.w, q.w, v))));
+  }
+  return v;
+}
+
+// Entry (ty, tx) of L_rb L_cb^T, the sub-panel read from its copy in X's
+// blocks (r, b) and (c, b).
+__device__ __forceinline__ float update_entry(const float* X, int r, int c, int b, int ty, int tx) {
+  const float* pr = X + (SB * r + ty) * LD + SB * b;
+  const float* qr = X + (SB * c + tx) * LD + SB * b;
+  float acc = 0.f;
+#pragma unroll
+  for (int m = 0; m < SB; m += 4) {
+    const float4 p = *reinterpret_cast<const float4*>(pr + m);
+    const float4 q = *reinterpret_cast<const float4*>(qr + m);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = fmaf(lane4(p, k), lane4(q, k), acc);
+  }
+  return acc;
+}
+
+// The 4x4 entries u (rows 4(u>>2).., columns 4(u&3).. of the 16-block) of
+// solve_entry (into X's block (r, b), the sub-panel's staging) and of
+// update_entry (subtracted from A's block (r, c)), each summed in the
+// same order as there; four rows of each operand feed 16 entries, so the
+// workers read a quarter of the shared memory that an entry a thread
+// reads while warp 0 factors.
+__device__ __forceinline__ void solve_tile4(const float* A, float* X, int r, int b, int u) {
+  const int y0 = SB * r + 4 * (u >> 2), x0 = SB * b + 4 * (u & 3);
+  float v[4][4] = {};
+#pragma unroll
+  for (int m = 0; m < SB; m += 4) {
+    float4 p[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(A + (y0 + i) * LD + SB * b + m);
+      q[i] = *reinterpret_cast<const float4*>(X + (x0 + i) * LD + SB * b + m);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[i][j] = fmaf(p[i].x, q[j].x, fmaf(p[i].y, q[j].y, fmaf(p[i].z, q[j].z, fmaf(p[i].w, q[j].w, v[i][j]))));
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) X[(y0 + i) * LD + x0 + j] = v[i][j];
+}
+__device__ __forceinline__ void update_tile4(const float* X, float* A, int r, int c, int b, int u) {
+  const int y0 = SB * r + 4 * (u >> 2), x0 = SB * c + 4 * (u & 3);
+  float acc[4][4] = {};
+#pragma unroll
+  for (int m = 0; m < SB; m += 4) {
+    float4 p[4], q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(X + (y0 + i) * LD + SB * b + m);
+      q[i] = *reinterpret_cast<const float4*>(X + (x0 + i) * LD + SB * b + m);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[j], k), acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) A[(y0 + i) * LD + x0 + j] -= acc[i][j];
+}
+
+// Wd's off-diagonal entry (ty, tx) at level 16 of the doubling, for the
+// pair of diagonal blocks at s1, s2 = s1 + 16: Y = L21 X11 (kept in X's
+// block (s1, s2) above the diagonal), then X21 = -X22 Y.
+__device__ __forceinline__ float double16_y(const float* A, const float* X, int s1, int ty, int tx) {
+  const int s2 = s1 + SB;
+  float y = 0.f;
+#pragma unroll
+  for (int m = 0; m < SB; ++m) y = fmaf(A[(s2 + ty) * LD + s1 + m], X[(s1 + m) * LD + s1 + tx], y);
+  return y;
+}
+__device__ __forceinline__ float double16_x(const float* X, int s1, int ty, int tx) {
+  const int s2 = s1 + SB;
+  float w = 0.f;
+#pragma unroll
+  for (int m = 0; m < SB; ++m) w = fmaf(X[(s2 + ty) * LD + s2 + m], X[(s1 + m) * LD + s2 + tx], w);
+  return -w;
+}
+
+// Level 32: Y = L[32:64, 0:32] X[0:32, 0:32] (kept in X[0:32, 32:64]) as
+// the 4x4 entries u of its 16-block (i, j), each summed over m in order and
+// skipping X11's and X22's upper blocks; then entry (32 + ty + 16i,
+// tx + 16j) of X[32:64, 0:32] = -X[32:64, 32:64] Y.
+__device__ __forceinline__ void double32_y_tile4(const float* A, float* X, int i, int j, int u) {
+  const int y0 = SB * i + 4 * (u >> 2), x0 = SB * j + 4 * (u & 3);
+  float acc[4][4] = {};
+  for (int m = SB * j; m < 2 * SB; ++m) {
+    const float4 q = *reinterpret_cast<const float4*>(X + m * LD + x0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float p = A[(32 + y0 + a) * LD + m];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(p, lane4(q, c), acc[a][c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) X[(y0 + a) * LD + 32 + x0 + c] = acc[a][c];
+}
+__device__ __forceinline__ float double32_x(const float* X, int i, int j, int ty, int tx) {
+  float w = 0.f;
+#pragma unroll
+  for (int m = 0; m < 2 * SB; ++m)
+    if (m < SB * (i + 1)) w = fmaf(X[(32 + ty + SB * i) * LD + 32 + m], X[m * LD + 32 + tx + SB * j], w);
+  return -w;
+}
+
+// The workers' share of column block b, while warp 0 factors diagonal
+// block b + 1: the sub-panel blocks (r, b), r >= b + 2 (staged in X's
+// blocks (r, b), which Wd's off-diagonal blocks overwrite later, then
+// copied into A once every worker has formed its own), the sub-trailing
+// blocks (r, c), b+1 <= c <= r, r >= b + 2, and what Wd's doubling can
+// form with the blocks factored so far.  w: the worker's index.
+__device__ __forceinline__ void tile_rest(float* A, float* X, int b, int w) {
+  if (b == 0) {  // level 16, pair (0, 1): Y = L10 X00
+    for (int e = w; e < SB * SB; e += kWorkers)
+      X[(e >> 4) * LD + SB + (e & 15)] = double16_y(A, X, 0, e >> 4, e & 15);
+  } else if (b == 1) {  // X10 = -X11 Y
+    for (int e = w; e < SB * SB; e += kWorkers)
+      X[(SB + (e >> 4)) * LD + (e & 15)] = double16_x(X, 0, e >> 4, e & 15);
+  } else {  // level 16, pair (2, 3): Y = L32 X22; level 32's Y, then its row block 2
+    for (int e = w; e < SB * SB + 64; e += kWorkers) {
+      if (e < SB * SB) X[(32 + (e >> 4)) * LD + 48 + (e & 15)] = double16_y(A, X, 32, e >> 4, e & 15);
+      else double32_y_tile4(A, X, (e - SB * SB) >> 5, ((e - SB * SB) >> 4) & 1, e & 15);
+    }
+    bar_workers();
+    for (int e = w; e < 2 * SB * SB; e += kWorkers)
+      X[(32 + ((e >> 4) & 15)) * LD + (e & 15) + SB * (e >> 8)] = double32_x(X, 0, e >> 8, (e >> 4) & 15, e & 15);
+    return;
+  }
+  const int nrows = 2 - b;  // sub-panel blocks below (b+1, b)
+  for (int u = w; u < nrows * 16; u += kWorkers) solve_tile4(A, X, b + 2 + (u >> 4), b, u & 15);
+  bar_workers();
+  for (int e = w; e < nrows * SB * SB; e += kWorkers) {
+    const int o = (SB * (b + 2 + (e >> 8)) + ((e >> 4) & 15)) * LD + SB * b + (e & 15);
+    A[o] = X[o];
+  }
+  const int nblk = (3 - b) * (4 - b) / 2 - 1;  // the blocks after (b+1, b+1), row by row
+  for (int u = w; u < nblk * 16; u += kWorkers) {
+    int q = (u >> 4) + 1, r = b + 1, c = b + 1;
+    while (q > 0) {
+      if (c < r) ++c;
+      else c = b + 1, ++r;
+      --q;
+    }
+    update_tile4(X, A, r, c, b, u & 15);
+  }
+}
+
 // Factor the SPD tile in shared A (its lower part is read): A <- L and
 // X <- L^-1 on and below the diagonal (store_factor zeros what lies above).
-// Ends with a barrier.
+// 256 threads; ends with a barrier.
+//
+// 16-wide blocks b = 0..3.  The chain is warp 0's: it factors diagonal
+// block b (factor_block16); then every warp forms the sub-panel block
+// (b+1, b) and updates the next diagonal block (the look-ahead, one entry
+// a thread), and warp 0 factors that block while warps 1-7 (tile_rest)
+// solve and update the rest of the sub-trailing matrix and form Wd's
+// off-diagonal blocks by doubling: level 16, Y = L21 X11 then X21 = -X22 Y
+// for the pairs of diagonal blocks (0, 1) and (2, 3); level 32,
+// Y = L[32:64, 0:32] X[0:32, 0:32] then X[32:64, 0:32] = -X[32:64, 32:64] Y,
+// whose row block 2 needs only X22.  After the last diagonal block every
+// warp forms X32 = -X33 Y, then X's row block 3.  Each entry is summed in
+// the order of a CTA-wide sweep over the blocks (_tile_factor_plain), and
+// A's entries take their updates in block order, so the schedule does not
+// change the bits.
 __device__ void factor_tile(float* A, float* X) {
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  for (int o = 0; o < T; o += SB) {
-    if (t < SB) factor_block16(A, X, o);
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  for (int b = 0; b < 4; ++b) {
+    if (t < SB) factor_block16(A, X, SB * b);
+    else if (t >= 32 && b > 0) tile_rest(A, X, b - 1, t - 32);
+    __syncthreads();  // L_bb and X_bb are there, and the workers' blocks
+    if (b == 3) break;
+    // the look-ahead: L_{b+1,b}, then A_{b+1,b+1} -= L_{b+1,b} L_{b+1,b}^T
+    const int n1 = b + 1;
+    X[(SB * n1 + ty) * LD + SB * b + tx] = solve_entry(A, X, n1, b, ty, tx);
     __syncthreads();
-    const int nb = (T - o) / SB - 1;  // 16-row blocks below the diagonal block
-    if (nb == 0) break;
-    // sub-panel solve, thread (ty, tx) -> rows o+16+16i+ty, column o+tx:
-    // L[r][o+tx] = sum_m A[r][o+m] Xblk[tx][m]  (Xblk is zero above its
-    // diagonal).  Staged in X's lower blocks, which the doubling below
-    // overwrites, so the trailing update can read it without a second
-    // barrier while A's panel columns take the final values.
-    float v[3] = {};
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      if (i >= nb) break;
-      const float* ar = A + (o + SB + SB * i + ty) * LD + o;
-      const float* xr = X + (o + tx) * LD + o;
-#pragma unroll
-      for (int m = 0; m < SB; m += 4) {
-        const float4 p = *reinterpret_cast<const float4*>(ar + m);
-        const float4 q = *reinterpret_cast<const float4*>(xr + m);
-        v[i] = fmaf(p.x, q.x, fmaf(p.y, q.y, fmaf(p.z, q.z, fmaf(p.w, q.w, v[i]))));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      if (i < nb) X[(o + SB + SB * i + ty) * LD + o + tx] = v[i];
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      if (i < nb) A[(o + SB + SB * i + ty) * LD + o + tx] = v[i];
-    // sub-trailing update of the 16-blocks (bi, bj), bj <= bi < nb:
-    // A[r][c] -= sum_m L[r][o+m] L[c][o+m], r = o+16+16bi+ty, c = o+16+16bj+tx
-    // (the sub-panel L read from its copy in X)
-    float acc[3][3] = {};
-#pragma unroll
-    for (int m = 0; m < SB; m += 4) {
-      float4 p[3], q[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        if (i >= nb) break;
-        p[i] = *reinterpret_cast<const float4*>(X + (o + SB + SB * i + ty) * LD + o + m);
-        q[i] = *reinterpret_cast<const float4*>(X + (o + SB + SB * i + tx) * LD + o + m);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j <= i; ++j) {
-          if (i >= nb) break;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) acc[i][j] = fmaf(lane4(p[i], k), lane4(q[j], k), acc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j <= i; ++j)
-        if (i < nb) A[(o + SB + SB * i + ty) * LD + o + SB + SB * j + tx] -= acc[i][j];
+    A[(SB * n1 + ty) * LD + SB * b + tx] = X[(SB * n1 + ty) * LD + SB * b + tx];
+    A[(SB * n1 + ty) * LD + SB * n1 + tx] -= update_entry(X, n1, n1, b, ty, tx);
     __syncthreads();
   }
-  // off-diagonal 16-blocks of X by doubling.  Level 16: for the pairs of
-  // diagonal blocks (0, 1) and (2, 3), Y = L21 X11 (kept in X's upper
-  // part), X21 = -X22 Y; thread (ty, tx) forms entry (ty, tx) of both.
-  {
-    float y[2] = {};
+  X[(48 + ty) * LD + 32 + tx] = double16_x(X, 32, ty, tx);
+  __syncthreads();
 #pragma unroll
-    for (int pr = 0; pr < 2; ++pr) {
-      const int s1 = 32 * pr, s2 = s1 + SB;
-#pragma unroll
-      for (int m = 0; m < SB; ++m) y[pr] = fmaf(A[(s2 + ty) * LD + s1 + m], X[(s1 + m) * LD + s1 + tx], y[pr]);
-      X[(s1 + ty) * LD + s2 + tx] = y[pr];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int pr = 0; pr < 2; ++pr) {
-      const int s1 = 32 * pr, s2 = s1 + SB;
-      float w = 0.f;
-#pragma unroll
-      for (int m = 0; m < SB; ++m) w = fmaf(X[(s2 + ty) * LD + s2 + m], X[(s1 + m) * LD + s2 + tx], w);
-      X[(s2 + ty) * LD + s1 + tx] = -w;
-    }
-    __syncthreads();
-  }
-  // Level 32: Y = L[32:64, 0:32] X[0:32, 0:32] into X[0:32, 32:64], then
-  // X[32:64, 0:32] = -X[32:64, 32:64] Y; thread (ty, tx) forms the entries
-  // (ty + 16i, tx + 16j).  The sums skip X11's and X22's upper block.
-  {
-    float acc[2][2] = {};
-#pragma unroll
-    for (int m = 0; m < 2 * SB; ++m) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (m >= SB * j)
-            acc[i][j] = fmaf(A[(32 + ty + SB * i) * LD + m], X[m * LD + tx + SB * j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) X[(ty + SB * i) * LD + 32 + tx + SB * j] = acc[i][j];
-    __syncthreads();
-    float w[2][2] = {};
-#pragma unroll
-    for (int m = 0; m < 2 * SB; ++m) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (m < SB * (i + 1))
-            w[i][j] = fmaf(X[(32 + ty + SB * i) * LD + 32 + m], X[m * LD + 32 + tx + SB * j], w[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) X[(32 + ty + SB * i) * LD + tx + SB * j] = -w[i][j];
-    __syncthreads();
-  }
+  for (int j = 0; j < 2; ++j) X[(48 + ty) * LD + tx + SB * j] = double32_x(X, 1, j, ty, tx);
+  __syncthreads();
 }
 
 // Store a factored tile: its L (lower, zeros above) and its inverse Wd.
@@ -718,13 +852,8 @@ __device__ __forceinline__ void publish(int* flag, int v) {
   if (threadIdx.x == 0) st_release(flag, v);
 }
 
-// Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
-// task tickets of its matrix until none is left.  The tickets run through
-// (0, 0), (1, 0), (1, 1), then for each column c: (c+2, c), (c+2, c+1),
-// (c+2, c+2), then (c+3 .. nt-1, c): the tasks of the diagonal chain two
-// columns ahead come before the rest of column c, and each task still
-// follows every task it reads.
-// Three kinds of task:
+// One task (i, k) of K1a's flow route, for matrix b (its L tiles at Lb,
+// its Wd at Wdb, its counters rows and subs):
 //   (i, k), i > k + 1: C = K_ik - sum_{j<k} L_ij L_kj^T, then L_ik = C Wd_k^T
 //     once Wd_k is stored; rows[i] = k + 1.
 //   (k + 1, k): the same sum, stored in L's tile (k+1, k); subs[k+1] = 1.
@@ -733,10 +862,153 @@ __device__ __forceinline__ void publish(int* flag, int v) {
 //     (rows[k] = k) and C -= L_{k,k-1} L_{k,k-1}^T; the tile factor gives
 //     L_kk and Wd_k (rows[k] = k + 1).
 // So the diagonal chain crosses one CTA boundary per column (Wd_{k-1} to
-// the diagonal task of column k), not two.  Shared memory: four operand
+// the diagonal task of column k), not two.  Shared memory sm: four operand
 // tiles (two stages of L_ij, L_kj; then the four groups' partial sums,
 // C_{k,k-1}, Wd and L_{k,k-1}, or the tile factor's inverse) and the tile C
-// (K_ik, then the task's sum).
+// (K_ik, then the task's sum); s_ready: two ints.
+__device__ __forceinline__ void factor_task(int i, int k, const float* __restrict__ K,
+                                            const float* __restrict__ jitter, float* Lb, float* Wdb,
+                                            int* rows, int* subs, float* sm, int* s_ready, int b,
+                                            int n, int Np) {
+  float* C = sm + 2 * kFlowStages * TILE_F;
+  const int t = threadIdx.x;
+  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
+  const size_t ldt = (size_t)T * Np;
+  const bool diag = i == k;
+  // C <- tile (i, k) of blockdiag(K, I), asynchronously, in a group of its own
+  {
+    const float* Kb = K + (size_t)b * n * n;
+    for (int e = t; e < T * T; e += kThreads) {
+      const int r = e >> 6, c = e & 63, gr = i * T + r, gc = k * T + c;
+      if (gr < n && gc < n) cp_async4(C + r * LD + c, Kb + (size_t)gr * n + gc);
+      else C[r * LD + c] = gr == gc ? 1.f : 0.f;
+    }
+    cp_async_commit();
+  }
+  // Panel j's tiles go to stage j % kFlowStages, one commit group a panel;
+  // `issued` panels have their copies started (the same count in every
+  // thread).  While panel j's product runs, the copies of the next ones
+  // that are stored already are in flight.
+  const int jend = diag && k > 0 ? k - 1 : k;  // the diagonal's last product comes later
+  int have_i = 0, have_k = 0;                   // thread 0's view of rows[i], rows[k]
+  int issued = 0;
+  float acc[8][8] = {};
+  for (int j = 0; j < jend; ++j) {
+    const int lim = min(j + kFlowStages, jend);  // stages free once panel j - 1 is done
+    if (t == 0) {
+      if (min(have_i, have_k) < lim) cols_ready(rows, i, k, lim - 1, have_i, have_k);
+      s_ready[j & 1] = max(0, min(lim, min(have_i, have_k)) - issued);
+    }
+    const bool late = issued == j;  // panel j's copies not started yet
+    if (!late) cp_async_wait_upto(issued - j - 1);  // panel j landed
+    __syncthreads();  // ... for every thread; panel j - 1's product done
+    for (int q = s_ready[j & 1]; q > 0; --q, ++issued) {
+      float* S = sm + (issued % kFlowStages) * 2 * TILE_F;
+      load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, issued);
+    }
+    if (late) {
+      if (issued == j) {  // panel j is not stored yet
+        if (t == 0) wait_cols(rows, i, k, j, have_i, have_k);
+        __syncthreads();
+        float* S = sm + (j % kFlowStages) * 2 * TILE_F;
+        load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, j);
+        ++issued;
+      }
+      cp_async_wait_upto(issued - j - 1);
+      __syncthreads();
+    }
+    const float* P = sm + (j % kFlowStages) * 2 * TILE_F;
+    mma_nt_8x8(P, diag ? P : P + TILE_F, acc, gy, gx, 16 * g);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every product done, C landed
+  float* R = sm + g * TILE_F;  // group g's partial sum
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) R[(gy + 8 * a) * LD + gx + 8 * c] = acc[a][c];
+  __syncthreads();
+  {
+    const float jit = diag && jitter != nullptr ? jitter[b] : 0.f;
+    for (int e = t; e < T * T; e += kThreads) {
+      const int r = e >> 6, c = e & 63, o = r * LD + c;
+      const float s = ((sm[o] + sm[TILE_F + o]) + sm[2 * TILE_F + o]) + sm[3 * TILE_F + o];
+      const float kv = diag && r == c && i * T + r < n ? C[o] + jit : C[o];
+      C[o] = kv - s;
+    }
+  }
+  __syncthreads();
+  if (diag && k > 0) {
+    // the chain: L_{k,k-1} from the subdiagonal task's sum, then C -= its
+    // product with itself
+    float* Lsub = Lb + k * ldt + (k - 1) * T;
+    if (t == 0)
+      while (!ld_acquire(subs + k)) __nanosleep(32);
+    __syncthreads();
+    load_tile_async(sm, Lsub, Np);  // in flight while Wd_{k-1} is awaited
+    if (t == 0) {
+      int h0 = 0, h1 = 0;
+      wait_cols(rows, k - 1, k - 1, k - 1, h0, h1);  // Wd_{k-1} stored
+    }
+    __syncthreads();
+    load_tile_async(sm + TILE_F, Wdb + (size_t)(k - 1) * T * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float* Ls = sm + 2 * TILE_F;
+    panel_tile(sm, sm + TILE_F, Lsub, Ls, Lb + (k - 1) * ldt + k * T, Np);
+    __syncthreads();
+    publish(rows + k, k);
+    const int tx = t & 15, ty = t >> 4;
+    float up[4][4] = {};
+    mma_nt(Ls, Ls, up, tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) C[(ty + 16 * r) * LD + tx + 16 * c] -= up[r][c];
+    __syncthreads();
+  }
+  if (diag) {
+    factor_tile(C, sm);
+    store_factor(C, sm, Lb + k * ldt + k * T, Np, Wdb + (size_t)k * T * T);
+    __syncthreads();
+    publish(rows + k, k + 1);
+  } else if (i == k + 1) {
+    store_tile(C, Lb + i * ldt + k * T, Np);
+    __syncthreads();
+    publish(subs + i, 1);
+  } else {
+    if (t == 0) {
+      int h0 = 0, h1 = 0;
+      wait_cols(rows, k, k, k, h0, h1);  // Wd_k stored
+    }
+    __syncthreads();
+    load_tile_async(sm + TILE_F, Wdb + (size_t)k * T * T, T);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    panel_tile(C, sm + TILE_F, Lb + i * ldt + k * T, nullptr, Lb + k * ldt + i * T, Np);
+    __syncthreads();
+    publish(rows + i, k + 1);
+  }
+}
+
+// K1a's ticket -> task (i, k), for tickets at or past 3: for each column c
+// the chain's three tasks two columns ahead, (c+2, c), (c+2, c+1) and
+// (c+2, c+2), then the rest of column c, (c+3 .. nt-1, c); r is the ticket
+// less 3.
+__device__ __forceinline__ void factor_ticket(int r, int nt, int& i, int& k) {
+  int c = 0;
+  while (r >= nt - c) r -= nt - c++;
+  i = r < 3 ? c + 2 : c + r;
+  k = r < 3 ? c + r : c;
+}
+
+// Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
+// task tickets of its matrix until none is left.  The tickets run through
+// (0, 0), (1, 0), (1, 1), then factor_ticket's order: the tasks of the
+// diagonal chain two columns ahead come before the rest of column c, and
+// each task still follows every task it reads.
 __global__ void __launch_bounds__(kThreads, 1)
 chol_flow(const float* __restrict__ K, const float* __restrict__ jitter,
           const int* __restrict__ skip, float* __restrict__ L, float* __restrict__ Wd,
@@ -745,14 +1017,11 @@ chol_flow(const float* __restrict__ K, const float* __restrict__ jitter,
   if (skip != nullptr && skip[b]) return;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* C = sm + 2 * kFlowStages * TILE_F;
   __shared__ int s_task;
   __shared__ int s_ready[2];
   const int nt = Np / T, t = threadIdx.x, n_tasks = nt * (nt + 1) / 2;
-  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
   int* rows = sync + (size_t)b * (2 * nt + 1);
   int* subs = rows + nt;
-  const size_t ldt = (size_t)T * Np;
   float* Lb = L + (size_t)b * Np * Np;
   float* Wdb = Wd + (size_t)b * nt * T * T;
   for (;;) {
@@ -760,132 +1029,13 @@ chol_flow(const float* __restrict__ K, const float* __restrict__ jitter,
     __syncthreads();
     int k = 0, i = s_task;
     if (i >= n_tasks) return;
-    if (i < 3) {  // ticket -> (i, k): see the task order above
+    if (i < 3) {  // (0, 0), (1, 0), (1, 1)
       k = i >> 1;
       i = i > 0;
     } else {
-      int c = 0, r = i - 3;
-      while (r >= nt - c) r -= nt - c++;
-      i = r < 3 ? c + 2 : c + r;
-      k = r < 3 ? c + r : c;
+      factor_ticket(i - 3, nt, i, k);
     }
-    const bool diag = i == k;
-    // C <- tile (i, k) of blockdiag(K, I), asynchronously, in a group of its own
-    {
-      const float* Kb = K + (size_t)b * n * n;
-      for (int e = t; e < T * T; e += kThreads) {
-        const int r = e >> 6, c = e & 63, gr = i * T + r, gc = k * T + c;
-        if (gr < n && gc < n) cp_async4(C + r * LD + c, Kb + (size_t)gr * n + gc);
-        else C[r * LD + c] = gr == gc ? 1.f : 0.f;
-      }
-      cp_async_commit();
-    }
-    // Panel j's tiles go to stage j % kFlowStages, one commit group a panel;
-    // `issued` panels have their copies started (the same count in every
-    // thread).  While panel j's product runs, the copies of the next ones
-    // that are stored already are in flight.
-    const int jend = diag && k > 0 ? k - 1 : k;  // the diagonal's last product comes later
-    int have_i = 0, have_k = 0;                   // thread 0's view of rows[i], rows[k]
-    int issued = 0;
-    float acc[8][8] = {};
-    for (int j = 0; j < jend; ++j) {
-      const int lim = min(j + kFlowStages, jend);  // stages free once panel j - 1 is done
-      if (t == 0) {
-        if (min(have_i, have_k) < lim) cols_ready(rows, i, k, lim - 1, have_i, have_k);
-        s_ready[j & 1] = max(0, min(lim, min(have_i, have_k)) - issued);
-      }
-      const bool late = issued == j;  // panel j's copies not started yet
-      if (!late) cp_async_wait_upto(issued - j - 1);  // panel j landed
-      __syncthreads();  // ... for every thread; panel j - 1's product done
-      for (int q = s_ready[j & 1]; q > 0; --q, ++issued) {
-        float* S = sm + (issued % kFlowStages) * 2 * TILE_F;
-        load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, issued);
-      }
-      if (late) {
-        if (issued == j) {  // panel j is not stored yet
-          if (t == 0) wait_cols(rows, i, k, j, have_i, have_k);
-          __syncthreads();
-          float* S = sm + (j % kFlowStages) * 2 * TILE_F;
-          load_panel(S, S + TILE_F, Lb, ldt, Np, i, k, j);
-          ++issued;
-        }
-        cp_async_wait_upto(issued - j - 1);
-        __syncthreads();
-      }
-      const float* P = sm + (j % kFlowStages) * 2 * TILE_F;
-      mma_nt_8x8(P, diag ? P : P + TILE_F, acc, gy, gx, 16 * g);
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // every product done, C landed
-    float* R = sm + g * TILE_F;  // group g's partial sum
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) R[(gy + 8 * a) * LD + gx + 8 * c] = acc[a][c];
-    __syncthreads();
-    {
-      const float jit = diag && jitter != nullptr ? jitter[b] : 0.f;
-      for (int e = t; e < T * T; e += kThreads) {
-        const int r = e >> 6, c = e & 63, o = r * LD + c;
-        const float s = ((sm[o] + sm[TILE_F + o]) + sm[2 * TILE_F + o]) + sm[3 * TILE_F + o];
-        const float kv = diag && r == c && i * T + r < n ? C[o] + jit : C[o];
-        C[o] = kv - s;
-      }
-    }
-    __syncthreads();
-    if (diag && k > 0) {
-      // the chain: L_{k,k-1} from the subdiagonal task's sum, then C -= its
-      // product with itself
-      float* Lsub = Lb + k * ldt + (k - 1) * T;
-      if (t == 0)
-        while (!ld_acquire(subs + k)) __nanosleep(32);
-      __syncthreads();
-      load_tile_async(sm, Lsub, Np);  // in flight while Wd_{k-1} is awaited
-      if (t == 0) {
-        int h0 = 0, h1 = 0;
-        wait_cols(rows, k - 1, k - 1, k - 1, h0, h1);  // Wd_{k-1} stored
-      }
-      __syncthreads();
-      load_tile_async(sm + TILE_F, Wdb + (size_t)(k - 1) * T * T, T);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      float* Ls = sm + 2 * TILE_F;
-      panel_tile(sm, sm + TILE_F, Lsub, Ls, Lb + (k - 1) * ldt + k * T, Np);
-      __syncthreads();
-      publish(rows + k, k);
-      const int tx = t & 15, ty = t >> 4;
-      float up[4][4] = {};
-      mma_nt(Ls, Ls, up, tx, ty);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) C[(ty + 16 * r) * LD + tx + 16 * c] -= up[r][c];
-      __syncthreads();
-    }
-    if (diag) {
-      factor_tile(C, sm);
-      store_factor(C, sm, Lb + k * ldt + k * T, Np, Wdb + (size_t)k * T * T);
-      __syncthreads();
-      publish(rows + k, k + 1);
-    } else if (i == k + 1) {
-      store_tile(C, Lb + i * ldt + k * T, Np);
-      __syncthreads();
-      publish(subs + i, 1);
-    } else {
-      if (t == 0) {
-        int h0 = 0, h1 = 0;
-        wait_cols(rows, k, k, k, h0, h1);  // Wd_k stored
-      }
-      __syncthreads();
-      load_tile_async(sm + TILE_F, Wdb + (size_t)k * T * T, T);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      panel_tile(C, sm + TILE_F, Lb + i * ldt + k * T, nullptr, Lb + k * ldt + i * T, Np);
-      __syncthreads();
-      publish(rows + i, k + 1);
-    }
+    factor_task(i, k, K, jitter, Lb, Wdb, rows, subs, sm, s_ready, b, n, Np);
   }
 }
 
@@ -921,11 +1071,160 @@ __device__ __forceinline__ void load_term(float* S, const float* Lb, const float
   cp_async_commit();
 }
 
+// Thread 0: wait until rows[i] >= v.
+__device__ __forceinline__ void wait_rows(const int* rows, int i, int v) {
+  while (ld_acquire(rows + i) < v) __nanosleep(32);
+}
+
+// Thread 0: how many leading terms of task (i, k) of W are readable: term
+// p = j - k needs W_jk (cols[k] >= p; Wd_k for p = 0) and, where L is
+// formed in the same launch (kFused), L_ij (rows[i] > j; then Wd_k, which
+// L_ik waited for, is there too).
+template <bool kFused>
+__device__ __forceinline__ int winv_terms(const int* cols, const int* rows, int i, int k) {
+  const int h = 1 + ld_acquire(cols + k);
+  return kFused ? min(h, ld_acquire(rows + i) - k) : h;
+}
+
+// One task (i, k) of W (K1b's flow route; with kFused, of chol_flow_inv,
+// where L, Wd and the counters rows[] come from the same launch), for
+// matrix b's tiles at Lb, Wb, Wdb and its column counters cols:
+//   W_ik = -Wd_i sum_{j=k}^{i-1} L_ij W_jk   (W_kk = Wd_k),  W_ii = Wd_i,
+// streaming L_ij and W_jk through the cp.async stages as soon as both are
+// stored, the last term L_{i,i-1} W_{i-1,k} last; the sum on 8x8 register
+// tiles, the four 64-thread groups each over a 16-wide quarter of the
+// depth, the partial sums added in a fixed order; then the product with
+// Wd_i (4x4 tiles over the whole depth) is stored, the tile W_ki above the
+// diagonal zeroed, and cols[k] = i - k published.  kFused changes only
+// when tiles are awaited and copied, never the arithmetic, so W has the
+// same bits either way.  Shared memory sm: the panel stages (L_ij, W_jk;
+// then the four groups' partial sums), Wd_i and the sum S; s_ready: two
+// ints.
+template <bool kFused>
+__device__ __forceinline__ void winv_task(int i, int k, const float* Lb, float* Wb,
+                                          const float* Wdb, int* cols, const int* rows, float* sm,
+                                          int* s_ready, int Np) {
+  float* Ws = sm + 2 * kFlowStages * TILE_F;  // Wd_i
+  float* S = Ws + TILE_F;
+  const int t = threadIdx.x;
+  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
+  const size_t ldt = (size_t)T * Np;
+  if (k == i) {  // W_ii = Wd_i
+    if (kFused) {
+      if (t == 0) wait_rows(rows, i, i + 1);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+      const int e = t + q * kThreads, r = e >> 4, c = (e & 15) * 4;
+      *reinterpret_cast<float4*>(Wb + i * ldt + i * T + r * Np + c) =
+          *reinterpret_cast<const float4*>(Wdb + (size_t)i * T * T + r * T + c);
+    }
+    __syncthreads();  // every thread has read the ticket
+    return;
+  }
+  if (!kFused) {  // Wd_i is there from the start
+    load_tile_async(Ws, Wdb + (size_t)i * T * T, T);
+    cp_async_commit();
+  }
+  // Term p (j = k + p) goes to stage p % kFlowStages, one commit group a
+  // term; `issued` terms have their copies started (the same count in
+  // every thread).  Without kFused term 0 (L_ik, Wd_k) is readable at once.
+  const int np = i - k;
+  int have = kFused ? 0 : 1;  // thread 0's view: terms [0, have) readable
+  int issued = 0;
+  if (!kFused) {
+    load_term(sm, Lb, Wb, Wdb, ldt, Np, i, k, 0);  // in flight while the counter is read
+    issued = 1;
+  }
+  float acc[8][8] = {};
+  for (int p = 0; p < np; ++p) {
+    const int lim = min(p + kFlowStages, np);  // stages free once term p - 1 is done
+    if (t == 0) {
+      if (have < lim) have = winv_terms<kFused>(cols, rows, i, k);
+      s_ready[p & 1] = max(0, min(lim, have) - issued);
+    }
+    const bool late = issued == p;  // term p's copies not started yet
+    if (!late) cp_async_wait_upto(issued - p - 1);  // term p landed
+    __syncthreads();  // ... for every thread; term p - 1's product done
+    for (int q = s_ready[p & 1]; q > 0; --q, ++issued)
+      load_term(sm + (issued % kFlowStages) * 2 * TILE_F, Lb, Wb, Wdb, ldt, Np, i, k, issued);
+    if (late) {
+      float* P = sm + (p % kFlowStages) * 2 * TILE_F;
+      if (issued == p) {
+        if (kFused) {  // term p is not readable yet
+          if (t == 0)
+            while (have <= p) {
+              __nanosleep(32);
+              have = winv_terms<true>(cols, rows, i, k);
+            }
+          __syncthreads();
+          load_term(P, Lb, Wb, Wdb, ldt, Np, i, k, p);
+        } else {  // W_{k+p,k} is not stored yet: copy L_{i,k+p} meanwhile
+          load_tile_async(P, Lb + i * ldt + (k + p) * T, Np);
+          if (t == 0)
+            while (have <= p) {
+              __nanosleep(32);
+              have = winv_terms<false>(cols, rows, i, k);
+            }
+          __syncthreads();
+          load_tile_async(P + TILE_F, Wb + (k + p) * ldt + k * T, Np);
+          cp_async_commit();
+        }
+        ++issued;
+      }
+      cp_async_wait_upto(issued - p - 1);
+      __syncthreads();
+    }
+    const float* P = sm + (p % kFlowStages) * 2 * TILE_F;
+    mma_nn_8x8(P, P + TILE_F, acc, gy, gx, 16 * g);
+  }
+  if (kFused && t == 0) wait_rows(rows, i, i + 1);  // Wd_i stored
+  cp_async_wait<0>();
+  __syncthreads();  // every product done (and Wd_i landed, without kFused)
+  if (kFused) {  // Wd_i's copy runs while the partial sums are added
+    load_tile_async(Ws, Wdb + (size_t)i * T * T, T);
+    cp_async_commit();
+  }
+  float* R = sm + g * TILE_F;  // group g's partial sum
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(R + (gy + 8 * a) * LD + 32 * h + 4 * gx) =
+          make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]);
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < T * T / 4 / kThreads; ++q) {
+    const int e = t + q * kThreads, o = (e >> 4) * LD + (e & 15) * 4;
+    const float4 r0 = *reinterpret_cast<const float4*>(sm + o);
+    const float4 r1 = *reinterpret_cast<const float4*>(sm + TILE_F + o);
+    const float4 r2 = *reinterpret_cast<const float4*>(sm + 2 * TILE_F + o);
+    const float4 r3 = *reinterpret_cast<const float4*>(sm + 3 * TILE_F + o);
+    *reinterpret_cast<float4*>(S + o) =
+        make_float4(((r0.x + r1.x) + r2.x) + r3.x, ((r0.y + r1.y) + r2.y) + r3.y,
+                    ((r0.z + r1.z) + r2.z) + r3.z, ((r0.w + r1.w) + r2.w) + r3.w);
+  }
+  if (kFused) cp_async_wait<0>();
+  __syncthreads();
+  {  // W_ik = -Wd_i S; the tile W_ki above the diagonal is zero
+    const int tx = t & 15, ty = t >> 4;
+    float w[4][4] = {};
+    mma_nn(Ws, S, w, tx, ty);
+    float* out = Wb + i * ldt + k * T;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(out + (size_t)(ty + 16 * r) * Np + 4 * tx) =
+          make_float4(-w[r][0], -w[r][1], -w[r][2], -w[r][3]);
+    zero_tile(Wb + k * ldt + i * T, Np);
+  }
+  __syncthreads();
+  publish(cols + k, i - k);
+}
+
 // Persistent grid (CTAs, B), 256 threads, one CTA an SM.  Each CTA takes
 // task tickets of its matrix in row order until none is left; ticket
-// i(i+1)/2 + k is task (i, k), k <= i (see the notes at the top).  Shared
-// memory: the panel stages (L_ij, W_jk; then the four groups' partial
-// sums), Wd_i and the sum S.
+// i(i+1)/2 + k is task (i, k), k <= i (see the notes at the top).
 __global__ void __launch_bounds__(kThreads, 1)
 winv_flow(const float* __restrict__ L, const float* __restrict__ Wd,
           const int* __restrict__ skip, float* __restrict__ W, int* __restrict__ sync, int Np) {
@@ -933,17 +1232,11 @@ winv_flow(const float* __restrict__ L, const float* __restrict__ Wd,
   if (skip != nullptr && skip[b]) return;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  float* Ws = sm + 2 * kFlowStages * TILE_F;  // Wd_i
-  float* S = Ws + TILE_F;
   __shared__ int s_ticket;
   __shared__ int s_ready[2];
   const int nt = Np / T, t = threadIdx.x, n_tasks = nt * (nt + 1) / 2;
-  const int g = t >> 6, gy = (t & 63) >> 3, gx = t & 7;  // 8x8 product: group, row, column
   int* cols = sync + (size_t)b * (nt + 1);
-  const size_t ldt = (size_t)T * Np, mat = (size_t)b * Np * Np;
-  const float* Lb = L + mat;
-  float* Wb = W + mat;
-  const float* Wdb = Wd + (size_t)b * nt * T * T;
+  const size_t mat = (size_t)b * Np * Np;
   for (;;) {
     if (t == 0) s_ticket = atomicAdd(cols + nt, 1);
     __syncthreads();
@@ -953,92 +1246,93 @@ winv_flow(const float* __restrict__ L, const float* __restrict__ Wd,
     while ((i + 1) * (i + 2) / 2 <= ticket) ++i;
     while (i * (i + 1) / 2 > ticket) --i;
     const int k = ticket - i * (i + 1) / 2;
-    if (k == i) {  // W_ii = Wd_i
-#pragma unroll
-      for (int q = 0; q < T * T / 4 / kThreads; ++q) {
-        const int e = t + q * kThreads, r = e >> 4, c = (e & 15) * 4;
-        *reinterpret_cast<float4*>(Wb + i * ldt + i * T + r * Np + c) =
-            *reinterpret_cast<const float4*>(Wdb + (size_t)i * T * T + r * T + c);
+    winv_task<false>(i, k, L + mat, W + mat, Wd + (size_t)b * nt * T * T, cols, nullptr, sm, s_ready,
+                     Np);
+  }
+}
+
+// ---- the fused flow route: L, Wd and W in one launch ----
+
+// Zero each matrix's counters: rows[0..nt-1], subs[0..nt-1] (K1a's),
+// cols[0..nt-1] (W's) and the ticket counter.
+__global__ void chol_flow_inv_init(const int* __restrict__ skip, int* __restrict__ sync, int nt) {
+  const int b = blockIdx.x;
+  if (skip != nullptr && skip[b]) return;
+  for (int e = threadIdx.x; e <= 3 * nt; e += blockDim.x) sync[(size_t)b * (3 * nt + 1) + e] = 0;
+}
+
+// The slot of W's row w in the fused ticket order: its tasks come right
+// after K1a's tasks of column c = slot (after (0, 0), (1, 0), (1, 1) for
+// slot -1), kWinvLag columns after the column whose tasks hold L's
+// diagonal task (w, w) (column w - 2; the first three tasks for w < 2).
+__device__ __forceinline__ int winv_slot(int w, int nt) {
+  return min(max(w - 2, -1) + kWinvLag, nt - 3);
+}
+
+// The fused ticket -> task (i, k); true for a task of W.  K1a's tickets in
+// their order (factor_ticket), W's row w, (w, 0) .. (w, w), after the
+// tasks of column winv_slot(w).  A task waits only on tasks with smaller
+// tickets.
+__device__ __forceinline__ bool fused_ticket(int r, int nt, int& i, int& k) {
+  if (r < 3) {
+    k = r >> 1;
+    i = r > 0;
+    return false;
+  }
+  r -= 3;
+  int w = 0;  // the next row of W to place
+  for (int c = -1;; ++c) {
+    if (c >= 0) {
+      if (r < nt - c) {
+        i = r < 3 ? c + 2 : c + r;
+        k = r < 3 ? c + r : c;
+        return false;
       }
-      __syncthreads();  // every thread has read s_ticket
-      continue;
+      r -= nt - c;
     }
-    load_tile_async(Ws, Wdb + (size_t)i * T * T, T);
-    cp_async_commit();
-    // Term p (j = k + p) goes to stage p % kFlowStages, one commit group a
-    // term; `issued` terms have their copies started (the same count in
-    // every thread).  Term 0 reads Wd_k; term p > 0 waits for cols[k] >= p.
-    const int np = i - k;
-    int have = 1;  // thread 0's view: terms [0, have) readable
-    load_term(sm, Lb, Wb, Wdb, ldt, Np, i, k, 0);  // in flight while the counter is read
-    int issued = 1;
-    float acc[8][8] = {};
-    for (int p = 0; p < np; ++p) {
-      const int lim = min(p + kFlowStages, np);  // stages free once term p - 1 is done
-      if (t == 0) {
-        if (have < lim) have = 1 + ld_acquire(cols + k);
-        s_ready[p & 1] = max(0, min(lim, have) - issued);
+    for (; w < nt && winv_slot(w, nt) == c; ++w) {
+      if (r <= w) {
+        i = w;
+        k = r;
+        return true;
       }
-      const bool late = issued == p;  // term p's copies not started yet
-      if (!late) cp_async_wait_upto(issued - p - 1);  // term p landed
-      __syncthreads();  // ... for every thread; term p - 1's product done
-      for (int q = s_ready[p & 1]; q > 0; --q, ++issued)
-        load_term(sm + (issued % kFlowStages) * 2 * TILE_F, Lb, Wb, Wdb, ldt, Np, i, k, issued);
-      if (late) {
-        float* P = sm + (p % kFlowStages) * 2 * TILE_F;
-        if (issued == p) {  // W_{k+p,k} is not stored yet: copy L_{i,k+p} meanwhile
-          load_tile_async(P, Lb + i * ldt + (k + p) * T, Np);
-          if (t == 0)
-            while (have <= p) {
-              __nanosleep(32);
-              have = 1 + ld_acquire(cols + k);
-            }
-          __syncthreads();
-          load_tile_async(P + TILE_F, Wb + (k + p) * ldt + k * T, Np);
-          cp_async_commit();
-          ++issued;
-        }
-        cp_async_wait_upto(issued - p - 1);
-        __syncthreads();
-      }
-      const float* P = sm + (p % kFlowStages) * 2 * TILE_F;
-      mma_nn_8x8(P, P + TILE_F, acc, gy, gx, 16 * g);
+      r -= w + 1;
     }
-    cp_async_wait<0>();
-    __syncthreads();  // every product done, Wd_i landed
-    float* R = sm + g * TILE_F;  // group g's partial sum
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float4*>(R + (gy + 8 * a) * LD + 32 * h + 4 * gx) =
-            make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2], acc[a][4 * h + 3]);
+  }
+}
+
+// Persistent grid (CTAs, B), 256 threads, one CTA an SM: K1a's flow tasks
+// and W's tasks from one ticket counter per matrix (fused_ticket's order),
+// each task run by factor_task or winv_task<true> as in the two launches
+// of chol_flow and winv_flow, so L, Wd and W have their bits.  Shared
+// memory: K1b's six tiles (K1a's tasks use the first five).
+__global__ void __launch_bounds__(kThreads, 1)
+chol_flow_inv(const float* __restrict__ K, const float* __restrict__ jitter,
+              const int* __restrict__ skip, float* __restrict__ L, float* __restrict__ Wd,
+              float* __restrict__ W, int* __restrict__ sync, int n, int Np) {
+  const int b = blockIdx.y;
+  if (skip != nullptr && skip[b]) return;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ int s_task;
+  __shared__ int s_ready[2];
+  const int nt = Np / T, t = threadIdx.x, n_tasks = nt * (nt + 1);
+  int* rows = sync + (size_t)b * (3 * nt + 1);
+  int* subs = rows + nt;
+  int* cols = subs + nt;
+  const size_t mat = (size_t)b * Np * Np;
+  float* Lb = L + mat;
+  float* Wdb = Wd + (size_t)b * nt * T * T;
+  for (;;) {
+    if (t == 0) s_task = atomicAdd(cols + nt, 1);
     __syncthreads();
-#pragma unroll
-    for (int q = 0; q < T * T / 4 / kThreads; ++q) {
-      const int e = t + q * kThreads, o = (e >> 4) * LD + (e & 15) * 4;
-      const float4 r0 = *reinterpret_cast<const float4*>(sm + o);
-      const float4 r1 = *reinterpret_cast<const float4*>(sm + TILE_F + o);
-      const float4 r2 = *reinterpret_cast<const float4*>(sm + 2 * TILE_F + o);
-      const float4 r3 = *reinterpret_cast<const float4*>(sm + 3 * TILE_F + o);
-      *reinterpret_cast<float4*>(S + o) =
-          make_float4(((r0.x + r1.x) + r2.x) + r3.x, ((r0.y + r1.y) + r2.y) + r3.y,
-                      ((r0.z + r1.z) + r2.z) + r3.z, ((r0.w + r1.w) + r2.w) + r3.w);
-    }
-    __syncthreads();
-    {  // W_ik = -Wd_i S; the tile W_ki above the diagonal is zero
-      const int tx = t & 15, ty = t >> 4;
-      float w[4][4] = {};
-      mma_nn(Ws, S, w, tx, ty);
-      float* out = Wb + i * ldt + k * T;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        *reinterpret_cast<float4*>(out + (size_t)(ty + 16 * r) * Np + 4 * tx) =
-            make_float4(-w[r][0], -w[r][1], -w[r][2], -w[r][3]);
-      zero_tile(Wb + k * ldt + i * T, Np);
-    }
-    __syncthreads();
-    publish(cols + k, i - k);
+    const int ticket = s_task;
+    if (ticket >= n_tasks) return;
+    int i, k;
+    if (fused_ticket(ticket, nt, i, k))
+      winv_task<true>(i, k, Lb, W + mat, Wdb, cols, rows, sm, s_ready, Np);
+    else
+      factor_task(i, k, K, jitter, Lb, Wdb, rows, subs, sm, s_ready, b, n, Np);
   }
 }
 
@@ -1064,8 +1358,9 @@ int allow_four_tiles(F* fn, unsigned* done) {
   return allow_smem(fn, done, kFourTiles);
 }
 
-unsigned g_step_smem = 0, g_flow_smem = 0, g_winv_smem = 0;
-int g_flow_ctas[32] = {}, g_winv_ctas[32] = {};  // per device: CTAs resident at once
+unsigned g_step_smem = 0, g_flow_smem = 0, g_winv_smem = 0, g_fused_smem = 0;
+// per device: CTAs resident at once
+int g_flow_ctas[32] = {}, g_winv_ctas[32] = {}, g_fused_ctas[32] = {};
 
 // CTAs of the persistent kernel `fn` (`bytes` of dynamic shared memory)
 // that fit on the current card at once, cached per device in `cache`.
@@ -1171,5 +1466,29 @@ extern "C" int hebo_chol_winv(const float* L, const float* Wd, const int* skip, 
   if ((err = (int)cudaGetLastError())) return err;
   const int grid = per_matrix(ctas, B, nt * (nt + 1) / 2);
   winv_flow<<<dim3(grid, B), kThreads, kWinvTiles, st>>>(L, Wd, skip, W, sync, Np);
+  return (int)cudaGetLastError();
+}
+
+// K1 in one launch pair where K1a takes its flow route (pick_route(Np) ==
+// 1): K (B,n,n) + diag(jitter) -> L (B,Np,Np), Wd (B,Np/64,64,64) and
+// W = L^-1 (B,Np,Np), the bits of hebo_chol_factor's flow route and then
+// hebo_chol_winv; matrices whose skip flag is set keep their L, Wd and W.
+// jitter (B,) and skip (B,) may be null.  scratch: B*(3*Np/64 + 1) ints of
+// counters.  Returns cudaErrorInvalidValue below the flow route's size,
+// else the first error (attribute, occupancy or launch).
+extern "C" int hebo_chol_factor_inv(const float* K, const float* jitter, const int* skip, float* L,
+                                    float* Wd, float* W, void* scratch, int B, int n, int Np,
+                                    void* stream) {
+  if (B == 0) return 0;
+  if (Np % T != 0 || Np < n || pick_route(Np) != 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int nt = Np / T;
+  int ctas = 0, err = 0;
+  if ((err = resident_ctas(chol_flow_inv, &g_fused_smem, kWinvTiles, g_fused_ctas, &ctas))) return err;
+  int* sync = static_cast<int*>(scratch);
+  chol_flow_inv_init<<<B, 128, 0, st>>>(skip, sync, nt);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int grid = per_matrix(ctas, B, nt * (nt + 1));
+  chol_flow_inv<<<dim3(grid, B), kThreads, kWinvTiles, st>>>(K, jitter, skip, L, Wd, W, sync, n, Np);
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from .chol_kernel import TILE, chol_factor, chol_winv, padded_size
+from .chol_kernel import TILE, factor_inv, padded_size
 
 __all__ = [
     "safe_cholesky", "chol_solve", "chol_logdet", "make_masked_nll",
@@ -110,9 +110,10 @@ def batched_ladder_factor(Kt: torch.Tensor, rungs: tuple, base_jitter: float = 1
 
     Returns ``(L, W, ok)`` with ``W = L⁻¹`` of the first succeeding rung per
     matrix; a matrix that fails every rung has non-finite L and W.  Every
-    rung goes through ``chol_factor`` / ``chol_winv`` (kernel K1 on CUDA)
-    into one padded (L, W) pair, with the rung's jitter on the diagonal and
-    the matrices that an earlier rung factored skipped: no host sync."""
+    rung goes through ``factor_inv`` (kernel K1 on CUDA: one fused call from
+    8 tiles, ``chol_factor`` then ``chol_winv`` below) into one padded
+    (L, W) pair, with the rung's jitter on the diagonal and the matrices
+    that an earlier rung factored skipped: no host sync."""
     B, n, _ = Kt.shape
     Kt = Kt.contiguous()
     scale = _scale(Kt)
@@ -123,8 +124,7 @@ def batched_ladder_factor(Kt: torch.Tensor, rungs: tuple, base_jitter: float = 1
     skip = None
     for rung in rungs:
         jitter = base_jitter + rung * scale
-        chol_factor(Kt, jitter, skip, out=(L, Wd))
-        chol_winv(L, Wd, skip, out=W)
+        factor_inv(Kt, jitter, skip, out=(L, Wd, W))
         ok = _all_finite(L)
         skip = ok.to(torch.int32)
     return L[:, :n, :n], W[:, :n, :n], ok

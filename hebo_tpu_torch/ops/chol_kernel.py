@@ -14,6 +14,12 @@ and ``chol_inv(K) → (L, W)`` slices both back to (B, n, n).  Any n works;
 the padding is exact, as ``_run_slab`` pads the batch with identities
 (pallas_chol.py:600-604).
 
+Where K1a takes its flow route (from 8 tiles), ``chol_factor_inv`` gives
+(L, Wd, W) in one launch pair (``chol_flow_inv``: K1a's tasks and K1b's on
+one ticket counter, with K1a's and K1b's bits); ``factor_inv`` takes it
+there and the pair below, and the jitter ladder and ``chol_inv`` call
+``factor_inv``.
+
 ``cholesky_batched`` and ``chol_inv_batched`` are the API of the JAX
 package's r3 VMEM-resident kernel ``_chol_kernel`` (pallas_call :228,
 ``cholesky_batched`` :243 and ``chol_inv_batched`` :249, N ≤ 1024): the
@@ -41,8 +47,8 @@ persistent launch of blocked forward substitution, from 2 tiles.
 
 ``_schedule_plain`` mirrors, in plain PyTorch, the block schedule that the
 CUDA kernels run (16-wide sub-blocked tile factor; K1a's look-ahead panel
-steps or its left-looking tasks; K1b's forward-substitution tasks); only
-the CPU tests call it.
+steps or its left-looking tasks; K1b's forward-substitution tasks; the
+fused route's interleaved order of both); only the CPU tests call it.
 """
 
 from __future__ import annotations
@@ -55,13 +61,15 @@ from . import native
 
 __all__ = [
     "TILE", "ROUTES", "WINV_ROUTES", "padded_size", "route", "winv_route", "chol_factor", "chol_factor_plain",
-    "chol_winv", "chol_winv_plain", "chol_inv", "cholesky_batched", "chol_inv_batched",
+    "chol_winv", "chol_winv_plain", "chol_factor_inv", "chol_factor_inv_plain", "factor_inv", "chol_inv",
+    "cholesky_batched", "chol_inv_batched",
 ]
 
 TILE = 64
 SUB = 16  # sub-block edge of the CUDA tile factor
 ROUTES = ("step", "flow")  # K1a's routes, by the number csrc/chol.cu gives them
 WINV_ROUTES = ("copy", "flow")  # K1b's
+WINV_LAG = 4  # the fused order's lag of W's rows (csrc/chol.cu kWinvLag)
 
 
 def padded_size(n: int) -> int:
@@ -222,15 +230,79 @@ def chol_winv(L: torch.Tensor, Wd: torch.Tensor, skip=None, out=None) -> torch.T
     return W
 
 
+def chol_factor_inv_plain(K: torch.Tensor, jitter=None, skip=None, out=None):
+    """Plain version of the fused call: ``chol_factor_plain`` then
+    ``chol_winv_plain``, (L, Wd, W) written into ``out`` except where
+    ``skip`` is set."""
+    B, n, _ = K.shape
+    Np = padded_size(n)
+    _skip_args("chol_factor_inv", B, Np, skip, out,
+               ((B, Np, Np), (B, Np // TILE, TILE, TILE), (B, Np, Np)))
+    L, Wd = chol_factor_plain(K, jitter, skip, None if out is None else out[:2])
+    W = chol_winv_plain(L, Wd, skip, None if out is None else out[2])
+    return L, Wd, W
+
+
+def chol_factor_inv(K: torch.Tensor, jitter=None, skip=None, out=None):
+    """K1 in one launch pair: (L, Wd, W = L⁻¹) for K (B, n, n) float32 plus
+    ``jitter`` (B,) on its diagonal, where K1a takes its flow route
+    (``route(n) == "flow"``, from 8 tiles); the bits of ``chol_factor``
+    then ``chol_winv``.  Kernel on CUDA (a smaller n raises), plain on CPU.
+    ``out`` and ``skip`` as for ``chol_factor``, with W's buffer third."""
+    if K.device.type == "cpu":
+        return chol_factor_inv_plain(K, jitter, skip, out)
+    native.require_cuda("chol_factor_inv", K)
+    B, n, n2 = K.shape
+    if n != n2:
+        raise ValueError(f"chol_factor_inv: expected square matrices, got {tuple(K.shape)}")
+    Np = padded_size(n)
+    if ROUTES[_route_code(Np)] != "flow":
+        raise ValueError(f"chol_factor_inv: n {n} is below K1a's flow route (8 tiles, n > 448); "
+                         "use chol_factor and chol_winv")
+    _skip_args("chol_factor_inv", B, Np, skip, out,
+               ((B, Np, Np), (B, Np // TILE, TILE, TILE), (B, Np, Np)))
+    if jitter is not None:
+        native.require_cuda("chol_factor_inv", K, jitter)
+        if jitter.shape != (B,):
+            raise ValueError(f"chol_factor_inv: jitter {tuple(jitter.shape)}, expected {(B,)}")
+    if skip is not None:
+        native.require_cuda("chol_factor_inv", skip, dtype=torch.int32)
+    if out is None:
+        L = torch.empty((B, Np, Np), dtype=torch.float32, device=K.device)
+        Wd = torch.empty((B, Np // TILE, TILE, TILE), dtype=torch.float32, device=K.device)
+        W = torch.empty_like(L)
+    else:
+        L, Wd, W = out
+        native.require_cuda("chol_factor_inv", K, L, Wd, W)
+    # each matrix's counters: K1a's 2 per tile row, W's 1 per tile column, its ticket
+    sync = torch.empty(B * (3 * (Np // TILE) + 1), dtype=torch.int32, device=K.device)
+    err = native.call(native.load("chol").hebo_chol_factor_inv, K.device, K.data_ptr(), _ptr(jitter),
+                      _ptr(skip), L.data_ptr(), Wd.data_ptr(), W.data_ptr(), sync.data_ptr(), B, n, Np)
+    native.check(err, "chol_factor_inv")
+    chol_factor_inv.launches += 1
+    return L, Wd, W
+
+
 chol_factor.launches = 0
 chol_winv.launches = 0
+chol_factor_inv.launches = 0
+
+
+def factor_inv(K: torch.Tensor, jitter=None, skip=None, out=None):
+    """(L, Wd, W = L⁻¹) of K + diag(jitter), ``skip`` and ``out`` as for
+    ``chol_factor_inv``: on CUDA one ``chol_factor_inv`` call where K1a
+    takes its flow route, else ``chol_factor`` then ``chol_winv``; on CPU
+    the plain pair."""
+    if K.device.type != "cpu" and route(K.shape[-1]) == "flow":
+        return chol_factor_inv(K, jitter, skip, out)
+    L, Wd = chol_factor(K, jitter, skip, None if out is None else out[:2])
+    return L, Wd, chol_winv(L, Wd, skip, None if out is None else out[2])
 
 
 def chol_inv(K: torch.Tensor):
     """(L, W) with K = L Lᵀ and W = L⁻¹ for a (B, n, n) float32 batch."""
     n = K.shape[-1]
-    L, Wd = chol_factor(K)
-    W = chol_winv(L, Wd)
+    L, _, W = factor_inv(K)
     return L[:, :n, :n], W[:, :n, :n]
 
 
@@ -269,7 +341,11 @@ def _tile_factor_plain(A: torch.Tensor):
     """(L, L⁻¹) of a (B, 64, 64) SPD batch in the CUDA tile factor's order:
     per 16-wide sub-panel, the 16×16 diagonal block (``_block16_plain``),
     the sub-panel solve and the sub-trailing update; then L⁻¹'s
-    off-diagonal blocks by doubling over 16 and 32."""
+    off-diagonal blocks by doubling over 16 and 32.  The kernel runs the
+    blocks' factors on one warp and the rest beside them (the next diagonal
+    block's solve and update first, then the others and each doubling
+    product as soon as its blocks are there), each entry summed in this
+    order, so the schedule changes no bit."""
     A = A.clone()
     X = torch.zeros_like(A)
     for o in range(0, TILE, SUB):
@@ -304,6 +380,31 @@ def _winv_flow_tasks(nt: int):
     return [(i, k) for i in range(nt) for k in range(i + 1)]
 
 
+def _winv_slot(w: int, nt: int, lag: int = WINV_LAG) -> int:
+    """The column of K1a's tasks after which W's row w takes its tickets
+    in the fused order (``csrc/chol.cu::winv_slot``; −1: after the first
+    three)."""
+    return min(max(w - 2, -1) + lag, nt - 3)
+
+
+def _fused_flow_tasks(nt: int, lag: int = WINV_LAG):
+    """The fused route's tasks ("L" or "W", i, k) in ticket order
+    (``csrc/chol.cu::fused_ticket``): K1a's flow tasks in their order
+    (``_flow_tasks``), and W's row w, (w, 0) .. (w, w), right after K1a's
+    tasks of column ``_winv_slot(w)``, ``lag`` columns after the column
+    whose tasks hold L's diagonal task (w, w)."""
+    order = [("L", i, k) for i, k in [(0, 0), (1, 0), (1, 1)][: nt * (nt + 1) // 2]]
+    w = 0
+    for c in range(-1, nt - 2):
+        if c >= 0:
+            order += [("L", c + 2, c), ("L", c + 2, c + 1), ("L", c + 2, c + 2)]
+            order += [("L", i, c) for i in range(c + 3, nt)]
+        while w < nt and _winv_slot(w, nt, lag) == c:
+            order += [("W", w, k) for k in range(w + 1)]
+            w += 1
+    return order
+
+
 def _schedule_plain(K: torch.Tensor, route: str = "step"):
     """(L, Wd, W) of a (B, n, n) float32 CPU batch by the block schedule of
     ``csrc/chol.cu``, for the CPU tests only.  K1a, ``route`` "step": tile
@@ -325,9 +426,13 @@ def _schedule_plain(K: torch.Tensor, route: str = "step"):
     four 16-wide quarters of the depth summed over j apart (the last term
     L_{i,i−1} W_{i−1,k} last) and the four sums added in order; the task
     zeros W_ki.  A task that read a tile before the task that forms it would
-    read zeros: the order is checked too."""
-    if route not in ROUTES:
-        raise ValueError(f"_schedule_plain: route {route!r}, expected one of {ROUTES}")
+    read zeros: the order is checked too.
+    "fused": the tasks of "flow" and of K1b's flow route interleaved in the
+    fused route's ticket order (``_fused_flow_tasks``), each with its own
+    arithmetic, on an L, Wd and W that start at zeros: the same (L, Wd, W)
+    where the order is topological."""
+    if route not in ROUTES + ("fused",):
+        raise ValueError(f"_schedule_plain: route {route!r}, expected one of {ROUTES + ('fused',)}")
     B, n, _ = K.shape
     Np = padded_size(n)
     nt = Np // TILE
@@ -337,45 +442,34 @@ def _schedule_plain(K: torch.Tensor, route: str = "step"):
 
     A = _pad_identity(K, Np).clone()
     L = torch.zeros_like(A)
-    Wd = torch.empty((B, nt, TILE, TILE), dtype=K.dtype)
-    if route == "step":
-        L[:, tl(0), tl(0)], Wd[:, 0] = _tile_factor_plain(A[:, tl(0), tl(0)])
-        for j in range(nt - 1):
-            rest = tl(j + 1, nt)
-            P = A[:, rest, tl(j)] @ Wd[:, j].transpose(1, 2)
-            L[:, rest, tl(j)] = P
-            A[:, rest, rest] -= P @ P.transpose(1, 2)
-            L[:, tl(j + 1), tl(j + 1)], Wd[:, j + 1] = _tile_factor_plain(A[:, tl(j + 1), tl(j + 1)])
-    else:
-        for i, k in _flow_tasks(nt):
-            parts = [torch.zeros((B, TILE, TILE), dtype=K.dtype) for _ in range(TILE // SUB)]
-
-            def take(j):
-                for g, part in enumerate(parts):
-                    q = slice(j * TILE + g * SUB, j * TILE + (g + 1) * SUB)
-                    part += L[:, tl(i), q] @ L[:, tl(k), q].transpose(1, 2)
-
-            for j in range(k - 1 if i == k and k > 0 else k):
-                take(j)
-            s = parts[0]
-            for part in parts[1:]:
-                s = s + part
-            C = A[:, tl(i), tl(k)] - s
-            if i == k and k > 0:  # L_{k,k-1} from the subdiagonal task's stored sum
-                Lk = L[:, tl(k), tl(k - 1)] @ Wd[:, k - 1].transpose(1, 2)
-                L[:, tl(k), tl(k - 1)] = Lk
-                C = C - Lk @ Lk.transpose(1, 2)
-            if i == k:
-                L[:, tl(k), tl(k)], Wd[:, k] = _tile_factor_plain(C)
-            elif i == k + 1:
-                L[:, tl(i), tl(k)] = C
-            else:
-                L[:, tl(i), tl(k)] = C @ Wd[:, k].transpose(1, 2)
+    Wd = torch.zeros((B, nt, TILE, TILE), dtype=K.dtype)
     W = torch.zeros_like(L)
-    for i, k in _winv_flow_tasks(nt):
+
+    def factor_task(i, k):
+        parts = [torch.zeros((B, TILE, TILE), dtype=K.dtype) for _ in range(TILE // SUB)]
+        for j in range(k - 1 if i == k and k > 0 else k):
+            for g, part in enumerate(parts):
+                q = slice(j * TILE + g * SUB, j * TILE + (g + 1) * SUB)
+                part += L[:, tl(i), q] @ L[:, tl(k), q].transpose(1, 2)
+        s = parts[0]
+        for part in parts[1:]:
+            s = s + part
+        C = A[:, tl(i), tl(k)] - s
+        if i == k and k > 0:  # L_{k,k-1} from the subdiagonal task's stored sum
+            Lk = L[:, tl(k), tl(k - 1)] @ Wd[:, k - 1].transpose(1, 2)
+            L[:, tl(k), tl(k - 1)] = Lk
+            C = C - Lk @ Lk.transpose(1, 2)
+        if i == k:
+            L[:, tl(k), tl(k)], Wd[:, k] = _tile_factor_plain(C)
+        elif i == k + 1:
+            L[:, tl(i), tl(k)] = C
+        else:
+            L[:, tl(i), tl(k)] = C @ Wd[:, k].transpose(1, 2)
+
+    def winv_task(i, k):
         if i == k:
             W[:, tl(i), tl(i)] = Wd[:, i]
-            continue
+            return
         parts = [torch.zeros((B, TILE, TILE), dtype=K.dtype) for _ in range(TILE // SUB)]
         for j in range(k, i):
             Wjk = Wd[:, k] if j == k else W[:, tl(j), tl(k)]
@@ -387,4 +481,22 @@ def _schedule_plain(K: torch.Tensor, route: str = "step"):
             s = s + part
         W[:, tl(i), tl(k)] = -(Wd[:, i] @ s)
         W[:, tl(k), tl(i)] = 0.0
+
+    if route == "step":
+        L[:, tl(0), tl(0)], Wd[:, 0] = _tile_factor_plain(A[:, tl(0), tl(0)])
+        for j in range(nt - 1):
+            rest = tl(j + 1, nt)
+            P = A[:, rest, tl(j)] @ Wd[:, j].transpose(1, 2)
+            L[:, rest, tl(j)] = P
+            A[:, rest, rest] -= P @ P.transpose(1, 2)
+            L[:, tl(j + 1), tl(j + 1)], Wd[:, j + 1] = _tile_factor_plain(A[:, tl(j + 1), tl(j + 1)])
+    elif route == "flow":
+        for i, k in _flow_tasks(nt):
+            factor_task(i, k)
+    else:
+        for kind, i, k in _fused_flow_tasks(nt):
+            (factor_task if kind == "L" else winv_task)(i, k)
+        return L, Wd, W
+    for i, k in _winv_flow_tasks(nt):
+        winv_task(i, k)
     return L, Wd, W

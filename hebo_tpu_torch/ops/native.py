@@ -41,6 +41,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "hebo_chol_route": [_I],
         "hebo_chol_winv": [_P, _P, _P, _P, _P, _I, _I, _P],
         "hebo_chol_winv_route": [_I],
+        "hebo_chol_factor_inv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "ssk": {
         "hebo_ssk_cross": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

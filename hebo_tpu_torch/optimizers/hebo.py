@@ -68,7 +68,7 @@ from ..acq_optimizers.evolution import (EvolutionOpt, GenDraws, MetaTensors, _sp
 from ..acquisitions.acq import MACE, AcqParams
 from ..models import get_model, get_model_class
 from ..models.gp.gp import GPData, map_fit
-from ..ops.chol_kernel import chol_factor, chol_winv
+from ..ops.chol_kernel import chol_factor, chol_factor_inv, chol_winv
 from ..ops.gram import matern32_gram, matern32_gram_vjp
 from ..ops.pareto import nsga2_rank_crowd
 from ..ops.transforms import fit_power_transform, power_transform_y
@@ -565,7 +565,7 @@ class _SuggestGraph(NamedTuple):
 
 # the kernel wrappers of the suggest, whose ``.launches`` (and K5's
 # ``.grid_launches``, past the one-CTA route's rows) a replay advances
-COUNTED = (matern32_gram, matern32_gram_vjp, chol_factor, chol_winv, nsga2_rank_crowd)
+COUNTED = (matern32_gram, matern32_gram_vjp, chol_factor, chol_winv, chol_factor_inv, nsga2_rank_crowd)
 
 
 def _counts() -> Dict[Tuple[Callable, str], int]:

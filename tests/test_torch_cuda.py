@@ -22,7 +22,10 @@ and K1b each on both of their routes (the rules' edges, both routes forced
 at small sizes): the same tolerances, NaN confined to its matrix, a batch
 member's bits equal to its own factorization's, and the same bits from two
 launches; K1b's flow route at BOCS's (1, 5051) on a horseshoe-like
-A = ΦᵀΦ + diag(1/(τ²λ²)): ‖W·L − I‖_max within 10× the plain version's.  HEBO's
+A = ΦᵀΦ + diag(1/(τ²λ²)): ‖W·L − I‖_max within 10× the plain version's.
+The fused K1 call (from 8 tiles) at every flow-route shape of chip_smoke:
+the bits of K1a then K1b, the same tolerances, NaN confined to its matrix,
+a skipped member's buffers kept, and a member's bits alone = in a batch.  HEBO's
 suggest as a captured CUDA graph: the same suggestion as the eager CUDA path
 at a seed, and a replay that makes no host sync.  Above max_cholesky_size:
 the CG posterior against the dense K1 posterior at N = 2048 with
@@ -548,9 +551,13 @@ def test_chol_ladder_skip_and_jitter_on_card(cuda, N):
     K[2] = -1e3 * np.eye(N, dtype=np.float32)
     for Kb, want in ((K, [True, True, False]), (_spd(rng, 2, N), [True, True])):
         Kt = torch.as_tensor(Kb, device=cuda)
-        n0 = chol_kernel.chol_factor.launches
+        n0 = (chol_kernel.chol_factor.launches, chol_kernel.chol_winv.launches,
+              chol_kernel.chol_factor_inv.launches)
         L, W, ok = tchol.batched_ladder_factor(Kt, tchol.LADDER)
-        assert chol_kernel.chol_factor.launches == n0 + len(tchol.LADDER)
+        pair = (len(tchol.LADDER),) * 2 + (0,)  # one K1 call a rung: the pair, or the fused call from 8 tiles
+        assert (chol_kernel.chol_factor.launches - n0[0], chol_kernel.chol_winv.launches - n0[1],
+                chol_kernel.chol_factor_inv.launches - n0[2]) == (
+                    pair if chol_kernel.route(N) == "step" else (0, 0, len(tchol.LADDER)))
         L0, W0, ok0 = _ladder_on_host(Kt, tchol.LADDER)
         assert ok.tolist() == ok0.tolist() == want
         assert torch.equal(L[ok], L0[ok0]) and torch.equal(W[ok], W0[ok0])
@@ -729,6 +736,93 @@ def test_chol_winv_bocs_like_residual_on_card(cuda):
     assert np.isfinite(res) and res <= 10 * res0
 
 
+# the fused call at every flow-route K1 shape of chip_smoke
+FUSED_SHAPES = [(2, 1024), (1, 1024), (1, 512), (2, 512), (1, 768), (2, 768), (1, 1536), (2, 1536),
+                (1, 2048), (2, 2048), (4, 1024), (32, 1024), (1, 3072), (2, 3072), (1, 5051)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N", FUSED_SHAPES)
+def test_chol_factor_inv_on_card(cuda, B, N):
+    """The fused call (K1a's flow tasks and W's in one launch pair) where
+    K1a takes its flow route: the bits of chol_factor then chol_winv (its W
+    equal to chol_winv of its own L and Wd), the plain version's L, Wd
+    within 1e-4 and W within 1e-3, the same bits from two calls, and one
+    counted launch a call."""
+    assert chol_kernel.route(N) == "flow"
+    K = torch.as_tensor(_spd(np.random.default_rng(B * N + 2), B, N), device=cuda)
+    n0 = chol_kernel.chol_factor_inv.launches
+    L, Wd, W = chol_kernel.chol_factor_inv(K)
+    assert chol_kernel.chol_factor_inv.launches == n0 + 1
+    Lp, Wdp = chol_kernel.chol_factor(K)
+    assert torch.equal(L, Lp) and torch.equal(Wd, Wdp)
+    assert torch.equal(W, chol_kernel.chol_winv(L, Wd))
+    L0, Wd0 = chol_kernel.chol_factor_plain(K)
+    torch.testing.assert_close(L, L0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(Wd, Wd0, rtol=0, atol=1e-4)
+    torch.testing.assert_close(W, chol_kernel.chol_winv_plain(L0, Wd0), rtol=0, atol=1e-3)
+    assert all(torch.equal(a, b) for a, b in zip((L, Wd, W), chol_kernel.chol_factor_inv(K)))
+
+
+@pytest.mark.gpu
+def test_chol_factor_inv_alone_equals_batch_and_skip_on_card(cuda):
+    """The fused call at N 1000 with the ladder's arguments: a skipped
+    member keeps its three buffers, and each other member has the bits of
+    K + jitter·I factored alone by the fused call."""
+    K = torch.as_tensor(_spd(np.random.default_rng(17), 3, 1000), device=cuda)
+    Np = chol_kernel.padded_size(1000)
+    out = (torch.full((3, Np, Np), 7.0, device=cuda), torch.full((3, Np // 64, 64, 64), 7.0, device=cuda),
+           torch.full((3, Np, Np), 7.0, device=cuda))
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32, device=cuda)
+    jitter = torch.tensor([1e-3, 0.5, 0.25], device=cuda)
+    got = chol_kernel.chol_factor_inv(K, jitter, skip, out=out)
+    assert all(g is o for g, o in zip(got, out))
+    assert all(bool((o[1] == 7).all()) for o in out)
+    for b in (0, 2):
+        alone = chol_kernel.chol_factor_inv((K[b:b + 1] + jitter[b] * torch.eye(1000, device=cuda)).contiguous())
+        assert all(torch.equal(o[b], a[0]) for o, a in zip(out, alone))
+    n0 = chol_kernel.chol_factor_inv.launches
+    chol_kernel.chol_factor_inv(K, jitter, torch.ones(3, dtype=torch.int32, device=cuda), out=out)
+    assert chol_kernel.chol_factor_inv.launches == n0 + 1
+    assert all(bool((o[1] == 7).all()) for o in out)
+
+
+@pytest.mark.gpu
+def test_chol_factor_inv_nan_stays_in_its_matrix_on_card(cuda):
+    """The fused call at N 1100 on a −I member and a member whose first bad
+    pivot lies in its last tile: NaN in their L and W, finite before that
+    tile, and the third member the bits of its own fused call."""
+    rng = np.random.default_rng(18)
+    N, m = 1100, 1044
+    K = _spd(rng, 3, N)
+    K[0] = -np.eye(N, dtype=np.float32)
+    K[1] = np.eye(N, dtype=np.float32)
+    K[1, :m, :m] = _spd(rng, 1, m)[0]
+    K[1, m:, m:] = -np.eye(N - m, dtype=np.float32)
+    Kc = torch.as_tensor(K, device=cuda)
+    L, Wd, W = chol_kernel.chol_factor_inv(Kc)
+    for b in (0, 1):
+        assert not torch.isfinite(L[b]).all() and not torch.isfinite(W[b]).all()
+    assert torch.isfinite(L[1, :m // 64 * 64]).all() and torch.isfinite(W[1, :m // 64 * 64]).all()
+    alone = chol_kernel.chol_factor_inv(Kc[2:3].contiguous())
+    assert all(torch.equal(a[2], b[0]) for a, b in zip((L, Wd, W), alone))
+    assert torch.isfinite(W[2]).all()
+
+
+@pytest.mark.gpu
+def test_chol_factor_inv_below_the_flow_route_raises_on_card(cuda):
+    """Below 8 tiles (N ≤ 448) the fused call refuses the shape, and
+    ``factor_inv`` takes the pair there."""
+    K = torch.as_tensor(_spd(np.random.default_rng(19), 2, 448), device=cuda)
+    with pytest.raises(ValueError, match="flow route"):
+        chol_kernel.chol_factor_inv(K)
+    n0 = (chol_kernel.chol_factor.launches, chol_kernel.chol_winv.launches, chol_kernel.chol_factor_inv.launches)
+    L, Wd, W = chol_kernel.factor_inv(K)
+    assert (chol_kernel.chol_factor.launches - n0[0], chol_kernel.chol_winv.launches - n0[1],
+            chol_kernel.chol_factor_inv.launches - n0[2]) == (1, 1, 0)
+    assert torch.equal(W, chol_kernel.chol_winv(L, Wd))
+
+
 def _ackley(df):
     X = df[[f"x{i}" for i in range(6)]].values.astype(float)
     s1 = (X ** 2).mean(1) ** 0.5
@@ -774,7 +868,11 @@ def test_hebo_graph_suggest_equals_eager_and_never_syncs(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.isfinite(out).all()
-    assert all(w.launches > counts[w] for w in COUNTED)
+    # the replay advances every counted wrapper that bucket 128 runs; below
+    # 8 tiles K1 is K1a then K1b, so the fused call's count stays
+    fused = chol_kernel.chol_factor_inv
+    assert all(w.launches > counts[w] for w in COUNTED if w is not fused)
+    assert fused.launches == counts[fused] and chol_kernel.route(128) == "step"
 
 
 @pytest.mark.gpu
@@ -898,9 +996,9 @@ def test_posterior_ladder_above_bucket_2048_on_card(cuda):
     X = rng.uniform(-3, 3, (2300, 4)).astype(np.float32)
     y = (np.sin(X[:, :1]) + 0.1 * X[:, 1:2] ** 2 + 0.05 * rng.standard_normal((2300, 1))).astype(np.float32)
     Xq = torch.as_tensor(rng.uniform(-3, 3, (50, 4)).astype(np.float32))
-    before = ck.chol_factor.launches
+    before = ck.chol_factor_inv.launches  # bucket 2304: the fused call
     gp = GP(space, device="cuda", max_cholesky_size=4096, num_epochs=5, n_restarts=1, seed=2).fit(X, y)
-    assert ck.chol_factor.launches > before and gp.data.X.shape[0] == 2304 and gp.fit_data is gp.data
+    assert ck.chol_factor_inv.launches > before and gp.data.X.shape[0] == 2304 and gp.fit_data is gp.data
     core, cache = gp.core, gp.caches
     assert cache.Kt is None and cache.Wf is not None and bool(cache.ok.all())
     cpu = lambda t: type(t)(*[None if v is None else v.cpu() for v in t])

@@ -11,8 +11,8 @@ Tolerances (float32 on both sides, different summation orders):
   The same for ``_schedule_plain``, the plain mirror of the CUDA kernels'
   block schedule (16-wide sub-blocked tile factor; K1a's look-ahead panel
   steps or its left-looking flow tasks; K1b's doubling levels of W or its
-  forward-substitution flow tasks), checked here before the kernels run on
-  a card.
+  forward-substitution flow tasks; the fused route's interleaved ticket
+  order of both), checked here before the kernels run on a card.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -32,7 +32,8 @@ from hebo_tpu.ops.pallas_gram import matern32_gram_reference
 from hebo_tpu_torch.models.gp import kernels as tkernels
 from hebo_tpu_torch.ops import chol_kernel
 from hebo_tpu_torch.ops.chol_kernel import (
-    _schedule_plain, _tile_factor_plain, chol_factor, chol_factor_plain, chol_inv, chol_winv,
+    _fused_flow_tasks, _schedule_plain, _tile_factor_plain, chol_factor, chol_factor_inv,
+    chol_factor_inv_plain, chol_factor_plain, chol_inv, chol_winv, chol_winv_plain, factor_inv,
     padded_size,
 )
 from hebo_tpu_torch.ops.gram import matern32_gram
@@ -337,6 +338,101 @@ def test_winv_flow_schedule_out_of_order_reads_zeros(monkeypatch):
             np.testing.assert_allclose(Wbad[:, t(i), t(k)].numpy(), want.numpy(), atol=1e-5)
     np.testing.assert_allclose(Wbad[:, t(1), t(0)].numpy(), W[:, t(1), t(0)].numpy(), atol=1e-5)
     assert (Wbad - W).abs().max().item() > 1e-2
+
+
+def _fused_reads_and_forms(kind, i, k):
+    """The tiles a task of the fused order reads and forms: ("L", i, j),
+    ("S", k + 1, k) the subdiagonal task's stored sum, ("Wd", k), ("W", i, k)."""
+    if kind == "W":
+        if i == k:
+            return [("Wd", i)], [("W", i, i)]
+        reads = [("L", i, j) for j in range(k, i)] + [("W", j, k) for j in range(k + 1, i)]
+        return reads + [("Wd", k), ("Wd", i)], [("W", i, k)]
+    if i == k:
+        reads = [("L", k, j) for j in range(k - 1)]
+        if k > 0:
+            reads += [("S", k, k - 1), ("Wd", k - 1)]
+        return reads, [("L", k, k - 1)] * (k > 0) + [("L", k, k), ("Wd", k)]
+    reads = [t for j in range(k) for t in (("L", i, j), ("L", k, j))]
+    if i == k + 1:
+        return reads, [("S", i, k)]
+    return reads + [("Wd", k)], [("L", i, k)]
+
+
+@pytest.mark.parametrize("nt", range(8, 21))
+def test_fused_flow_order_reads_only_formed_tiles(nt):
+    """The fused route's ticket order (``csrc/chol.cu::fused_ticket``): each
+    task of K1a's and of W's once, K1a's in their own order, W's rows in
+    order, and every tile a task reads formed by a task with a smaller
+    ticket, so that a task waits only on tasks that running CTAs hold."""
+    order = _fused_flow_tasks(nt)
+    assert len(order) == len(set(order)) == nt * (nt + 1)
+    assert [(i, k) for kind, i, k in order if kind == "L"] == chol_kernel._flow_tasks(nt)
+    assert [(i, k) for kind, i, k in order if kind == "W"] == chol_kernel._winv_flow_tasks(nt)
+    formed = {}
+    for ticket, (kind, i, k) in enumerate(order):
+        for tile in _fused_reads_and_forms(kind, i, k)[1]:
+            formed[tile] = ticket
+    for ticket, (kind, i, k) in enumerate(order):
+        for tile in _fused_reads_and_forms(kind, i, k)[0]:
+            assert formed[tile] < ticket, (nt, kind, i, k, tile)
+    # W's row w comes WINV_LAG columns of K1a's tasks after its diagonal task
+    first = {i: t for t, (kind, i, k) in enumerate(order) if kind == "W" and k == 0}
+    diag = {i: t for t, (kind, i, k) in enumerate(order) if kind == "L" and i == k}
+    assert all(first[w] > diag[w] for w in range(nt))
+
+
+def test_fused_schedule_mirror_matches_slab_interpret():
+    """The fused route's order mirrored in plain torch (K1a's flow tasks and
+    W's tasks interleaved, each with its own arithmetic) at N 700 (11 tiles)
+    with a member whose first bad pivot lies in tile 9 (blockdiag(SPD
+    600×600, −I)): the same bits as the flow mirror's L, Wd and W; the SPD
+    member against the JAX package's slab kernels in interpret mode within
+    1e-4 (float32, other summation orders); NaN in the bad member's L and W
+    from tile 9 on and in no other member."""
+    rng = np.random.default_rng(40)
+    N, m = 700, 600
+    K = _spd(rng, 2, N)
+    K[1] = np.eye(N, dtype=np.float32)
+    K[1, :m, :m] = _spd(rng, 1, m)[0]
+    K[1, m:, m:] = -np.eye(N - m, dtype=np.float32)
+    L, Wd, W = _schedule_plain(torch.as_tensor(K), route="fused")
+    Lf, Wdf, Wf = _schedule_plain(torch.as_tensor(K), route="flow")
+    for a, b in ((L, Lf), (Wd, Wdf), (W, Wf)):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    Kp = np.eye(1024, dtype=np.float32)  # identity-padded (exact) to a size the tests above compiled
+    Kp[:N, :N] = K[0]
+    Lj, Wj = (np.asarray(t)[0, :N, :N] for t in chol_inv_slab(jnp.asarray(Kp[None]), interpret=True))
+    np.testing.assert_allclose(L[0, :N, :N].numpy(), Lj, atol=1e-4)
+    np.testing.assert_allclose(W[0, :N, :N].numpy(), Wj, atol=1e-4)
+    assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
+    assert torch.isfinite(L[1, :576]).all() and torch.isfinite(W[1, :576]).all()
+    assert not torch.isfinite(L[1, 576:]).all() and not torch.isfinite(W[1, 576:]).all()
+
+
+def test_chol_factor_inv_on_cpu_is_the_plain_pair():
+    """``chol_factor_inv`` on CPU tensors is ``chol_factor_plain`` then
+    ``chol_winv_plain``, with jitter, skip and out; ``factor_inv`` on CPU
+    tensors takes the pair at any size."""
+    rng = np.random.default_rng(41)
+    K = torch.as_tensor(_spd(rng, 3, 130))
+    jitter = torch.tensor([1e-3, 0.5, 0.25])
+    skip = torch.tensor([0, 1, 0], dtype=torch.int32)
+    L0, Wd0 = chol_factor_plain(K, jitter)
+    W0 = chol_winv_plain(L0, Wd0)
+    for fn in (chol_factor_inv, chol_factor_inv_plain, factor_inv):
+        L, Wd, W = fn(K, jitter)
+        assert torch.equal(L, L0) and torch.equal(Wd, Wd0) and torch.equal(W, W0)
+        out = (torch.full_like(L0, 7.0), torch.full_like(Wd0, 7.0), torch.full_like(W0, 7.0))
+        got = fn(K, jitter, skip, out=out)
+        assert all(g is o for g, o in zip(got, out))
+        assert all(bool((o[1] == 7).all()) for o in out)
+        for o, want in zip(out, (L0, Wd0, W0)):
+            assert torch.equal(o[[0, 2]], want[[0, 2]])
+    with pytest.raises(ValueError, match="out"):
+        chol_factor_inv(K, jitter, skip)
+    with pytest.raises(ValueError, match="out shapes"):
+        chol_factor_inv(K, out=(L0, Wd0, Wd0))
 
 
 def test_winv_schedule_mirror_one_tile_is_the_copy():
